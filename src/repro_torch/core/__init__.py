@@ -1,0 +1,13 @@
+# The paper's primary contribution: hypersolvers for continuous-depth models.
+from repro_torch.core.tableaus import (  # noqa: F401
+    Tableau, EULER, MIDPOINT, HEUN, RALSTON, RK4, RK38, RK3_KUTTA, DOPRI5,
+    alpha_family, get as get_tableau,
+)
+from repro_torch.core.integrate import (  # noqa: F401
+    Integrator, SolveStats, rk_stages, tree_axpy, tree_lincomb, with_initial,
+)
+from repro_torch.core.solvers import FixedGrid  # noqa: F401
+from repro_torch.core.controllers import (  # noqa: F401
+    EmbeddedErrorController, FixedController, HypersolverResidualController,
+    embedded_step, mesh_for_tolerance, per_sample_norm,
+)

@@ -1,0 +1,65 @@
+"""Primitive layers: truncated-normal init, dense, RMSNorm, embeddings.
+
+Conventions (as in ``repro/nn/module.py``): params are nested dicts of
+tensors with the reference's key names and layouts — a dense kernel is
+``(in, out)`` — so weights carry across leaf for leaf
+(``repro_torch/convert.py``). ``lead`` prepends stacking axes, the way the
+reference ``vmap``s a group's init over ``n_groups``. Matmuls on a
+low-precision activation accumulate in float32 and round once to the
+activation's type, the reference's ``preferred_element_type=float32``
+(``repro_torch.pin_cuda_numerics`` keeps cuBLAS from reducing in bf16).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence
+
+import torch
+
+Params = Any
+
+
+def _norm_cdf(x: float) -> float:
+    return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+
+def truncated_normal_init(gen: torch.Generator, shape: Sequence[int],
+                          scale: float, dtype: torch.dtype,
+                          device=None) -> torch.Tensor:
+    """Normal draws truncated to [-2, 2] (inverse-CDF of a uniform draw from
+    ``gen``), times ``scale``, stored as ``dtype``."""
+    lo, hi = _norm_cdf(-2.0), _norm_cdf(2.0)
+    x = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    x.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=gen)
+    x.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return x.mul_(scale).to(dtype)
+
+
+def dense_init(gen, in_dim: int, out_dim: int,
+               param_dtype=torch.float32, scale: Optional[float] = None,
+               lead=(), device=None):
+    scale = (in_dim ** -0.5) if scale is None else scale
+    return {"kernel": truncated_normal_init(
+        gen, (*lead, in_dim, out_dim), scale, param_dtype, device)}
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, params["kernel"].to(x.dtype))
+
+
+def rmsnorm_init(dim: int, param_dtype=torch.float32, lead=(), device=None):
+    return {"scale": torch.ones((*lead, dim), dtype=param_dtype,
+                                device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def embedding_init(gen, vocab: int, dim: int, param_dtype=torch.float32,
+                   device=None):
+    return {"table": truncated_normal_init(gen, (vocab, dim), 1.0,
+                                           param_dtype, device)}

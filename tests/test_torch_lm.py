@@ -1,0 +1,185 @@
+"""The port's LM (repro_torch/models, repro_torch/nn) held against the JAX
+package's on ``qwen3_4b.reduced()`` at 4 layers (d 64, 4 heads, kv 2,
+vocab 256, fp32). Weights are drawn by the JAX package and carried across
+with ``convert.params_from_jax``; tokens come from numpy. Tolerance fp32
+rtol = atol = 1e-4: XLA and PyTorch sum matmuls in different orders."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jax_configs
+from repro.models import cdepth as jcd
+from repro.models import lm as jlm
+from repro_torch import configs as torch_configs
+from repro_torch.convert import params_from_jax
+from repro_torch.core.integrate import Integrator
+from repro_torch.core.solvers import FixedGrid
+from repro_torch.core.tableaus import EULER
+from repro_torch.models import cdepth as tcd
+from repro_torch.models import lm as tlm
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def model():
+    cfg_j = dataclasses.replace(jax_configs.get("qwen3_4b").reduced(),
+                                n_layers=4)
+    cfg_t = dataclasses.replace(torch_configs.get("qwen3_4b").reduced(),
+                                n_layers=4)
+    pj = jlm.init_lm(jax.random.PRNGKey(0), cfg_j)
+    pt = params_from_jax(jax.tree_util.tree_map(np.asarray, pj))
+    toks = np.random.RandomState(0).randint(0, cfg_j.vocab, (3, 12))
+    return cfg_j, cfg_t, pj, pt, toks.astype(np.int32)
+
+
+def _close(t, j, **tol):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                               **(tol or TOL))
+
+
+def test_configs_equal_reference():
+    assert torch_configs.ARCH_IDS == jax_configs.ARCH_IDS
+    for name in jax_configs.ARCH_IDS:
+        cj, ct = jax_configs.get(name), torch_configs.get(name)
+        assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+        assert dataclasses.asdict(ct.reduced()) == \
+            dataclasses.asdict(cj.reduced())
+    assert {k: dataclasses.asdict(v) for k, v in torch_configs.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in jax_configs.SHAPES.items()}
+
+
+def test_params_carry_across_leaf_for_leaf(model):
+    _, cfg_t, pj, pt, _ = model
+    flat_j = jax.tree_util.tree_flatten_with_path(pj)[0]
+    assert len(flat_j) == len(jax.tree_util.tree_leaves(pt))
+    for path, leaf in flat_j:
+        node = pt
+        for k in path:
+            node = node[k.key]
+        assert tuple(node.shape) == leaf.shape
+        np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
+    # the port's own init draws the same tree of shapes and dtypes
+    own = tlm.init_lm(torch.Generator().manual_seed(0), cfg_t)
+    assert jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(lambda t: 0, own)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: 0, pt))
+    for a, b in zip(jax.tree_util.tree_leaves(own),
+                    jax.tree_util.tree_leaves(pt)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+
+
+def test_lm_forward_matches_jax(model):
+    cfg_j, cfg_t, pj, pt, toks = model
+    lj, _ = jlm.lm_forward(pj, cfg_j, jnp.asarray(toks))
+    lt, _ = tlm.lm_forward(pt, cfg_t, torch.from_numpy(toks))
+    assert lt.dtype == torch.float32 and lt.shape == (3, 12, cfg_t.vocab)
+    _close(lt, lj)
+
+
+@pytest.mark.parametrize("s", [0.0, 0.3, 0.5, 0.75, 0.999, 1.0])
+def test_depth_field_scalar_s_matches_jax(model, s):
+    cfg_j, cfg_t, pj, pt, toks = model
+    hj = jlm._embed(pj, cfg_j, jnp.asarray(toks))
+    ht = tlm._embed(pt, cfg_t, torch.from_numpy(toks))
+    fj, ft = jcd.depth_field(pj, cfg_j), tcd.depth_field(pt, cfg_t)
+    _close(ft(s, ht), fj(s, hj))
+    _close(ft(torch.tensor(s, dtype=torch.float32), ht),
+           fj(jnp.asarray(s, jnp.float32), hj))
+
+
+def test_depth_field_per_sample_s_matches_jax(model):
+    """A (B,) depth row sends samples to different layer groups in one
+    evaluation (the port splits the batch by group)."""
+    cfg_j, cfg_t, pj, pt, toks = model
+    hj = jlm._embed(pj, cfg_j, jnp.asarray(toks))
+    ht = tlm._embed(pt, cfg_t, torch.from_numpy(toks))
+    s = np.array([0.75, 0.0, 0.5], np.float32)
+    out_j = jcd.depth_field(pj, cfg_j)(jnp.asarray(s), hj)
+    out_t = tcd.depth_field(pt, cfg_t)(torch.from_numpy(s), ht)
+    _close(out_t, out_j)
+    same = np.array([0.25, 0.25, 0.25], np.float32)
+    _close(tcd.depth_field(pt, cfg_t)(torch.from_numpy(same), ht),
+           jcd.depth_field(pj, cfg_j)(jnp.asarray(same), hj))
+
+
+def _jax_mesh_indices(n_groups, Ks, k_max, batched):
+    """Group indices of the reference's mesh points, with its float32
+    arithmetic (integrate.py solve / solve_multirate, cdepth.py f)."""
+    out = []
+    for k in range(k_max):
+        if batched:
+            eps = jnp.asarray(1.0) / jnp.asarray(Ks, jnp.int32)
+            s = jnp.zeros_like(eps) if k == 0 else 0.0 + jnp.int32(k) * eps
+        else:
+            s = 0.0 + jnp.int32(k) * (1.0 / k_max)
+        out.append(np.asarray(jnp.clip(
+            jnp.floor(s * n_groups).astype(jnp.int32), 0, n_groups - 1)))
+    return out
+
+
+@pytest.mark.parametrize("n_groups", [4, 36])
+def test_group_index_at_mesh_points_matches_jax(n_groups):
+    """floor(s * n_groups) at every mesh point the solvers visit, fixed-K
+    and multi-rate, including meshes where s * n_groups lands on an
+    integer (n_groups = 36 with K = 4, 8, 36): an index off by one would
+    run the wrong layer group."""
+    for K in range(1, 37):
+        seen = []
+        f = lambda s, z: (seen.append(tcd._group_index(s, n_groups)),  # noqa
+                          torch.zeros_like(z))[1]
+        Integrator(EULER).solve(f, torch.zeros(1, 1),
+                                FixedGrid.over(0.0, 1.0, K),
+                                return_traj=False)
+        ref = _jax_mesh_indices(n_groups, None, K, batched=False)
+        assert [int(i) for i in seen] == [int(i) for i in ref], K
+    Ks = np.array([1, 3, 4, 8, 9, 12, 16, 36], np.int32)
+    seen = []
+    f = lambda s, z: (seen.append(tcd._group_index(s, n_groups)),  # noqa
+                      torch.zeros_like(z))[1]
+    Integrator(EULER).solve_multirate(f, torch.zeros(len(Ks), 1),
+                                      (0.0, 1.0), Ks, 36)
+    ref = _jax_mesh_indices(n_groups, Ks, 36, batched=True)
+    assert len(seen) == len(ref)
+    for a, b in zip(seen, ref):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_cdepth_full_k_equals_lm_forward(model):
+    cfg_j, cfg_t, pj, pt, toks = model
+    n = tlm.group_layout(cfg_t)[1]
+    full, _ = tlm.lm_forward(pt, cfg_t, torch.from_numpy(toks))
+    cd = tcd.lm_forward_cdepth(pt, cfg_t, torch.from_numpy(toks), K=n)
+    _close(cd, full.numpy(), rtol=1e-5, atol=1e-5)
+    for K in (2, n):
+        _close(tcd.lm_forward_cdepth(pt, cfg_t, torch.from_numpy(toks), K=K),
+               jcd.lm_forward_cdepth(pj, cfg_j, jnp.asarray(toks), K=K))
+
+
+def test_lm_g_apply_matches_jax(model):
+    cfg_j, cfg_t, pj, pt, toks = model
+    gj = jcd.lm_g_init(jax.random.PRNGKey(5), cfg_j, rank=8)
+    gj = dict(gj, w_out=0.1 * jax.random.normal(jax.random.PRNGKey(6),
+                                                gj["w_out"].shape))
+    gt = params_from_jax(jax.tree_util.tree_map(np.asarray, gj))
+    rs = np.random.RandomState(7)
+    h = rs.randn(3, 12, cfg_t.d_model).astype(np.float32)
+    dh = rs.randn(3, 12, cfg_t.d_model).astype(np.float32)
+    for s_j, s_t in [(0.0, 0.0), (0.375, 0.375),
+                     (jnp.asarray([0.0, 0.5, 0.875]),
+                      torch.tensor([0.0, 0.5, 0.875]))]:
+        out_j = jcd.lm_g_apply(gj, 0.5, s_j, None, jnp.asarray(h),
+                               jnp.asarray(dh))
+        out_t = tcd.lm_g_apply(gt, 0.5, s_t, None, torch.from_numpy(h),
+                               torch.from_numpy(dh))
+        _close(out_t, out_j)
+
+
+def test_unported_block_kinds_name_their_roadmap_item():
+    cfg = torch_configs.get("olmoe_1b_7b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlm.init_lm(torch.Generator().manual_seed(0), cfg)
