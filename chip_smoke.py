@@ -2,16 +2,24 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Builds every CUDA kernel of the serving path from the sources in the
-checkout, holds each against its plain PyTorch version at the serving
-shapes and times both, serves full-width ``qwen3_4b`` (36 layers, d 2560,
-bf16, random weights from a seeded generator) through the port's serving
-CLI and engine with the fused kernel, and checks fused against unfused
-serving in float32. Every phase prints one JSON line and raises on
-failure. The line before the last is the kernels' record; the last line
-is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+Builds the three CUDA kernels of the serving path (``hyper_step``,
+``flash_attention``, ``rglru_scan``) from the sources in the checkout,
+one nvcc process each, all started together; holds each kernel against
+its plain PyTorch version at the serving shapes and times both (flash
+attention also beside ``scaled_dot_product_attention`` as a yardstick
+the port never calls); serves full-width ``qwen3_4b`` (36 layers, d 2560)
+and full-width ``recurrentgemma_2b`` (26 layers, d 2560), bf16, random
+weights from a seeded generator, through the port's serving CLI (and,
+for qwen3_4b, the engine with hyper_euler), every batch mixing K; counts
+each kernel's launches against the block applications and solver steps
+of those runs; and checks fused against unfused serving in float32.
+Every phase prints one JSON line and raises on failure. The line before
+the last is the kernels' record; the last line is
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is available or the port's sources are missing.
 """
+import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -28,19 +36,25 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.core.tableaus import get as get_tableau  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hyper_step import ops as hs_ops  # noqa: E402
 from repro_torch.kernels.hyper_step.ref import fused_rk_update_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, lm_depth_model, snap_to_buckets)
+from repro_torch.models import cdepth, lm  # noqa: E402
 from repro_torch.models.cdepth import lm_g_init  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
 from repro_torch.nn.module import truncated_normal_init  # noqa: E402
 
-B, S, D = 8, 128, 2560          # the serving phase's batch of prompts
+B, S, D = 8, 128, 2560          # the serving phases' batch of prompts
 BUCKETS = "2,4,8"
 FP32_PEAK = 67e12               # H100 SXM float32 outside the tensor cores
+BF16_PEAK = 989e12              # H100 SXM dense bf16/fp16 tensor cores
 
 
 def emit(**row):
@@ -139,6 +153,151 @@ def phase_kernels(dev, bandwidth):
     return rows, max_err
 
 
+def attention_pairs(S_len, causal, window):
+    """(query, key) pairs a row set of length S_len attends over: the
+    work this run's masks leave, not the dense S^2."""
+    q = np.arange(S_len)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    hi = q + 1 if causal else np.full_like(q, S_len)
+    return int(np.sum(hi - lo))
+
+
+# name, (B, S, H, KV, hd), dtype, window: the serving shapes of both
+# models (Griffin's local window does not bind at S 128), float32 at the
+# Qwen3 shape (the fused-vs-unfused phase runs it), a window that binds,
+# and ragged S with windows whose first visited tile is fully masked
+FLASH_CASES = [
+    ("griffin", (8, 128, 10, 1, 256), torch.bfloat16, 2048),
+    ("qwen3", (8, 128, 32, 8, 128), torch.bfloat16, None),
+    ("qwen3-fp32", (8, 128, 32, 8, 128), torch.float32, None),
+    ("window-binds", (1, 4096, 10, 1, 256), torch.bfloat16, 2048),
+    ("ragged", (2, 200, 10, 1, 256), torch.bfloat16, 130),
+    ("ragged-fp32", (2, 200, 32, 8, 128), torch.float32, 40),
+]
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+def phase_flash(dev, bandwidth):
+    """flash_attention against its plain version (rtol = atol 2e-5 in
+    fp32 with TF32 off, 2e-2 in bf16: the bounds tests/test_kernels.py
+    holds the Pallas kernel to, since the sums run in other orders), the
+    kernel, plain and SDPA times cold-L2, and each case's bound."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, (b, s, h, kv, hd), dtype, window in FLASH_CASES:
+        def draw(n):
+            return torch.randn((b, s, n, hd), generator=gen,
+                               device=dev).to(dtype)
+        q, k, v = draw(h), draw(kv), draw(kv)
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+        ref = attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"flash_attention {name}: kernel disagrees "
+                                 f"with plain (max abs err {err})")
+        buf = torch.empty_like(q)
+        ms = time_ms(lambda: fa_ops.launch(buf, q, k, v, True, window),
+                     flush)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                 window=window), flush)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None or window >= s:
+            lib = dict(is_causal=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            lib = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                       & (pos[:, None] - pos[None, :] < window))
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **lib), flush)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * hd * b * h * attention_pairs(s, True, window)
+        peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
+        bound = max(nbytes / bandwidth, flops / peak) * 1e3
+        rows.append(dict(case=name, shape=[b, s, h, kv, hd],
+                         dtype=str(dtype).replace("torch.", ""),
+                         window=window, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound, bytes=nbytes, flops=flops,
+                         bound_by="bytes" if nbytes / bandwidth
+                         >= flops / peak else "operations"))
+        del q, k, v, out, ref, buf
+    emit(phase="kernels", kernel="flash_attention", causal=True, cases=rows,
+         max_abs_err=max(r["max_abs_err"] for r in rows),
+         library="torch.nn.functional.scaled_dot_product_attention")
+    return rows
+
+
+# name, (B, T, W), input dtype: the serving shape (fp32 gates, as
+# nn/rglru.py::_gates gives them) and ragged shapes, one in bf16
+RGLRU_CASES = [
+    ("serve", (8, 128, 2560), torch.float32),
+    ("ragged", (3, 77, 1000), torch.float32),
+    ("ragged-bf16", (2, 45, 333), torch.bfloat16),
+]
+
+
+def phase_rglru(dev, bandwidth):
+    """rglru_scan against its plain version bit for bit, both timed
+    cold-L2, and the bound (2 reads and 1 fp32 write per element)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, shape, dtype in RGLRU_CASES:
+        a = torch.sigmoid(torch.randn(shape, generator=gen,
+                                      device=dev)).to(dtype)
+        b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        out = rg_ops.rglru_scan(a, b)
+        ref = rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if out.dtype != torch.float32 or not torch.equal(out, ref):
+            raise AssertionError(f"rglru_scan {name}: kernel disagrees with "
+                                 f"plain (max abs err {err})")
+        buf = torch.empty_like(out)
+        ms = time_ms(lambda: rg_ops.launch(buf, a, b), flush)
+        plain_ms = time_ms(lambda: rglru_scan_ref(a, b), flush)
+        nbytes = 2 * a.numel() * a.element_size() + out.numel() * 4
+        flops = 2 * a.numel()
+        bound = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
+        rows.append(dict(case=name, shape=list(shape),
+                         dtype=str(dtype).replace("torch.", ""),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bytes=nbytes,
+                         bound_by="bytes" if nbytes / bandwidth
+                         >= flops / FP32_PEAK else "operations"))
+    emit(phase="kernels", kernel="rglru_scan", cases=rows,
+         max_abs_err=max(r["max_abs_err"] for r in rows),
+         library=None, library_note="no single PyTorch call computes a "
+         "linear recurrence h_t = a_t h_(t-1) + b_t (torch has no scan op)")
+    return rows
+
+
+@contextlib.contextmanager
+def count_blocks():
+    """Counts block applications by kind while open, by wrapping
+    ``block_apply`` where the model code calls it (models/lm.py and
+    models/cdepth.py); the package itself keeps no such counter."""
+    counts = collections.Counter()
+    orig = lm.block_apply
+
+    def counted(p, cfg, kind, h):
+        counts[kind] += 1
+        return orig(p, cfg, kind, h)
+
+    for mod in (lm, cdepth):
+        mod.block_apply = counted
+    try:
+        yield counts
+    finally:
+        for mod in (lm, cdepth):
+            mod.block_apply = orig
+
+
 def packed_k_max_sum(results, max_batch):
     """Sum of k_max over the engine's packed batches: stable sort by K,
     chunks of max_batch (one drain, no retries)."""
@@ -208,11 +367,24 @@ def serve_breakdown(engine, prompt):
                 host_finite_screen=screen_ms)
 
 
-def serve_cli(*extra):
-    return serve.main(["--arch", "qwen3_4b", "--batch", str(B),
+def serve_cli(arch, *extra):
+    return serve.main(["--arch", arch, "--batch", str(B),
                        "--prompt-len", str(S), "--solver", "euler",
                        "--multirate", "--fused", "--buckets", BUCKETS,
                        *extra])
+
+
+def check_block_launches(launches, blocks, tag):
+    """Every attention block application launched flash_attention once,
+    every recurrent block application rglru_scan once."""
+    for kernel, kinds in (("flash_attention", ("dense", "attn")),
+                          ("rglru_scan", ("rec",))):
+        applied = sum(blocks.get(k, 0) for k in kinds)
+        if launches.get(kernel, 0) != applied:
+            raise AssertionError(f"{tag}: {kernel} launched "
+                                 f"{launches.get(kernel, 0)} times, the "
+                                 f"{'/'.join(kinds)} block applications "
+                                 f"were {applied}")
 
 
 def hyper_engine(params, cfg, gp, tol):
@@ -225,13 +397,14 @@ def hyper_engine(params, cfg, gp, tol):
 
 
 def phase_serve(dev):
-    """The main path: full-width qwen3_4b served through the CLI (euler)
+    """A main path: full-width qwen3_4b served through the CLI (euler)
     and the engine (hyper_euler with a seeded nonzero g), every solver
-    step's update through the kernel, each batch mixing K. A calibration
-    run before it reads this run's probe errors and picks each solver's
-    tolerance from them."""
+    step's update through hyper_step and every attention block through
+    flash_attention, each batch mixing K. A calibration run before it
+    reads this run's probe errors and picks each solver's tolerance from
+    them."""
     torch.cuda.reset_peak_memory_stats(dev)
-    calib = serve_cli()
+    calib = serve_cli("qwen3_4b")
     cfg, prompt = calib["cfg"], calib["prompt"]
     gen = torch.Generator(device=dev).manual_seed(1)
     gp = lm_g_init(gen, cfg, rank=32, device=dev)
@@ -244,28 +417,30 @@ def phase_serve(dev):
     del calib
     torch.cuda.empty_cache()
 
-    hs_ops.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    cli = serve_cli("--tol", repr(tol_euler))
-    cli_wall = time.perf_counter() - t0
-    check_served(cli["results"], "serve euler")
-    params = cli["params"]
-
-    engine = hyper_engine(params, cfg, gp, tol_hyper)
-    ecfg, model = engine.ecfg, engine.model
-    with torch.no_grad():
-        torch.cuda.synchronize()
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
         t0 = time.perf_counter()
-        hyper = engine.run(prompt)
-        torch.cuda.synchronize()
-        hyper_s = time.perf_counter() - t0
+        cli = serve_cli("qwen3_4b", "--tol", repr(tol_euler))
+        cli_wall = time.perf_counter() - t0
+        params = cli["params"]
+        engine = hyper_engine(params, cfg, gp, tol_hyper)
+        ecfg, model = engine.ecfg, engine.model
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hyper = engine.run(prompt)
+            torch.cuda.synchronize()
+            hyper_s = time.perf_counter() - t0
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    check_served(cli["results"], "serve euler")
     check_served(hyper, "engine hyper_euler")
-    launches = hs_ops.LAUNCHES["hyper_step"]
     expected = packed_k_max_sum(cli["results"], 8) \
         + packed_k_max_sum(hyper, ecfg.max_batch)
-    if launches != expected:
-        raise AssertionError(f"hyper_step launched {launches} times, the "
+    if launches.get("hyper_step", 0) != expected:
+        raise AssertionError(f"hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, the "
                              f"solver steps were {expected}")
+    check_block_launches(launches, blocks, cfg.name)
     hyper_agree = [float(np.mean(np.argmax(r.outputs, -1)
                                  == cli["full_top"][i]))
                    for i, r in enumerate(hyper)]
@@ -281,11 +456,66 @@ def phase_serve(dev):
                           K=[r.K for r in hyper],
                           mean_nfe=float(np.mean([r.nfe for r in hyper])),
                           agree=float(np.mean(hyper_agree))),
-         hyper_step_launches=launches, expected_launches=expected,
+         launches=launches, expected_hyper_step_launches=expected,
+         block_applications=blocks,
          euler_breakdown_ms=breakdown,
          logits_bytes=B * S * cfg.vocab * 4,
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     del cli, params, model, engine, gp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_griffin(dev):
+    """A main path: full-width recurrentgemma_2b (26 layers: 8 groups of
+    rec, rec, attn and 2 tail rec layers) served through the CLI as
+    euler, multi-rate and fused, K mixed by the same calibration as the
+    qwen3_4b phase. Every recurrent block runs rglru_scan, every local
+    attention block flash_attention, every solver step hyper_step."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    calib = serve_cli("recurrentgemma_2b")
+    cfg, prompt = calib["cfg"], calib["prompt"]
+    tol = straddling_tol([r.err_probe for r in calib["results"]])
+    del calib
+    torch.cuda.empty_cache()
+
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        t0 = time.perf_counter()
+        cli = serve_cli("recurrentgemma_2b", "--tol", repr(tol))
+        cli_wall = time.perf_counter() - t0
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    check_served(cli["results"], "griffin serve euler")
+    expected = packed_k_max_sum(cli["results"], 8)
+    if launches.get("hyper_step", 0) != expected:
+        raise AssertionError(f"griffin: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, the "
+                             f"solver steps were {expected}")
+    check_block_launches(launches, blocks, cfg.name)
+    idle = [k for k in ("hyper_step", "flash_attention", "rglru_scan")
+            if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"griffin: {idle} never launched")
+    # each group is (rec, rec, attn); each pass over the tail is 2 rec
+    tail_passes, rem = divmod(blocks["rec"] - 2 * blocks["attn"], 2)
+    if rem or tail_passes < 1:
+        raise AssertionError(f"griffin: {blocks} is not 2 rec per attn "
+                             "plus 2 per tail pass")
+    breakdown = serve_breakdown(cli["engine"], prompt)
+    emit(phase="serve", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
+         euler=dict(seconds=cli["seconds"], cli_wall_s=cli_wall, tol=tol,
+                    K=[r.K for r in cli["results"]],
+                    mean_nfe=float(np.mean([r.nfe for r in cli["results"]])),
+                    agree=float(np.mean(cli["agree"])),
+                    agree_by_row=cli["agree"]),
+         launches=launches, expected_hyper_step_launches=expected,
+         block_applications=blocks, tail_passes=tail_passes,
+         euler_breakdown_ms=breakdown,
+         logits_bytes=B * S * cfg.vocab * 4,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del cli
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -350,19 +580,42 @@ def main() -> int:
          ptxas={k: [l.strip() for l in v.splitlines() if "Used" in l
                     or "spill" in l] for k, v in _build.BUILD_LOG.items()})
 
-    rows, max_err = phase_kernels(dev, memory_bandwidth(name))
-    launches = phase_serve(dev)
+    bandwidth = memory_bandwidth(name)
+    rows, max_err = phase_kernels(dev, bandwidth)
+    flash_rows = phase_flash(dev, bandwidth)
+    rglru_rows = phase_rglru(dev, bandwidth)
+    launches = collections.Counter()
+    for phase in (phase_serve, phase_serve_griffin):
+        launches.update(phase(dev))
     phase_fused_vs_unfused(dev)
 
     head = next(r for r in rows if r["case"] == "euler+g"
                 and r["dtype"] == "bfloat16")
-    emit(kernels=[dict(
-        name="hyper_step", route="cuda",
-        source="src/repro_torch/kernels/hyper_step/csrc/hyper_step.cu",
-        replaces="src/repro/kernels/hyper_step/hyper_step.py:89",
-        launches=launches, max_abs_err=max_err, ms=head["ms"],
-        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=None)])
+    flash = next(r for r in flash_rows if r["case"] == "griffin")
+    rglru = next(r for r in rglru_rows if r["case"] == "serve")
+    src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    emit(kernels=[
+        dict(name="hyper_step", route="cuda", source=src.format("hyper_step"),
+             replaces="src/repro/kernels/hyper_step/hyper_step.py:89",
+             launches=launches["hyper_step"], max_abs_err=max_err,
+             ms=head["ms"], plain_ms=head["plain_ms"],
+             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+             library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source=src.format("flash_attention"),
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:96",
+             launches=launches["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in flash_rows),
+             ms=flash["ms"], plain_ms=flash["plain_ms"],
+             bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
+             library_ms=flash["library_ms"]),
+        dict(name="rglru_scan", route="cuda", source=src.format("rglru_scan"),
+             replaces="src/repro/kernels/rglru_scan/rglru_scan.py:58",
+             launches=launches["rglru_scan"],
+             max_abs_err=max(r["max_abs_err"] for r in rglru_rows),
+             ms=rglru["ms"], plain_ms=rglru["plain_ms"],
+             bound_ms=rglru["bound_ms"], bound_by=rglru["bound_by"],
+             library_ms=None)])
     emit(ok=True, device=dict(platform="gpu", kind=name,
                               count=torch.cuda.device_count()))
     return 0

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -34,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> its CUDA source, relative to this directory
 SOURCES: Dict[str, str] = {
     "hyper_step": "hyper_step/csrc/hyper_step.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
 }
 
 # kernel name -> what nvcc/ptxas printed for its last build in this process
@@ -85,8 +88,11 @@ def build(name: str) -> Path:
 
 
 def build_all() -> Dict[str, Path]:
-    """Build every kernel. Returns name -> library path."""
-    return {name: build(name) for name in SOURCES}
+    """Build every kernel, one nvcc process per source, all started
+    together. Returns name -> library path."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SOURCES}
+        return {name: fut.result() for name, fut in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,117 @@
+"""Public wrapper of blocked attention with an online softmax.
+
+``flash_attention`` is what ``nn/attention.py::mha`` calls for every
+attention block, in the port's ``(B, S, heads, hd)`` layout. A tensor on
+the CPU takes the plain version (``ref.py``); a tensor on a CUDA device
+launches the CUDA kernel (``csrc/flash_attention.cu``, built by
+``kernels/_build.py`` at first use) or raises — there is no fallback.
+``LAUNCHES["flash_attention"]`` counts kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+HEAD_DIMS = (128, 256)       # head widths the kernel is instantiated for
+                             # (qwen3_4b's and recurrentgemma_2b's)
+MAX_GRID = 65535             # grid.y (heads) and grid.z (batch) limit
+ALIGN = 4                    # elements per vector load
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_launch.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                                           P, P, P, P, I, I, ctypes.c_float,
+                                           P]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: want q "
+                         "(B, S, H, hd) and k, v (B, S, KV, hd)")
+    B, S, H, hd = q.shape
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) \
+            or H % k.shape[2]:
+        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not "
+                         f"fit q {tuple(q.shape)} (H % KV must be 0)")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel can read it in place (last axis
+    contiguous, strides and address on 4-element boundaries), else a
+    fresh contiguous copy."""
+    if t.stride(-1) == 1 and all(s % ALIGN == 0 for s in t.stride()[:3]) \
+            and t.data_ptr() % (ALIGN * t.element_size()) == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0 ->
+    (B, S, H, hd) in q's dtype. Scores, softmax and P.V in fp32;
+    ``window`` keeps keys with q_pos - k_pos < window."""
+    _check_shapes(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: operand on {t.device}, q "
+                             f"on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: k/v {t.dtype}, q {q.dtype}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: no kernel for dtype {q.dtype} "
+                        f"(one of {sorted(map(str, _DTYPE_CODE))})")
+    B, S, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: no kernel for head width {hd} "
+                         f"(one of {HEAD_DIMS})")
+    if B > MAX_GRID or H > MAX_GRID:
+        raise ValueError(f"flash_attention: batch {B} or heads {H} > "
+                         f"{MAX_GRID}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel():
+        launch(out, _aligned(q), _aligned(k), _aligned(v), causal, window)
+    return out
+
+
+def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, causal: bool = True,
+           window: Optional[int] = None) -> None:
+    """One launch of the CUDA kernel on the current stream, writing
+    ``out`` (operands already checked and aligned by ``flash_attention``;
+    benchmarks call this directly to time the kernel alone)."""
+    B, S, H, hd = q.shape
+    lib = _library()
+    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3])
+               for t in (q, k, v, out)]
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, S, H, k.shape[2], hd, *strides,
+        int(causal), 0 if window is None else int(window), hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    LAUNCHES["flash_attention"] += 1

@@ -13,7 +13,6 @@ CUDA device launches the CUDA kernel (``csrc/hyper_step.cu``, built by
 """
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
@@ -21,15 +20,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.hyper_step.ref import fused_rk_update_ref
 
 MAX_STAGES = 6      # live stages the kernel's parameter struct holds
 MAX_BATCH = 65535   # grid.y limit: one grid row per batch row
 VEC = 8             # elements per thread; rows of a multiple of VEC vectorize
-
-# kernel name -> launches made by the wrappers in this process
-LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 

@@ -1,0 +1,72 @@
+"""Public wrapper of the RG-LRU scan ``h_t = a_t * h_{t-1} + b_t``.
+
+``rglru_scan`` is what ``nn/rglru.py::rglru_apply`` calls on the gates of
+every Griffin recurrent block. A tensor on the CPU takes the plain
+version (``ref.py``); a tensor on a CUDA device launches the CUDA kernel
+(``csrc/rglru_scan.cu``, built by ``kernels/_build.py`` at first use) or
+raises — there is no fallback. ``LAUNCHES["rglru_scan"]`` counts kernel
+launches, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+MAX_BATCH = 65535   # grid.y limit: one grid row per batch row
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("rglru_scan")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_launch.argtypes = [P, P, P, I, I, I, I, P]
+    lib.rglru_scan_launch.restype = ctypes.c_int
+    lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, T, W) of one float type -> fp32 (B, T, W) recurrence
+    outputs, the carry starting from zero (fold an initial state into
+    ``b[:, 0]``)."""
+    if a.ndim != 3 or a.shape != b.shape:
+        raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} must be one (B, T, W) shape")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return rglru_scan_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    if b.device != a.device:
+        raise ValueError(f"rglru_scan: b on {b.device}, a on {a.device}")
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise TypeError(f"rglru_scan: no kernel for dtypes {a.dtype}, "
+                        f"{b.dtype} (one of {sorted(map(str, _DTYPE_CODE))})")
+    if a.shape[0] > MAX_BATCH:
+        raise ValueError(f"rglru_scan: batch {a.shape[0]} > {MAX_BATCH}")
+    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if h.numel():
+        launch(h, a.contiguous(), b.contiguous())
+    return h
+
+
+def launch(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """One launch of the CUDA kernel on the current stream, writing the
+    fp32 ``h`` (contiguous operands). ``rglru_scan`` validates and
+    prepares them; benchmarks call this directly to time the kernel."""
+    B, T, W = a.shape
+    lib = _library()
+    err = lib.rglru_scan_launch(
+        a.data_ptr(), b.data_ptr(), h.data_ptr(), _DTYPE_CODE[a.dtype], B, T,
+        W, torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("rglru_scan launch failed: "
+                           + lib.rglru_scan_error_string(err).decode())
+    LAUNCHES["rglru_scan"] += 1

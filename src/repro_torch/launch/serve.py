@@ -5,6 +5,13 @@ fallback). Batching/eps policy lives in ``launch/engine.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \
         --solver euler --multirate --fused --buckets 2,4,8 \
         --batch 8 --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma_2b --reduced --device cpu --solver euler \
+        --multirate --fused --batch 2 --prompt-len 16
+
+Any ported architecture serves (``qwen3_4b``, ``recurrentgemma_2b``). The
+default ``--solver`` is the reference's discrete decode path, which is
+not ported yet, so a solver is named.
 
 Serves the continuous-depth drain path: ``--solver euler|heun|...|hyper_*``
 at a fixed ``--nfe K`` or error-controlled ``--multirate`` (``--tol``,

@@ -1,12 +1,14 @@
-"""Causal LM — the ``"dense"`` block kind of ``repro/models/lm.py``.
+"""Causal LM — the ``dense``, ``attn`` and ``rec`` block kinds of
+``repro/models/lm.py``.
 
 The layer stack is a repeating block *pattern*; groups of the pattern are
 parameter-stacked on a leading ``n_groups`` axis (the reference's layout,
 so weights carry across leaf for leaf) and applied in a Python loop. A
 remainder of ``n_layers mod len(pattern)`` becomes explicit tail layers.
-Only ``dense`` blocks (attention + FFN, no experts) are ported; the other
-block kinds, learned positions and modality frontends raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Ported: ``dense`` blocks (attention + FFN, no experts) and Griffin's
+``rec`` (RG-LRU recurrence + FFN) and ``attn`` (local attention + FFN)
+blocks. MoE and RWKV6 blocks, learned positions and modality frontends
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from repro_torch.nn.attention import attention_init, mha
 from repro_torch.nn.ffn import ffn_apply, ffn_init
 from repro_torch.nn.module import (dense_init, embedding_init, rmsnorm,
                                    rmsnorm_init)
+from repro_torch.nn.rglru import (griffin_recurrent_apply,
+                                  griffin_recurrent_init)
 
 Params = Any
 
@@ -27,10 +31,6 @@ _NOT_PORTED = {
     "moe": "ROADMAP.md queue 1 item 6 (other LM block kinds: MoE)",
     "rwkv": "ROADMAP.md queue 1 item 6 (other LM block kinds: RWKV6, "
             "with queue 2 kernel rwkv6_scan)",
-    "rec": "ROADMAP.md queue 1 item 6 (other LM block kinds: Griffin "
-           "recurrence, with queue 2 kernel rglru_scan)",
-    "attn": "ROADMAP.md queue 1 item 6 (other LM block kinds: Griffin "
-            "local attention)",
 }
 
 
@@ -39,8 +39,8 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _require_dense(kind: str) -> None:
-    if kind != "dense":
+def _require_ported(kind: str) -> None:
+    if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
 
@@ -83,31 +83,46 @@ def discrete_nfe(cfg: ArchConfig) -> int:
 # ------------------------------------------------------------- blocks ----
 
 def block_init(gen, cfg: ArchConfig, kind: str, lead=(), device=None) -> Params:
-    _require_dense(kind)
+    _require_ported(kind)
     pd = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     kw = dict(lead=lead, device=device)
+    if kind == "rec":
+        mixer = {"griffin": griffin_recurrent_init(gen, d, cfg.lru_width,
+                                                   pd, **kw)}
+    else:   # dense, attn
+        mixer = {"attn": attention_init(gen, d, cfg.n_heads, cfg.n_kv,
+                                        cfg.d_head, qk_norm=cfg.qk_norm,
+                                        param_dtype=pd, **kw)}
     return {
         "ln1": rmsnorm_init(d, pd, **kw),
-        "attn": attention_init(gen, d, cfg.n_heads, cfg.n_kv, cfg.d_head,
-                               qk_norm=cfg.qk_norm, param_dtype=pd, **kw),
+        **mixer,
         "ln2": rmsnorm_init(d, pd, **kw),
         "ffn": ffn_init(gen, d, cfg.d_ff, cfg.gated_ffn, pd, **kw),
     }
 
 
-def _attn_kwargs(cfg: ArchConfig) -> Dict:
+def _attn_kwargs(cfg: ArchConfig, kind: str) -> Dict:
+    """An ``attn`` block of a patterned (Griffin) model attends over its
+    local window; every other attention block over ``cfg.window``."""
+    window = cfg.local_window if (kind == "attn" and cfg.pattern_attn_every) \
+        else cfg.window
     return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
-                rope_theta=cfg.rope_theta, window=cfg.window,
+                rope_theta=cfg.rope_theta, window=window,
                 qk_norm=cfg.qk_norm, use_rope=(cfg.pos == "rope"))
 
 
 def block_apply(p: Params, cfg: ArchConfig, kind: str,
                 h: torch.Tensor) -> torch.Tensor:
     """Full-sequence (train / prefill) block application. The reference
-    threads an aux-loss dict through; dense blocks never touch it."""
-    _require_dense(kind)
-    h = h + mha(p["attn"], rmsnorm(p["ln1"], h), **_attn_kwargs(cfg))
+    threads an aux-loss dict through; these block kinds never touch it."""
+    _require_ported(kind)
+    if kind == "rec":
+        y, _ = griffin_recurrent_apply(p["griffin"], rmsnorm(p["ln1"], h))
+        h = h + y
+    else:   # dense, attn
+        h = h + mha(p["attn"], rmsnorm(p["ln1"], h),
+                    **_attn_kwargs(cfg, kind))
     return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h), act=cfg.act)
 
 
@@ -120,7 +135,7 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
     pd = dtype_of(cfg.param_dtype)
     pattern, n_groups, tail = group_layout(cfg)
     for kind in pattern:
-        _require_dense(kind)
+        _require_ported(kind)
     params = {
         "embed": embedding_init(gen, cfg.vocab, cfg.d_model, pd, device),
         "groups": {f"b{i}": block_init(gen, cfg, kind, lead=(n_groups,),
@@ -162,7 +177,7 @@ def _readout(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor):
     """tokens: (B, S) int. Returns (logits float32 (B, S, V), aux dict);
-    the aux losses are zero for dense blocks."""
+    the aux losses are zero for the ported block kinds."""
     _require_plain_lm(cfg)
     pattern, n_groups, tail = group_layout(cfg)
     h = _embed(params, cfg, tokens)

@@ -3,11 +3,15 @@
 
 Layouts (the reference's): q proj ``(d_model, n_heads * d_head)`` "wq",
 k/v ``(d_model, n_kv * d_head)`` "wk"/"wv", out ``(n_heads * d_head,
-d_model)`` "wo". Scores and context are plain einsums in float32 (the
-reference's ``preferred_element_type=float32`` on low-precision
-operands), with no fused attention call: this is the plain version the
-flash-attention kernel of a later slice is held against. The decode KV
-cache and ``mha_decode`` wait for the decode slice (ROADMAP.md queue 1).
+d_model)`` "wo". After the projections, qk-norm and RoPE, the attention
+itself is ``kernels/flash_attention/ops.py::flash_attention``: the
+hand-written CUDA kernel on the card, its plain version on the CPU. It
+follows the Pallas flash kernel's contract, which differs from the
+reference ``mha``'s einsums in one place: the softmax probabilities stay
+float32 for P.V, where the reference rounds them to the activation type
+first. In float32 the two agree up to the order of summation; in bf16
+the port is the more precise. The decode KV cache and ``mha_decode``
+wait for the decode slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -15,10 +19,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.nn.module import (dense_init, rmsnorm, rmsnorm_init,
                                    truncated_normal_init)
-
-NEG_INF = -1e30
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -63,21 +66,6 @@ def _proj(w, x: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], n, d_head)
 
 
-def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-               window: Optional[int]) -> torch.Tensor:
-    """(S_q, S_k) additive bias in float32."""
-    qp = q_pos[..., :, None]
-    kp = k_pos[..., None, :]
-    ok = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
-                    device=q_pos.device)
-    if causal:
-        ok = ok & (kp <= qp)
-    if window is not None:
-        ok = ok & (qp - kp < window)
-    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
-    return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
-
-
 def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
         rope_theta: float = 1e4, positions: Optional[torch.Tensor] = None,
         causal: bool = True, window: Optional[int] = None,
@@ -95,14 +83,6 @@ def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    group = n_heads // n_kv
-    qg = q.reshape(B, S, n_kv, group, d_head)
-    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k.float())
-    scores = scores * (d_head ** -0.5)
-    ar = torch.arange(S, device=x.device)
-    scores = scores + _mask_bias(ar, ar, causal, window)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bngst,btnh->bsngh", probs.float(),
-                       v.float()).to(x.dtype)
+    ctx = flash_attention(q, k, v, causal=causal, window=window)
     ctx = ctx.reshape(B, S, n_heads * d_head)
     return torch.matmul(ctx, params["wo"]["kernel"].to(x.dtype))

@@ -1,8 +1,12 @@
 """The port's LM (repro_torch/models, repro_torch/nn) held against the JAX
-package's on ``qwen3_4b.reduced()`` at 4 layers (d 64, 4 heads, kv 2,
-vocab 256, fp32). Weights are drawn by the JAX package and carried across
-with ``convert.params_from_jax``; tokens come from numpy. Tolerance fp32
-rtol = atol = 1e-4: XLA and PyTorch sum matmuls in different orders."""
+package's, fp32, vocab 256, d 64, 4 heads, on two reduced models:
+``qwen3_4b.reduced()`` at 4 layers (dense blocks, kv 2, 12 tokens) and
+``recurrentgemma_2b.reduced()`` at 14 layers (4 groups of rec, rec, attn
+plus 2 tail rec layers, MQA, local window 8, 16 tokens so the window
+binds). Weights are drawn by the JAX package and carried across with
+``convert.params_from_jax``; tokens come from numpy. Tolerance fp32
+rtol = atol = 1e-4: XLA and PyTorch sum matmuls in different orders (and
+the reference scans the RG-LRU associatively, the port sequentially)."""
 import dataclasses
 
 import jax
@@ -24,17 +28,34 @@ from repro_torch.models import lm as tlm
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
+# arch -> (layers, prompt tokens) of the reduced model under test
+ARCHS = {"qwen3_4b": (4, 12), "recurrentgemma_2b": (14, 16)}
 
-@pytest.fixture(scope="module")
-def model():
-    cfg_j = dataclasses.replace(jax_configs.get("qwen3_4b").reduced(),
-                                n_layers=4)
-    cfg_t = dataclasses.replace(torch_configs.get("qwen3_4b").reduced(),
-                                n_layers=4)
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def model(request):
+    n_layers, n_tok = ARCHS[request.param]
+    cfg_j = dataclasses.replace(jax_configs.get(request.param).reduced(),
+                                n_layers=n_layers)
+    cfg_t = dataclasses.replace(torch_configs.get(request.param).reduced(),
+                                n_layers=n_layers)
     pj = jlm.init_lm(jax.random.PRNGKey(0), cfg_j)
     pt = params_from_jax(jax.tree_util.tree_map(np.asarray, pj))
-    toks = np.random.RandomState(0).randint(0, cfg_j.vocab, (3, 12))
+    toks = np.random.RandomState(0).randint(0, cfg_j.vocab, (3, n_tok))
     return cfg_j, cfg_t, pj, pt, toks.astype(np.int32)
+
+
+def test_griffin_model_layout():
+    """The Griffin model under test: 4 groups of (rec, rec, attn) plus 2
+    tail rec layers, whose attn blocks attend over the local window."""
+    n_layers, n_tok = ARCHS["recurrentgemma_2b"]
+    cfg = dataclasses.replace(torch_configs.get("recurrentgemma_2b")
+                              .reduced(), n_layers=n_layers)
+    assert tlm.group_layout(cfg) == (("rec", "rec", "attn"), 4, 2)
+    assert tlm._attn_kwargs(cfg, "attn")["window"] == cfg.local_window == 8
+    assert n_tok > cfg.local_window
+    assert tlm._attn_kwargs(torch_configs.get("qwen3_4b"),
+                            "dense")["window"] is None
 
 
 def _close(t, j, **tol):
@@ -77,7 +98,7 @@ def test_lm_forward_matches_jax(model):
     cfg_j, cfg_t, pj, pt, toks = model
     lj, _ = jlm.lm_forward(pj, cfg_j, jnp.asarray(toks))
     lt, _ = tlm.lm_forward(pt, cfg_t, torch.from_numpy(toks))
-    assert lt.dtype == torch.float32 and lt.shape == (3, 12, cfg_t.vocab)
+    assert lt.dtype == torch.float32 and lt.shape == (*toks.shape, cfg_t.vocab)
     _close(lt, lj)
 
 

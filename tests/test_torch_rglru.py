@@ -1,0 +1,158 @@
+"""The port's RG-LRU scan (repro_torch/kernels/rglru_scan) and Griffin
+recurrent block (repro_torch/nn/rglru.py) held against the JAX package
+on the CPU.
+
+On a CPU tensor the scan's wrapper runs its plain PyTorch version
+(``ref.py``); the CUDA kernel is held against that same plain version,
+bit for bit, on the card by ``chip_smoke.py``. The scan mirrors
+tests/test_kernels.py's ``test_rglru_kernel_sweep`` (ragged T and W
+included) against the Pallas kernel in interpret mode, at its fp32
+tolerance rtol 1e-5 / atol 1e-6. The layers carry the JAX package's
+weights with ``params_from_jax`` and hold to rtol 2e-4 / atol 1e-5: the
+reference scans associatively and the port sequentially, and
+tests/test_nn_layers.py holds those two forms to that bound. Inputs come
+from numpy RandomState.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rglru_scan.ops import rglru_scan as jax_scan
+from repro.nn import rglru as jrg
+from repro_torch.convert import params_from_jax, tensor_from_numpy
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.nn import rglru as trg
+
+LAYER_TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+def _to_torch(tree):
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, tree))
+
+
+@pytest.mark.parametrize("B,T,W,chunk,bw", [
+    (1, 16, 8, 8, 8),
+    (2, 32, 16, 8, 8),       # several chunks and width blocks
+    (1, 20, 12, 8, 8),       # ragged T and W
+    (3, 64, 128, 16, 128),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_matches_jax(B, T, W, chunk, bw, dtype):
+    rs = np.random.RandomState(8)
+    jdt = getattr(jnp, dtype)
+    aj = jax.nn.sigmoid(jnp.asarray(rs.randn(B, T, W).astype(np.float32))) \
+        .astype(jdt)
+    bj = jnp.asarray(rs.randn(B, T, W).astype(np.float32)).astype(jdt)
+    ref = jax_scan(aj, bj, chunk=chunk, bw=bw, interpret=True)
+    out = rglru_scan(tensor_from_numpy(np.asarray(aj)),
+                     tensor_from_numpy(np.asarray(bj)))
+    assert out.dtype == torch.float32 and out.shape == (B, T, W)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
+    assert LAUNCHES["rglru_scan"] == 0   # the CPU takes the plain version
+
+
+@pytest.fixture(scope="module")
+def griffin():
+    d, W = 24, 16
+    pj = jrg.griffin_recurrent_init(jax.random.PRNGKey(9), d, W)
+    x = np.random.RandomState(10).randn(2, 12, d).astype(np.float32)
+    return pj, _to_torch(pj), x
+
+
+def test_rglru_init_tree_and_decay_range(griffin):
+    """The port's init draws the reference's tree of shapes and dtypes,
+    with a = exp(-8 softplus(Lambda)) in [0.9, 0.999] at r = 1."""
+    _, pt, _ = griffin
+    own = trg.griffin_recurrent_init(torch.Generator().manual_seed(0), 24, 16)
+    flat_own = jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_map(lambda t: 0, own))[0]
+    flat_ref = jax.tree_util.tree_flatten_with_path(
+        jax.tree_util.tree_map(lambda t: 0, pt))[0]
+    assert [p for p, _ in flat_own] == [p for p, _ in flat_ref]
+    for a, b in zip(jax.tree_util.tree_leaves(own),
+                    jax.tree_util.tree_leaves(pt)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(own["rglru"]["lam"]))
+    assert bool(((a >= 0.9 - 1e-6) & (a <= 0.999 + 1e-6)).all())
+
+
+def test_gates_match_jax(griffin):
+    pj, pt, _ = griffin
+    x = np.random.RandomState(11).randn(2, 12, 16).astype(np.float32)
+    aj, bj = jrg._gates(pj["rglru"], jnp.asarray(x))
+    at, bt = trg._gates(pt["rglru"], torch.from_numpy(x))
+    assert at.dtype == bt.dtype == torch.float32
+    np.testing.assert_allclose(at.numpy(), np.asarray(aj), **LAYER_TOL)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_causal_conv1d_matches_jax(griffin, with_carry):
+    pj, pt, _ = griffin
+    rs = np.random.RandomState(12)
+    x = rs.randn(2, 9, 16).astype(np.float32)
+    carry = rs.randn(2, 3, 16).astype(np.float32) if with_carry else None
+    yj, cj = jrg.causal_conv1d(pj["conv"], jnp.asarray(x),
+                               None if carry is None else jnp.asarray(carry))
+    yt, ct = trg.causal_conv1d(pt["conv"], torch.from_numpy(x),
+                               None if carry is None
+                               else torch.from_numpy(carry))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **LAYER_TOL)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_griffin_recurrent_apply_matches_jax(griffin, with_state):
+    """The whole recurrent branch, the scan through the port's wrapper,
+    from zero or from a carried (conv history, h0) state."""
+    pj, pt, x = griffin
+    rs = np.random.RandomState(13)
+    state_np = (rs.randn(2, 3, 16).astype(np.float32),
+                rs.randn(2, 16).astype(np.float32)) if with_state else None
+    sj = None if state_np is None else tuple(map(jnp.asarray, state_np))
+    st = None if state_np is None else tuple(map(torch.from_numpy, state_np))
+    yj, (cj, hj) = jrg.griffin_recurrent_apply(pj, jnp.asarray(x), sj)
+    yt, (ct, ht) = trg.griffin_recurrent_apply(pt, torch.from_numpy(x), st)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **LAYER_TOL)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), **LAYER_TOL)
+    # the conv history is the last in_rec projections (a matmul)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), **LAYER_TOL)
+    assert ht.dtype == torch.float32
+
+
+def test_rglru_apply_matches_pallas_kernel_on_gates(griffin):
+    """The port's rglru_apply == the Pallas scan over the reference's own
+    gates (tests/test_kernels.py::test_rglru_kernel_matches_module)."""
+    pj, pt, _ = griffin
+    x = np.random.RandomState(14).randn(2, 24, 16).astype(np.float32)
+    a, b = jrg._gates(pj["rglru"], jnp.asarray(x))
+    ref = jax_scan(a, b, chunk=8, bw=8, interpret=True)
+    y, hT = trg.rglru_apply(pt["rglru"], torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), **LAYER_TOL)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(ref)[:, -1],
+                               **LAYER_TOL)
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the card-only
+    branch of the wrapper without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def test_rglru_scan_raises_where_it_has_no_kernel():
+    a = torch.zeros(2, 5, 3)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rglru_scan(a.to("meta"), a.to("meta"))
+    with pytest.raises(TypeError, match="float64"):
+        d = a.double().as_subclass(_CudaLike)
+        rglru_scan(d, d)
+    with pytest.raises(ValueError, match="one \\(B, T, W\\) shape"):
+        rglru_scan(a, a[:, :4])
+    assert LAUNCHES["rglru_scan"] == 0

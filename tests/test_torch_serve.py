@@ -1,6 +1,7 @@
 """The port's serving CLI (repro_torch/launch/serve.py): it serves the
-continuous-depth drain path on the CPU when asked, its flag set is the
-reference parser's plus ``--device``, it refuses the CPU silently (no
+continuous-depth drain path of ``qwen3_4b`` and ``recurrentgemma_2b`` on
+the CPU when asked, its flag set is the reference parser's plus
+``--device``, it refuses the CPU silently (no
 CUDA and no ``--device cpu`` exits non-zero), and flags of slices not
 ported yet exit non-zero naming their ROADMAP.md item."""
 import os
@@ -16,6 +17,14 @@ from repro_torch.launch import serve
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU_RUN = ["--device", "cpu", "--reduced", "--batch", "3", "--prompt-len",
            "8"]
+# arch -> prompt length: Griffin's prompts outrun its reduced local window
+# of 8, so the window binds
+ARCHS = {"qwen3_4b": 8, "recurrentgemma_2b": 16}
+
+
+def _cpu_run(arch):
+    return ["--arch", arch, "--device", "cpu", "--reduced", "--batch", "3",
+            "--prompt-len", str(ARCHS[arch])]
 
 
 def _flags(path):
@@ -31,20 +40,24 @@ def test_flag_set_is_reference_plus_device():
     assert ref and port == ref | {"--device", "--help"}
 
 
+@pytest.mark.parametrize("arch", list(ARCHS))
 @pytest.mark.parametrize("solver", ["euler", "heun"])
-def test_serves_multirate_fused_on_cpu(capsys, solver):
-    out = serve.main(CPU_RUN + ["--solver", solver, "--multirate",
-                                "--fused", "--buckets", "2,4,8"])
+def test_serves_multirate_fused_on_cpu(capsys, arch, solver):
+    out = serve.main(_cpu_run(arch) + ["--solver", solver, "--multirate",
+                                       "--fused", "--buckets", "2,4,8"])
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith(f"[{solver} multirate cpu] scored 3x8")
+    assert lines[0].startswith(
+        f"[{solver} multirate cpu] scored 3x{ARCHS[arch]}")
     reqs = [l for l in lines if l.strip().startswith("req ")]
     assert len(reqs) == 3
     assert all("fused=True status=ok" in l for l in reqs)
     assert all(r.K in (2, 4, 8) and r.status == "ok" for r in out["results"])
+    assert out["cfg"].name == arch
 
 
-def test_serves_fixed_k_on_cpu(capsys):
-    out = serve.main(CPU_RUN + ["--solver", "euler", "--nfe", "2"])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_serves_fixed_k_on_cpu(capsys, arch):
+    out = serve.main(_cpu_run(arch) + ["--solver", "euler", "--nfe", "2"])
     assert "[euler K=2 cpu]" in capsys.readouterr().out
     assert [r.K for r in out["results"]] == [2, 2, 2]
 
@@ -71,16 +84,17 @@ def test_hyper_solver_without_g_exits():
         serve.main(CPU_RUN + ["--solver", "hyper_euler"])
 
 
-def test_no_cpu_fallback():
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_no_cpu_fallback(arch):
     """Without ``--device cpu`` the CLI asks for CUDA; with no card it
     exits non-zero instead of serving on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
-         "--solver", "euler"], capture_output=True, text=True, env=env,
-        timeout=120)
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--reduced", "--solver", "euler", "--multirate", "--fused"],
+        capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
     assert "scored" not in proc.stdout
