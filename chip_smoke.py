@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Builds the three CUDA kernels of the serving path (``hyper_step``,
-``flash_attention``, ``rglru_scan``) from the sources in the checkout,
-one nvcc process each, all started together; holds each kernel against
-its plain PyTorch version at the serving shapes and times both (flash
-attention also beside ``scaled_dot_product_attention`` as a yardstick
-the port never calls); serves full-width ``qwen3_4b`` (36 layers, d 2560)
-and full-width ``recurrentgemma_2b`` (26 layers, d 2560), bf16, random
-weights from a seeded generator, through the port's serving CLI (and,
-for qwen3_4b, the engine with hyper_euler), every batch mixing K; counts
+Builds the four CUDA kernels of the serving paths (``hyper_step``,
+``flash_attention``, ``rglru_scan``, ``rwkv6_scan``) from the sources in
+the checkout, one nvcc process each, all started together; holds each
+kernel against its plain PyTorch version at the serving shapes and times
+both (flash attention also beside ``scaled_dot_product_attention`` as a
+yardstick the port never calls); serves full-width ``qwen3_4b`` (36
+layers, d 2560), full-width ``recurrentgemma_2b`` (26 layers, d 2560)
+and full-width ``rwkv6_1p6b`` (24 layers, d 2048), bf16, random weights
+from a seeded generator, through the port's serving CLI (and, for
+qwen3_4b, the engine with hyper_euler), every batch mixing K; counts
 each kernel's launches against the block applications and solver steps
 of those runs; and checks fused against unfused serving in float32.
 Every phase prints one JSON line and raises on failure. The line before
@@ -43,6 +44,8 @@ from repro_torch.kernels.hyper_step import ops as hs_ops  # noqa: E402
 from repro_torch.kernels.hyper_step.ref import fused_rk_update_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, lm_depth_model, snap_to_buckets)
@@ -277,6 +280,79 @@ def phase_rglru(dev, bandwidth):
     return rows
 
 
+# name, (B, T, H, D), dtypes of (r, k, v), w, u, with a state: the
+# serving shape (bf16 dense outputs, the fp32 decay, a bf16 parameter),
+# ragged fp32, D 16 over 200 tokens (past the reference kernel's
+# 128-token chunk), and a given S0 with the final state asked for
+RWKV6_CASES = [
+    ("serve", (8, 128, 32, 64), torch.bfloat16, torch.float32,
+     torch.bfloat16, False),
+    ("ragged-fp32", (3, 77, 5, 64), torch.float32, torch.float32,
+     torch.float32, False),
+    ("d16-t200", (2, 200, 4, 16), torch.float32, torch.float32,
+     torch.float32, False),
+    ("state", (2, 50, 4, 64), torch.bfloat16, torch.float32,
+     torch.bfloat16, True),
+]
+RWKV6_TOL = 2e-6    # max abs error over max |plain|
+
+
+def phase_rwkv6(dev, bandwidth):
+    """rwkv6_scan against its plain version (max abs error at most 2e-6
+    of the largest plain output, and of the largest final state: the
+    state is the plain version's bit for bit, only the D-term dot product
+    of each output is summed in another order), both timed cold-L2, and
+    the bound (each operand read once, o and S_T written once; 7 flops
+    per state element per token)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, (b, t, h, d), xdt, wdt, udt, state in RWKV6_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        r, k, v = (randn(b, t, h, d).to(xdt) for _ in range(3))
+        # the model's decay range: exp(-exp(w0)), w0 in [-6, -1]
+        w0 = torch.linspace(-6.0, -1.0, h * d, device=dev).reshape(h, d)
+        w = torch.exp(-torch.exp(w0 + 0.1 * randn(b, t, h, d))).to(wdt)
+        u = (0.3 * randn(h, d)).to(udt)
+        S0 = randn(b, h, d, d) if state else None
+        out = rw_ops.wkv6(r, k, v, w, u, S0, want_state=state)
+        ref = wkv6_scan_ref(r, k, v, w, u, S0)
+        torch.cuda.synchronize()
+        pairs = list(zip(out, ref)) if state else [(out, ref[0])]
+        errs = [float((o - p).abs().max()) for o, p in pairs]
+        scale = [float(p.abs().max()) for _, p in pairs]
+        if any(e > RWKV6_TOL * s for e, s in zip(errs, scale)):
+            raise AssertionError(f"rwkv6_scan {name}: kernel disagrees with "
+                                 f"plain (max abs err {errs}, max |plain| "
+                                 f"{scale})")
+        o_buf = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
+        s_buf = torch.empty_like(S0) if state else None
+        ms = time_ms(lambda: rw_ops.launch(o_buf, r, k, v, w, u, S0, s_buf),
+                     flush)
+        plain_ms = time_ms(lambda: wkv6_scan_ref(r, k, v, w, u, S0), flush)
+        nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
+            + o_buf.numel() * 4 + (2 * S0.numel() * 4 if state else 0)
+        flops = 7 * d * d * b * t * h
+        bound = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
+        rows.append(dict(case=name, shape=[b, t, h, d],
+                         dtypes=[str(x).replace("torch.", "")
+                                 for x in (xdt, wdt, udt)],
+                         state=state, max_abs_err=max(errs),
+                         max_abs_plain=max(scale), tol=RWKV6_TOL, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bytes=nbytes,
+                         flops=flops,
+                         bound_by="bytes" if nbytes / bandwidth
+                         >= flops / FP32_PEAK else "operations"))
+        del r, k, v, w, u, S0, out, ref, o_buf, s_buf
+    emit(phase="kernels", kernel="rwkv6_scan", cases=rows,
+         max_abs_err=max(r["max_abs_err"] for r in rows),
+         library=None, library_note="no single PyTorch call computes the "
+         "WKV6 recurrence (a data-dependent diagonal decay of a (D, D) "
+         "state per head)")
+    return rows
+
+
 @contextlib.contextmanager
 def count_blocks():
     """Counts block applications by kind while open, by wrapping
@@ -376,9 +452,11 @@ def serve_cli(arch, *extra):
 
 def check_block_launches(launches, blocks, tag):
     """Every attention block application launched flash_attention once,
-    every recurrent block application rglru_scan once."""
+    every Griffin recurrent block application rglru_scan once, every
+    RWKV6 block application rwkv6_scan once."""
     for kernel, kinds in (("flash_attention", ("dense", "attn")),
-                          ("rglru_scan", ("rec",))):
+                          ("rglru_scan", ("rec",)),
+                          ("rwkv6_scan", ("rwkv",))):
         applied = sum(blocks.get(k, 0) for k in kinds)
         if launches.get(kernel, 0) != applied:
             raise AssertionError(f"{tag}: {kernel} launched "
@@ -466,14 +544,15 @@ def phase_serve(dev):
     return launches
 
 
-def phase_serve_griffin(dev):
-    """A main path: full-width recurrentgemma_2b (26 layers: 8 groups of
-    rec, rec, attn and 2 tail rec layers) served through the CLI as
-    euler, multi-rate and fused, K mixed by the same calibration as the
-    qwen3_4b phase. Every recurrent block runs rglru_scan, every local
-    attention block flash_attention, every solver step hyper_step."""
+def serve_counted(dev, arch):
+    """Serve full-width ``arch`` through the CLI as euler, multi-rate and
+    fused, K mixed by a calibration drain first (as the qwen3_4b phase),
+    with every kernel launch and block application counted; checks what
+    every serving path holds (each request served, hyper_step once per
+    solver step, the block kernels once per block application) and
+    returns the phase's report, launches and block applications."""
     torch.cuda.reset_peak_memory_stats(dev)
-    calib = serve_cli("recurrentgemma_2b")
+    calib = serve_cli(arch)
     cfg, prompt = calib["cfg"], calib["prompt"]
     tol = straddling_tol([r.err_probe for r in calib["results"]])
     del calib
@@ -482,16 +561,40 @@ def phase_serve_griffin(dev):
     LAUNCHES.clear()
     with count_blocks() as blocks:
         t0 = time.perf_counter()
-        cli = serve_cli("recurrentgemma_2b", "--tol", repr(tol))
+        cli = serve_cli(arch, "--tol", repr(tol))
         cli_wall = time.perf_counter() - t0
     launches, blocks = dict(LAUNCHES), dict(blocks)
-    check_served(cli["results"], "griffin serve euler")
+    check_served(cli["results"], f"{arch} serve euler")
     expected = packed_k_max_sum(cli["results"], 8)
     if launches.get("hyper_step", 0) != expected:
-        raise AssertionError(f"griffin: hyper_step launched "
+        raise AssertionError(f"{arch}: hyper_step launched "
                              f"{launches.get('hyper_step', 0)} times, the "
                              f"solver steps were {expected}")
     check_block_launches(launches, blocks, cfg.name)
+    report = dict(
+        phase="serve", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
+        euler=dict(seconds=cli["seconds"], cli_wall_s=cli_wall, tol=tol,
+                   K=[r.K for r in cli["results"]],
+                   mean_nfe=float(np.mean([r.nfe for r in cli["results"]])),
+                   agree=float(np.mean(cli["agree"])),
+                   agree_by_row=cli["agree"]),
+        launches=launches, expected_hyper_step_launches=expected,
+        block_applications=blocks,
+        euler_breakdown_ms=serve_breakdown(cli["engine"], prompt),
+        logits_bytes=B * S * cfg.vocab * 4,
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del cli
+    torch.cuda.empty_cache()
+    return report, launches, blocks
+
+
+def phase_serve_griffin(dev):
+    """A main path: full-width recurrentgemma_2b (26 layers: 8 groups of
+    rec, rec, attn and 2 tail rec layers). Every recurrent block runs
+    rglru_scan, every local attention block flash_attention, every solver
+    step hyper_step."""
+    report, launches, blocks = serve_counted(dev, "recurrentgemma_2b")
     idle = [k for k in ("hyper_step", "flash_attention", "rglru_scan")
             if not launches.get(k)]
     if idle:
@@ -501,21 +604,23 @@ def phase_serve_griffin(dev):
     if rem or tail_passes < 1:
         raise AssertionError(f"griffin: {blocks} is not 2 rec per attn "
                              "plus 2 per tail pass")
-    breakdown = serve_breakdown(cli["engine"], prompt)
-    emit(phase="serve", arch=cfg.name, layers=cfg.n_layers,
-         d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
-         euler=dict(seconds=cli["seconds"], cli_wall_s=cli_wall, tol=tol,
-                    K=[r.K for r in cli["results"]],
-                    mean_nfe=float(np.mean([r.nfe for r in cli["results"]])),
-                    agree=float(np.mean(cli["agree"])),
-                    agree_by_row=cli["agree"]),
-         launches=launches, expected_hyper_step_launches=expected,
-         block_applications=blocks, tail_passes=tail_passes,
-         euler_breakdown_ms=breakdown,
-         logits_bytes=B * S * cfg.vocab * 4,
-         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    del cli
-    torch.cuda.empty_cache()
+    emit(**report, tail_passes=tail_passes)
+    return launches
+
+
+def phase_serve_rwkv6(dev):
+    """A main path: full-width rwkv6_1p6b (24 rwkv layers, d 2048, 32 WKV
+    heads of 64). Every rwkv block runs rwkv6_scan, every solver step
+    hyper_step; nothing attends."""
+    report, launches, blocks = serve_counted(dev, "rwkv6_1p6b")
+    idle = [k for k in ("hyper_step", "rwkv6_scan") if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"rwkv6: {idle} never launched")
+    if set(blocks) != {"rwkv"} or launches.get("flash_attention", 0) \
+            or launches.get("rglru_scan", 0):
+        raise AssertionError(f"rwkv6: blocks {blocks}, launches {launches}: "
+                             "only rwkv blocks and their kernels should run")
+    emit(**report)
     return launches
 
 
@@ -584,8 +689,9 @@ def main() -> int:
     rows, max_err = phase_kernels(dev, bandwidth)
     flash_rows = phase_flash(dev, bandwidth)
     rglru_rows = phase_rglru(dev, bandwidth)
+    rwkv6_rows = phase_rwkv6(dev, bandwidth)
     launches = collections.Counter()
-    for phase in (phase_serve, phase_serve_griffin):
+    for phase in (phase_serve, phase_serve_griffin, phase_serve_rwkv6):
         launches.update(phase(dev))
     phase_fused_vs_unfused(dev)
 
@@ -593,6 +699,7 @@ def main() -> int:
                 and r["dtype"] == "bfloat16")
     flash = next(r for r in flash_rows if r["case"] == "griffin")
     rglru = next(r for r in rglru_rows if r["case"] == "serve")
+    rwkv6 = next(r for r in rwkv6_rows if r["case"] == "serve")
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
     emit(kernels=[
         dict(name="hyper_step", route="cuda", source=src.format("hyper_step"),
@@ -615,6 +722,13 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in rglru_rows),
              ms=rglru["ms"], plain_ms=rglru["plain_ms"],
              bound_ms=rglru["bound_ms"], bound_by=rglru["bound_by"],
+             library_ms=None),
+        dict(name="rwkv6_scan", route="cuda", source=src.format("rwkv6_scan"),
+             replaces="src/repro/kernels/rwkv6_scan/rwkv6_scan.py:71",
+             launches=launches["rwkv6_scan"],
+             max_abs_err=max(r["max_abs_err"] for r in rwkv6_rows),
+             ms=rwkv6["ms"], plain_ms=rwkv6["plain_ms"],
+             bound_ms=rwkv6["bound_ms"], bound_by=rwkv6["bound_by"],
              library_ms=None)])
     emit(ok=True, device=dict(platform="gpu", kind=name,
                               count=torch.cuda.device_count()))

@@ -37,6 +37,7 @@ SOURCES: Dict[str, str] = {
     "hyper_step": "hyper_step/csrc/hyper_step.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
+    "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
 }
 
 # kernel name -> what nvcc/ptxas printed for its last build in this process

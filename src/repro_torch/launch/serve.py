@@ -8,10 +8,12 @@ fallback). Batching/eps policy lives in ``launch/engine.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma_2b --reduced --device cpu --solver euler \
         --multirate --fused --batch 2 --prompt-len 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1p6b \
+        --solver euler --multirate --fused --batch 8 --prompt-len 128
 
-Any ported architecture serves (``qwen3_4b``, ``recurrentgemma_2b``). The
-default ``--solver`` is the reference's discrete decode path, which is
-not ported yet, so a solver is named.
+Any ported architecture serves (``qwen3_4b``, ``recurrentgemma_2b``,
+``rwkv6_1p6b``). The default ``--solver`` is the reference's discrete
+decode path, which is not ported yet, so a solver is named.
 
 Serves the continuous-depth drain path: ``--solver euler|heun|...|hyper_*``
 at a fixed ``--nfe K`` or error-controlled ``--multirate`` (``--tol``,

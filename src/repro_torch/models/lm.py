@@ -1,14 +1,15 @@
-"""Causal LM — the ``dense``, ``attn`` and ``rec`` block kinds of
+"""Causal LM — the ``dense``, ``attn``, ``rec`` and ``rwkv`` block kinds of
 ``repro/models/lm.py``.
 
 The layer stack is a repeating block *pattern*; groups of the pattern are
 parameter-stacked on a leading ``n_groups`` axis (the reference's layout,
 so weights carry across leaf for leaf) and applied in a Python loop. A
 remainder of ``n_layers mod len(pattern)`` becomes explicit tail layers.
-Ported: ``dense`` blocks (attention + FFN, no experts) and Griffin's
+Ported: ``dense`` blocks (attention + FFN, no experts), Griffin's
 ``rec`` (RG-LRU recurrence + FFN) and ``attn`` (local attention + FFN)
-blocks. MoE and RWKV6 blocks, learned positions and modality frontends
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+blocks, and RWKV-6's ``rwkv`` blocks (time mix + channel mix). MoE
+blocks, learned positions and modality frontends raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -19,18 +20,18 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.configs import ArchConfig
 from repro_torch.nn.attention import attention_init, mha
-from repro_torch.nn.ffn import ffn_apply, ffn_init
+from repro_torch.nn.ffn import (ffn_apply, ffn_init, rwkv_channel_mix,
+                                rwkv_channel_mix_init)
 from repro_torch.nn.module import (dense_init, embedding_init, rmsnorm,
                                    rmsnorm_init)
 from repro_torch.nn.rglru import (griffin_recurrent_apply,
                                   griffin_recurrent_init)
+from repro_torch.nn.rwkv6 import rwkv6_init, rwkv6_time_mix
 
 Params = Any
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md queue 1 item 6 (other LM block kinds: MoE)",
-    "rwkv": "ROADMAP.md queue 1 item 6 (other LM block kinds: RWKV6, "
-            "with queue 2 kernel rwkv6_scan)",
 }
 
 
@@ -87,6 +88,14 @@ def block_init(gen, cfg: ArchConfig, kind: str, lead=(), device=None) -> Params:
     pd = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     kw = dict(lead=lead, device=device)
+    if kind == "rwkv":
+        return {
+            "ln1": rmsnorm_init(d, pd, **kw),
+            "tmix": rwkv6_init(gen, d, cfg.rwkv_heads, cfg.lora_rank, pd,
+                               **kw),
+            "ln2": rmsnorm_init(d, pd, **kw),
+            "cmix": rwkv_channel_mix_init(gen, d, cfg.d_ff, pd, **kw),
+        }
     if kind == "rec":
         mixer = {"griffin": griffin_recurrent_init(gen, d, cfg.lru_width,
                                                    pd, **kw)}
@@ -117,6 +126,13 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str,
     """Full-sequence (train / prefill) block application. The reference
     threads an aux-loss dict through; these block kinds never touch it."""
     _require_ported(kind)
+    if kind == "rwkv":
+        tm, _ = rwkv6_time_mix(p["tmix"], rmsnorm(p["ln1"], h),
+                               cfg.rwkv_heads, want_state=False)
+        h = h + tm
+        xn = rmsnorm(p["ln2"], h)
+        x_prev = torch.cat([torch.zeros_like(xn[:, :1]), xn[:, :-1]], dim=1)
+        return h + rwkv_channel_mix(p["cmix"], xn, x_prev)
     if kind == "rec":
         y, _ = griffin_recurrent_apply(p["griffin"], rmsnorm(p["ln1"], h))
         h = h + y

@@ -1,5 +1,5 @@
-"""Feed-forward block: gated (SwiGLU-style) or plain, as in
-``repro/nn/ffn.py``. The RWKV channel mix waits for the RWKV slice."""
+"""Feed-forward variants, as in ``repro/nn/ffn.py``: gated (SwiGLU-style)
+or plain, and the RWKV channel mix."""
 from __future__ import annotations
 
 import torch
@@ -37,3 +37,29 @@ def ffn_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = ACTS[act](h)
     return dense(params["wd"], h)
+
+
+def rwkv_channel_mix_init(gen, d_model: int, d_ff: int,
+                          param_dtype=torch.float32, lead=(), device=None):
+    kw = dict(lead=lead, device=device)
+    return {
+        "wk": dense_init(gen, d_model, d_ff, param_dtype, **kw),
+        "wv": dense_init(gen, d_ff, d_model, param_dtype, **kw),
+        "wr": dense_init(gen, d_model, d_model, param_dtype, **kw),
+        "mix_k": torch.full((*lead, d_model), 0.5, dtype=param_dtype,
+                            device=device),
+        "mix_r": torch.full((*lead, d_model), 0.5, dtype=param_dtype,
+                            device=device),
+    }
+
+
+def rwkv_channel_mix(params, x: torch.Tensor,
+                     x_prev: torch.Tensor) -> torch.Tensor:
+    """RWKV channel mix: token-shift interpolation + squared-ReLU key net,
+    sigmoid receptance gate (Peng et al., arXiv:2404.05892)."""
+    mk = params["mix_k"].to(x.dtype)
+    mr = params["mix_r"].to(x.dtype)
+    xk = x * mk + x_prev * (1 - mk)
+    xr = x * mr + x_prev * (1 - mr)
+    k = torch.square(F.relu(dense(params["wk"], xk)))
+    return torch.sigmoid(dense(params["wr"], xr)) * dense(params["wv"], k)

@@ -2,8 +2,10 @@
 JAX package's ``MultiRateEngine`` on ``qwen3_4b.reduced()`` at 4 layers
 (8 prompts of 8 tokens) and ``recurrentgemma_2b.reduced()`` at 14 layers
 (4 groups of rec, rec, attn plus 2 tail rec layers; 8 prompts of 16
-tokens, past the local window of 8): the same prompts through euler,
-heun and hyper_euler (a nonzero g), fused and unfused, with mixed K. Per-request uid, K, nfe and status are equal
+tokens, past the local window of 8) and ``rwkv6_1p6b.reduced()`` at 8
+layers (8 rwkv groups; 8 prompts of 16 tokens): the same prompts through
+euler, heun and hyper_euler (a nonzero g), fused and unfused, with mixed
+K. Per-request uid, K, nfe and status are equal
 exactly; outputs agree at fp32 rtol = atol = 1e-4. Also: a correction g
 saved by the JAX ``CheckpointManager`` loads into the port.
 
@@ -33,9 +35,12 @@ from repro_torch.launch import engine as teng
 TOLS = {"qwen3_4b": {"euler": (0.5, 1), "heun": (0.13, 2),
                      "hyper_euler": (0.11, 1)},
         "recurrentgemma_2b": {"euler": (0.63, 1), "heun": (0.15, 2),
-                              "hyper_euler": (0.132, 1)}}
+                              "hyper_euler": (0.132, 1)},
+        "rwkv6_1p6b": {"euler": (0.7, 1), "heun": (0.7, 2),
+                       "hyper_euler": (0.12, 1)}}
 # arch -> (layers, prompt tokens) of the reduced model under test
-ARCHS = {"qwen3_4b": (4, 8), "recurrentgemma_2b": (14, 16)}
+ARCHS = {"qwen3_4b": (4, 8), "recurrentgemma_2b": (14, 16),
+         "rwkv6_1p6b": (8, 16)}
 BUCKETS = (2, 4, 8)
 
 

@@ -1,9 +1,10 @@
 """The port's LM (repro_torch/models, repro_torch/nn) held against the JAX
-package's, fp32, vocab 256, d 64, 4 heads, on two reduced models:
-``qwen3_4b.reduced()`` at 4 layers (dense blocks, kv 2, 12 tokens) and
+package's, fp32, vocab 256, d 64, 4 heads, on three reduced models:
+``qwen3_4b.reduced()`` at 4 layers (dense blocks, kv 2, 12 tokens),
 ``recurrentgemma_2b.reduced()`` at 14 layers (4 groups of rec, rec, attn
 plus 2 tail rec layers, MQA, local window 8, 16 tokens so the window
-binds). Weights are drawn by the JAX package and carried across with
+binds) and ``rwkv6_1p6b.reduced()`` at 8 layers (8 rwkv groups, 4 WKV
+heads of 16, 16 tokens). Weights are drawn by the JAX package and carried across with
 ``convert.params_from_jax``; tokens come from numpy. Tolerance fp32
 rtol = atol = 1e-4: XLA and PyTorch sum matmuls in different orders (and
 the reference scans the RG-LRU associatively, the port sequentially)."""
@@ -29,7 +30,8 @@ from repro_torch.models import lm as tlm
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 # arch -> (layers, prompt tokens) of the reduced model under test
-ARCHS = {"qwen3_4b": (4, 12), "recurrentgemma_2b": (14, 16)}
+ARCHS = {"qwen3_4b": (4, 12), "recurrentgemma_2b": (14, 16),
+         "rwkv6_1p6b": (8, 16)}
 
 
 @pytest.fixture(scope="module", params=list(ARCHS))
@@ -56,6 +58,20 @@ def test_griffin_model_layout():
     assert n_tok > cfg.local_window
     assert tlm._attn_kwargs(torch_configs.get("qwen3_4b"),
                             "dense")["window"] is None
+
+
+def test_rwkv6_model_layout():
+    """The RWKV6 model under test: one rwkv block per group, 8 groups, no
+    tail, 4 WKV heads of the kernel's head size 16, an untied head."""
+    n_layers, n_tok = ARCHS["rwkv6_1p6b"]
+    cfg = dataclasses.replace(torch_configs.get("rwkv6_1p6b").reduced(),
+                              n_layers=n_layers)
+    assert tlm.group_layout(cfg) == (("rwkv",), 8, 0)
+    assert cfg.d_model // cfg.rwkv_heads == 16 and not cfg.tie_embeddings
+    params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+    assert sorted(params["groups"]["b0"]) == ["cmix", "ln1", "ln2", "tmix"]
+    assert params["groups"]["b0"]["tmix"]["lora_a2"].shape == \
+        (8, 5, cfg.lora_rank, cfg.d_model)
 
 
 def _close(t, j, **tol):

@@ -1,0 +1,269 @@
+"""The port's WKV6 recurrence (repro_torch/kernels/rwkv6_scan) and RWKV-6
+layers (repro_torch/nn/rwkv6.py, the channel mix of repro_torch/nn/ffn.py)
+held against the JAX package on the CPU.
+
+On a CPU tensor the recurrence's wrapper runs its plain PyTorch version
+(``ref.py``); the CUDA kernel is held against that same plain version on
+the card by ``chip_smoke.py``. The recurrence mirrors
+tests/test_kernels.py's ``test_wkv6_kernel_sweep`` (plus a D = 64 case
+with ragged T) against the Pallas kernel in interpret mode, to rtol 1e-4
+and an absolute bound of 1e-6 of the largest output: the state does not
+shrink under decays near 1, so outputs grow with T and an output near 0
+has a large relative error from the other summation order alone. The
+layers carry the JAX package's weights with ``params_from_jax`` and hold
+to the reference tests' fp32 bound rtol 2e-4 / atol 2e-5
+(tests/test_nn_layers.py, tests/test_kernels.py). Inputs come from numpy
+RandomState.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rwkv6_scan.ops import wkv6 as jax_wkv6
+from repro.nn import ffn as jffn
+from repro.nn import rwkv6 as jrw
+from repro_torch.convert import params_from_jax, tensor_from_numpy
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.rwkv6_scan.ops import wkv6
+from repro_torch.nn import ffn as tffn
+from repro_torch.nn import rwkv6 as trw
+
+LAYER_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def _to_torch(tree):
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def _operands(rs, B, T, H, D):
+    """r, k, v, u normal; w = sigmoid(normal) in (0, 1), as the sweep."""
+    r, k, v = (rs.randn(B, T, H, D).astype(np.float32) for _ in range(3))
+    w = (1.0 / (1.0 + np.exp(-rs.randn(B, T, H, D)))).astype(np.float32)
+    u = (0.3 * rs.randn(H, D)).astype(np.float32)
+    return r, k, v, w, u
+
+
+def _close_scaled(out, ref):
+    """rtol 1e-4 and an absolute bound of 1e-6 of the largest output."""
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(out, ref, rtol=1e-4,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("B,T,H,D,chunk", [
+    (1, 8, 1, 8, 8),         # single chunk
+    (2, 16, 2, 8, 8),        # two chunks: state carry across chunks
+    (1, 20, 2, 8, 8),        # T not a chunk multiple
+    (1, 32, 1, 16, 16),
+    (2, 77, 2, 64, 32),      # RWKV6's head size, ragged T
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_matches_pallas_kernel(B, T, H, D, chunk, dtype):
+    jdt = getattr(jnp, dtype)
+    ops = [jnp.asarray(a).astype(jdt)
+           for a in _operands(np.random.RandomState(20), B, T, H, D)]
+    ref = jax_wkv6(*ops, chunk=chunk, interpret=True)
+    out = wkv6(*(tensor_from_numpy(np.asarray(a)) for a in ops))
+    assert out.dtype == torch.float32 and out.shape == (B, T, H, D)
+    _close_scaled(out.numpy(), ref)
+    assert LAUNCHES["rwkv6_scan"] == 0   # the CPU takes the plain version
+
+
+@pytest.mark.parametrize("T", [0, 1, 19])
+def test_wkv6_state_in_and_out_matches_jax(T):
+    """S0 and S_T against the reference's ``_wkv_with_initial_state``;
+    a zero start against its ``wkv6_scan_ref``. T = 0 passes S0 through."""
+    B, H, D = 2, 3, 16
+    rs = np.random.RandomState(21)
+    ops = _operands(rs, B, T, H, D)
+    S0 = rs.randn(B, H, D, D).astype(np.float32)
+    oj, Sj = jrw._wkv_with_initial_state(*map(jnp.asarray, ops),
+                                         jnp.asarray(S0))
+    ot, St = wkv6(*map(torch.from_numpy, ops), torch.from_numpy(S0),
+                  want_state=True)
+    assert ot.shape == (B, T, H, D) and St.shape == (B, H, D, D)
+    if T:
+        _close_scaled(ot.numpy(), oj)
+    _close_scaled(St.numpy(), Sj)
+    oj, Sj = jrw.wkv6_scan_ref(*map(jnp.asarray, ops))
+    ot, St = wkv6(*map(torch.from_numpy, ops), want_state=True)
+    if T:
+        _close_scaled(ot.numpy(), oj)
+    np.testing.assert_allclose(St.numpy(), np.asarray(Sj), rtol=1e-4,
+                               atol=1e-6 * max(np.abs(np.asarray(Sj)).max(),
+                                               1.0))
+    assert LAUNCHES["rwkv6_scan"] == 0
+
+
+def _tree_spec(tree):
+    return [(jax.tree_util.keystr(path), tuple(leaf.shape), str(leaf.dtype)
+             .replace("torch.", ""))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_trees_match_jax(dtype):
+    """rwkv6_init and rwkv_channel_mix_init draw the reference's tree of
+    paths, shapes and dtypes; ``lead`` stacks every leaf, as the
+    reference vmaps a group's init."""
+    d, H, r, f = 32, 4, 4, 48
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(0)
+    pairs = [(jrw.rwkv6_init(jax.random.PRNGKey(0), d, H, r, jdt),
+              lambda **kw: trw.rwkv6_init(gen, d, H, r, tdt, **kw)),
+             (jffn.rwkv_channel_mix_init(jax.random.PRNGKey(1), d, f, jdt),
+              lambda **kw: tffn.rwkv_channel_mix_init(gen, d, f, tdt, **kw))]
+    for ref, own in pairs:
+        spec = _tree_spec(jax.tree_util.tree_map(np.asarray, ref))
+        assert _tree_spec(own()) == spec
+        assert _tree_spec(own(lead=(3,))) == [(p, (3, *s), t)
+                                              for p, s, t in spec]
+    p = trw.rwkv6_init(gen, d, H, r, lead=(2,))
+    # decay base w0 = linspace(-6, -1): w in (0.69, 0.9975) at a zero lora
+    np.testing.assert_allclose(p["w0"][1].numpy(),
+                               np.linspace(-6.0, -1.0, d), rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def layer():
+    d, H = 32, 4
+    pj = jrw.rwkv6_init(jax.random.PRNGKey(6), d, H, lora_rank=8)
+    x = np.random.RandomState(22).randn(2, 16, d).astype(np.float32)
+    return pj, _to_torch(pj), x, H
+
+
+def test_time_mix_matches_jax(layer):
+    pj, pt, x, H = layer
+    oj, (xj, Sj) = jrw.rwkv6_time_mix(pj, jnp.asarray(x), H)
+    ot, (xt, St) = trw.rwkv6_time_mix(pt, torch.from_numpy(x), H)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **LAYER_TOL)
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    np.testing.assert_allclose(St.numpy(), np.asarray(Sj), **LAYER_TOL)
+    # without a final state the output is the same, and S_T is None
+    ot2, (_, none) = trw.rwkv6_time_mix(pt, torch.from_numpy(x), H,
+                                        want_state=False)
+    assert none is None and torch.equal(ot2, ot)
+
+
+def test_time_mix_pieces_match_jax(layer):
+    """Token shift, the five data-dependent mixes and the fp32 decay."""
+    pj, pt, x, _ = layer
+    last = np.random.RandomState(23).randn(2, x.shape[-1]).astype(np.float32)
+    sj = jrw._token_shift(jnp.asarray(x), jnp.asarray(last))
+    st = trw._token_shift(torch.from_numpy(x), torch.from_numpy(last))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+    mj = jrw._mix_inputs(pj, jnp.asarray(x), sj)
+    mt = trw._mix_inputs(pt, torch.from_numpy(x), st)
+    assert list(mt) == list(jrw.MIXES) == list(trw.MIXES)
+    for name in trw.MIXES:
+        np.testing.assert_allclose(mt[name].numpy(), np.asarray(mj[name]),
+                                   **LAYER_TOL)
+    wt = trw._decay(pt, mt["w"])
+    assert wt.dtype == torch.float32
+    np.testing.assert_allclose(wt.numpy(), np.asarray(jrw._decay(pj, mj["w"])),
+                               **LAYER_TOL)
+
+
+def test_time_mix_streaming_matches_jax(layer):
+    """Two halves with the carried (x_last, S) state == the reference's
+    full pass, and each half's state == the reference's."""
+    pj, pt, x, H = layer
+    full, _ = jrw.rwkv6_time_mix(pj, jnp.asarray(x), H)
+    hj, stj = jrw.rwkv6_time_mix(pj, jnp.asarray(x[:, :7]), H)
+    h1, st = trw.rwkv6_time_mix(pt, torch.from_numpy(x[:, :7]), H)
+    np.testing.assert_allclose(st[1].numpy(), np.asarray(stj[1]),
+                               **LAYER_TOL)
+    h2, st2 = trw.rwkv6_time_mix(pt, torch.from_numpy(x[:, 7:]), H, state=st)
+    _, stj2 = jrw.rwkv6_time_mix(pj, jnp.asarray(x[:, 7:]), H, state=stj)
+    merged = torch.cat([h1, h2], dim=1)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(full), **LAYER_TOL)
+    np.testing.assert_allclose(st2[1].numpy(), np.asarray(stj2[1]),
+                               **LAYER_TOL)
+
+
+def test_decode_step_matches_jax(layer):
+    """Token by token through ``rwkv6_decode_step`` == the reference's
+    full pass (tests/test_nn_layers.py::test_rwkv6_decode_step_matches_full)."""
+    pj, pt, x, H = layer
+    full, _ = jrw.rwkv6_time_mix(pj, jnp.asarray(x[:1, :6]), H)
+    state, outs = None, []
+    for t in range(6):
+        o, state = trw.rwkv6_decode_step(pt, torch.from_numpy(x[:1, t]),
+                                         state, H)
+        outs.append(o)
+    np.testing.assert_allclose(torch.stack(outs, dim=1).numpy(),
+                               np.asarray(full), **LAYER_TOL)
+    oj, sj = jrw.rwkv6_decode_step(pj, jnp.asarray(x[:1, 0]), None, H)
+    ot, st = trw.rwkv6_decode_step(pt, torch.from_numpy(x[:1, 0]), None, H)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **LAYER_TOL)
+    np.testing.assert_allclose(st[1].numpy(), np.asarray(sj[1]), **LAYER_TOL)
+
+
+def test_channel_mix_matches_jax():
+    d, f = 32, 48
+    pj = jffn.rwkv_channel_mix_init(jax.random.PRNGKey(18), d, f)
+    x = np.random.RandomState(24).randn(2, 9, d).astype(np.float32)
+    x_prev = np.concatenate([np.zeros_like(x[:, :1]), x[:, :-1]], axis=1)
+    yj = jffn.rwkv_channel_mix(pj, jnp.asarray(x), jnp.asarray(x_prev))
+    yt = tffn.rwkv_channel_mix(_to_torch(pj), torch.from_numpy(x),
+                               torch.from_numpy(x_prev))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **LAYER_TOL)
+
+
+def test_time_mix_bf16_matches_jax():
+    """bf16 weights and activations, as served. Both sides round to bf16
+    after every op of the activation type, but XLA may keep an fp32
+    intermediate inside a fused elementwise chain where PyTorch rounds
+    (and the reverse), so single elements differ by a few bf16 steps
+    (2^-8 of the value) that the projections then mix. The bound: every
+    element within 2 bf16 steps of the largest output, and the mean
+    difference under a quarter of a step (measured: 1.04 and 0.18)."""
+    d, H = 64, 4
+    pj = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16),
+        jrw.rwkv6_init(jax.random.PRNGKey(7), d, H, lora_rank=8))
+    x = np.random.RandomState(25).randn(2, 16, d).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    oj, (_, Sj) = jrw.rwkv6_time_mix(pj, xj, H)
+    ot, (_, St) = trw.rwkv6_time_mix(_to_torch(pj),
+                                     tensor_from_numpy(np.asarray(xj)), H)
+    assert ot.dtype == torch.bfloat16 and St.dtype == torch.float32
+    ref = np.asarray(oj, np.float32)
+    step = np.abs(ref).max() * 2.0 ** -8
+    diff = np.abs(ot.float().numpy() - ref)
+    assert diff.max() <= 2 * step, (diff.max(), step)
+    assert diff.mean() <= 0.25 * step, (diff.mean(), step)
+
+
+class _CudaLike(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the card-only
+    branch of the wrapper without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def test_wkv6_raises_where_it_has_no_kernel():
+    x, u = torch.zeros(1, 5, 2, 16), torch.zeros(2, 16)
+    meta = [t.to("meta") for t in (x, x, x, x, u)]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        wkv6(*meta)
+    # on the card: a dtype or head size the kernel lacks raises before any
+    # build or launch
+    with pytest.raises(TypeError, match="float64"):
+        d = x.double().as_subclass(_CudaLike)
+        wkv6(d, d, d, d, u.as_subclass(_CudaLike))
+    with pytest.raises(ValueError, match="head size 48"):
+        y = torch.zeros(1, 5, 2, 48).as_subclass(_CudaLike)
+        wkv6(y, y, y, y, torch.zeros(2, 48).as_subclass(_CudaLike))
+    with pytest.raises(ValueError, match="one device"):
+        c = x.as_subclass(_CudaLike)
+        wkv6(c, c, c, c, u)
+    with pytest.raises(ValueError, match="one \\(B, T, H, D\\) shape"):
+        wkv6(x, x, x, x[:, :4], u)
+    with pytest.raises(ValueError, match="u \\(3, 16\\)"):
+        wkv6(x, x, x, x, torch.zeros(3, 16))
+    assert LAUNCHES["rwkv6_scan"] == 0

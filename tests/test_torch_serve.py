@@ -1,6 +1,6 @@
 """The port's serving CLI (repro_torch/launch/serve.py): it serves the
-continuous-depth drain path of ``qwen3_4b`` and ``recurrentgemma_2b`` on
-the CPU when asked, its flag set is the reference parser's plus
+continuous-depth drain path of ``qwen3_4b``, ``recurrentgemma_2b`` and
+``rwkv6_1p6b`` on the CPU when asked, its flag set is the reference parser's plus
 ``--device``, it refuses the CPU silently (no
 CUDA and no ``--device cpu`` exits non-zero), and flags of slices not
 ported yet exit non-zero naming their ROADMAP.md item."""
@@ -18,8 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU_RUN = ["--device", "cpu", "--reduced", "--batch", "3", "--prompt-len",
            "8"]
 # arch -> prompt length: Griffin's prompts outrun its reduced local window
-# of 8, so the window binds
-ARCHS = {"qwen3_4b": 8, "recurrentgemma_2b": 16}
+# of 8, so the window binds; RWKV6's run its recurrence over 16 tokens
+ARCHS = {"qwen3_4b": 8, "recurrentgemma_2b": 16, "rwkv6_1p6b": 16}
 
 
 def _cpu_run(arch):
