@@ -64,6 +64,24 @@ def emit(**row):
     print(json.dumps(row), flush=True)
 
 
+def hmma_counts(libs):
+    """Tensor-core (HMMA) instructions in each library's SASS, by
+    cuobjdump beside nvcc; None where the toolkit has no cuobjdump.
+    Raises unless flash attention's library has some (its 16-bit path
+    runs on the tensor cores) and every other library has none."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts = {k: subprocess.run([tool, "-sass", str(v)], capture_output=True,
+                                text=True, check=True).stdout.count("HMMA")
+              for k, v in libs.items()}
+    if counts["flash_attention"] == 0 or any(
+            n for k, n in counts.items() if k != "flash_attention"):
+        raise AssertionError(f"HMMA instructions per library {counts}: "
+                             "expected some in flash_attention only")
+    return counts
+
+
 def memory_bandwidth(name: str) -> float:
     """Published device-memory rate of the card (bytes/s): H100 SXM only."""
     if name == "NVIDIA H100 80GB HBM3":
@@ -166,25 +184,28 @@ def attention_pairs(S_len, causal, window):
 
 
 # name, (B, S, H, KV, hd), dtype, window: the serving shapes of both
-# models (Griffin's local window does not bind at S 128), float32 at the
-# Qwen3 shape (the fused-vs-unfused phase runs it), a window that binds,
-# and ragged S with windows whose first visited tile is fully masked
+# models (Griffin's local window does not bind at S 128), float16 and
+# float32 at the Qwen3 shape (the fused-vs-unfused phase runs float32),
+# a window that binds, and ragged S with windows whose first visited tile
+# is fully masked
 FLASH_CASES = [
     ("griffin", (8, 128, 10, 1, 256), torch.bfloat16, 2048),
     ("qwen3", (8, 128, 32, 8, 128), torch.bfloat16, None),
+    ("qwen3-fp16", (8, 128, 32, 8, 128), torch.float16, None),
     ("qwen3-fp32", (8, 128, 32, 8, 128), torch.float32, None),
     ("window-binds", (1, 4096, 10, 1, 256), torch.bfloat16, 2048),
     ("ragged", (2, 200, 10, 1, 256), torch.bfloat16, 130),
     ("ragged-fp32", (2, 200, 32, 8, 128), torch.float32, 40),
 ]
-FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 
 
 def phase_flash(dev, bandwidth):
     """flash_attention against its plain version (rtol = atol 2e-5 in
-    fp32 with TF32 off, 2e-2 in bf16: the bounds tests/test_kernels.py
-    holds the Pallas kernel to, since the sums run in other orders), the
-    kernel, plain and SDPA times cold-L2, and each case's bound."""
+    fp32 with TF32 off, 2e-2 in bf16 and fp16: the bounds
+    tests/test_kernels.py holds the Pallas kernel to, since the sums run in
+    other orders), the kernel, plain and SDPA times cold-L2, and each
+    case's bound (bf16 and fp16 at the tensor cores' peak)."""
     assert not torch.backends.cuda.matmul.allow_tf32
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -283,7 +304,9 @@ def phase_rglru(dev, bandwidth):
 # name, (B, T, H, D), dtypes of (r, k, v), w, u, with a state: the
 # serving shape (bf16 dense outputs, the fp32 decay, a bf16 parameter),
 # ragged fp32, D 16 over 200 tokens (past the reference kernel's
-# 128-token chunk), and a given S0 with the final state asked for
+# 128-token chunk), a given S0 with the final state asked for, and the
+# smallest and largest instantiated head sizes (D 8, whose block is 4
+# threads, and D 128 with a state)
 RWKV6_CASES = [
     ("serve", (8, 128, 32, 64), torch.bfloat16, torch.float32,
      torch.bfloat16, False),
@@ -293,17 +316,21 @@ RWKV6_CASES = [
      torch.float32, False),
     ("state", (2, 50, 4, 64), torch.bfloat16, torch.float32,
      torch.bfloat16, True),
+    ("d8-t77", (3, 77, 6, 8), torch.float32, torch.float32,
+     torch.float32, False),
+    ("d128-state", (2, 100, 8, 128), torch.bfloat16, torch.float32,
+     torch.bfloat16, True),
 ]
 RWKV6_TOL = 2e-6    # max abs error over max |plain|
 
 
 def phase_rwkv6(dev, bandwidth):
     """rwkv6_scan against its plain version (max abs error at most 2e-6
-    of the largest plain output, and of the largest final state: the
-    state is the plain version's bit for bit, only the D-term dot product
-    of each output is summed in another order), both timed cold-L2, and
-    the bound (each operand read once, o and S_T written once; 7 flops
-    per state element per token)."""
+    of the largest plain output; the final state equal bit for bit, since
+    the kernel rounds the state update as the plain version does and only
+    regroups and reorders the output's sums), both timed cold-L2, and the
+    bound (each operand read once, o and S_T written once; 5 flops per
+    state element per token: k v, w S, + kv, and r S as an fma of 2)."""
     gen = torch.Generator(device=dev).manual_seed(6)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -326,6 +353,9 @@ def phase_rwkv6(dev, bandwidth):
             raise AssertionError(f"rwkv6_scan {name}: kernel disagrees with "
                                  f"plain (max abs err {errs}, max |plain| "
                                  f"{scale})")
+        if state and not torch.equal(out[1], ref[1]):
+            raise AssertionError(f"rwkv6_scan {name}: final state differs "
+                                 f"from plain (max abs err {errs[1]})")
         o_buf = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
         s_buf = torch.empty_like(S0) if state else None
         ms = time_ms(lambda: rw_ops.launch(o_buf, r, k, v, w, u, S0, s_buf),
@@ -333,7 +363,7 @@ def phase_rwkv6(dev, bandwidth):
         plain_ms = time_ms(lambda: wkv6_scan_ref(r, k, v, w, u, S0), flush)
         nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
             + o_buf.numel() * 4 + (2 * S0.numel() * 4 if state else 0)
-        flops = 7 * d * d * b * t * h
+        flops = 5 * d * d * b * t * h
         bound = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
         rows.append(dict(case=name, shape=[b, t, h, d],
                          dtypes=[str(x).replace("torch.", "")
@@ -683,7 +713,9 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
          ptxas={k: [l.strip() for l in v.splitlines() if "Used" in l
-                    or "spill" in l] for k, v in _build.BUILD_LOG.items()})
+                    or "spill" in l or "Compiling entry" in l]
+                for k, v in _build.BUILD_LOG.items()},
+         hmma=hmma_counts(libs))
 
     bandwidth = memory_bandwidth(name)
     rows, max_err = phase_kernels(dev, bandwidth)

@@ -1,17 +1,18 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each kernel is one ``csrc/*.cu`` file with a plain ``extern "C"``
-interface (no PyTorch headers, so a build takes seconds), compiled as
+interface (no PyTorch headers, so a build takes seconds), with any
+headers it includes beside it in ``csrc/``, compiled as
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
 into ``build/kernels/`` at the repository root (listed in .gitignore).
-The library's file name carries a hash of the source and the flags, so a
-build runs at first use, an edited source rebuilds, and an unchanged one
-loads the library already built. Nothing here runs at import time: this
-module imports on a machine without nvcc or a GPU, where only the plain
-versions of the kernels run.
+The library's file name carries a hash of the sources and the flags, so
+a build runs at first use, an edited source or header rebuilds, and an
+unchanged one loads the library already built. Nothing here runs at
+import time: this module imports on a machine without nvcc or a GPU,
+where only the plain versions of the kernels run.
 """
 from __future__ import annotations
 
@@ -62,10 +63,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = KERNELS_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where kernel ``name``'s library is built: the file name carries a
+    hash of the flags and of every file in the source's directory (names
+    and contents), so an edited header beside the ``.cu`` rebuilds too."""
+    csrc = (KERNELS_DIR / SOURCES[name]).parent
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(f.relative_to(csrc).as_posix().encode() + b"\0")
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -4,7 +4,9 @@
 attention block, in the port's ``(B, S, heads, hd)`` layout. A tensor on
 the CPU takes the plain version (``ref.py``); a tensor on a CUDA device
 launches the CUDA kernel (``csrc/flash_attention.cu``, built by
-``kernels/_build.py`` at first use) or raises — there is no fallback.
+``kernels/_build.py`` at first use) or raises — there is no fallback:
+bf16 and fp16 run on the tensor cores, float32 on the CUDA cores, one
+launch either way.
 ``LAUNCHES["flash_attention"]`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
@@ -21,7 +23,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 HEAD_DIMS = (128, 256)       # head widths the kernel is instantiated for
                              # (qwen3_4b's and recurrentgemma_2b's)
 MAX_GRID = 65535             # grid.y (heads) and grid.z (batch) limit
-ALIGN = 4                    # elements per vector load
+ALIGN_BYTES = 16             # one cp.async / vector load: 8 bf16 or fp16
+                             # elements, 4 fp32
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -53,10 +56,12 @@ def _check_shapes(q, k, v) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernel can read it in place (last axis
-    contiguous, strides and address on 4-element boundaries), else a
-    fresh contiguous copy."""
-    if t.stride(-1) == 1 and all(s % ALIGN == 0 for s in t.stride()[:3]) \
-            and t.data_ptr() % (ALIGN * t.element_size()) == 0:
+    contiguous, strides and address on 16-byte boundaries), else a fresh
+    contiguous copy."""
+    size = t.element_size()
+    if t.stride(-1) == 1 \
+            and all(s * size % ALIGN_BYTES == 0 for s in t.stride()[:3]) \
+            and t.data_ptr() % ALIGN_BYTES == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 

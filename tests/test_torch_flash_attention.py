@@ -10,6 +10,12 @@ S = 200), ``_noncausal_and_window`` (windows 64 and 130, non-causal) and
 Pallas kernel to: fp32 rtol = atol = 2e-5, bf16 2e-2 (the sums run in
 other orders). Inputs come from numpy RandomState, rounded once by JAX
 and carried to torch bit for bit.
+
+The CUDA kernel's 16-bit path runs on the tensor cores with its own
+arithmetic (scores from exact 16-bit products, P split into a 16-bit hi
+and lo for P.V); ``_mma_emulation`` repeats that arithmetic on the CPU,
+so its numeric contract is held here against the Pallas kernel and the
+float32 reference before the card runs it.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +28,7 @@ from repro.nn import attention as jattn
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention.ops import _aligned, flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 from repro_torch.nn import attention as tattn
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -82,11 +89,12 @@ def _first_visited_tile_fully_masked(S, window, block):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_fully_masked_first_tile(dtype):
     """Ragged S = 200 under a window of 40: many rows' first visited tile
-    is fully masked, both at the Pallas kernel's 128-row tiles and at the
-    CUDA kernel's 32-row tiles. The finite -1e30 mask makes that tile's
-    weights vanish at the next tile's rescale (with -inf they would be
-    NaN); the port matches the Pallas kernel there."""
-    for block in (128, 32):
+    is fully masked, at the Pallas kernel's 128-row tiles and at the CUDA
+    kernels' tiles (64 rows and keys for bf16 and fp16 at hd 128, 32 for
+    float32). The finite -1e30 mask makes that tile's weights vanish at
+    the next tile's rescale (with -inf they would be NaN); the port
+    matches the Pallas kernel there."""
+    for block in (128, 64, 32):
         assert _first_visited_tile_fully_masked(200, 40, block)
     _check(3, 2, 200, 4, 1, 128, dtype, True, 40)
 
@@ -147,3 +155,152 @@ def test_kernel_reads_aligned_views_in_place():
     fixed = _aligned(odd)
     assert fixed is not odd and fixed.is_contiguous()
     assert torch.equal(fixed, odd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_alignment_is_counted_in_bytes(dtype):
+    """16-bit operands need 16-byte (8-element) strides and address, what
+    a 16-byte cp.async copy needs: an offset of 4 elements (8 bytes) is
+    copied, one of 8 elements (16 bytes) is read in place."""
+    x = torch.randn(2, 8, 3, 64).to(dtype)
+    for offset, inplace in ((4, False), (8, True)):
+        view = x.reshape(-1)[offset:offset + 2 * 8 * 3 * 56] \
+            .reshape(2, 8, 3, 56)
+        got = _aligned(view)
+        assert (got is view) == inplace, offset
+        assert torch.equal(got, view)
+    heads = x[:, :, 1:, :56]                 # strides 192 / 64 elements
+    assert _aligned(heads) is heads
+    odd_stride = torch.randn(2, 8, 3, 60).to(dtype)[..., :56]   # 120 bytes
+    assert _aligned(odd_stride) is not odd_stride
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_mha_gives_the_kernel_operands_it_reads_in_place(monkeypatch, hd):
+    """On the main path nothing is copied before the kernel: the q, k, v
+    that ``mha`` hands the wrapper (projections, qk-norm, RoPE) are bf16
+    and pass the 16-byte rule as they are, at both instantiated widths."""
+    seen = []
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v))
+        return attention_ref(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention", record)
+    d, H, KV = 64, 4, 2
+    p = jattn.attention_init(jax.random.PRNGKey(5), d, H, KV, hd,
+                             qk_norm=True)
+    pt = params_from_jax(jax.tree_util.tree_map(np.asarray, p))
+    pt = jax.tree_util.tree_map(lambda t: t.to(torch.bfloat16), pt)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 24, d)
+                         .astype(np.float32)).to(torch.bfloat16)
+    tattn.mha(pt, x, n_heads=H, n_kv=KV, d_head=hd, qk_norm=True)
+    (q, k, v), = seen
+    for t in (q, k, v):
+        assert t.dtype == torch.bfloat16 and t.shape[-1] == hd
+        assert _aligned(t) is t
+
+
+LOG2E = 1.4426950408889634
+
+
+def _mma_emulation(q, k, v, *, causal=True, window=None, split=True):
+    """The tensor-core kernel's arithmetic (flash_attention_mma_kernel),
+    on the CPU, in float32, returned before the final rounding: q, k, v in
+    their 16-bit type; scores from products exact in fp32, times
+    float32(hd^-0.5) * float32(log2 e) after the product; per 64-row query
+    tile, kv tiles of 64 keys (16 at hd 256) from the window's lower tile
+    to the causal diagonal, masked with the finite -1e30; an online
+    softmax in base 2; each probability split into hi = T(p) and
+    lo = T(p - hi) for P.V (``split=False``: hi alone, p rounded once);
+    o = acc / max(l, 1e-30)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    BQ, BK = 64, (16 if hd >= 256 else 64)
+    T = q.dtype
+    n = -(-S // max(BQ, BK)) * max(BQ, BK)
+
+    def heads(t, rep):              # (B, S, n, hd) -> (B, H, n_pad, hd)
+        t = t.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+        return torch.nn.functional.pad(t, (0, 0, 0, n - S))
+
+    qf, kf, vf = heads(q, 1), heads(k, G), heads(v, G)
+    scale2 = torch.tensor(hd ** -0.5, dtype=torch.float32) \
+        * torch.tensor(LOG2E, dtype=torch.float32)
+    out = torch.zeros(B, H, n, hd)
+    for q0 in range(0, S, BQ):
+        hi = -(-S // BK)
+        if causal:
+            hi = min(hi, (q0 + BQ + BK - 1) // BK)
+        lo = max(0, q0 - (window - 1)) // BK if window else 0
+        qpos = torch.arange(q0, q0 + BQ)[:, None]
+        acc = torch.zeros(B, H, BQ, hd)
+        m = torch.full((B, H, BQ, 1), NEG_INF)
+        l = torch.zeros(B, H, BQ, 1)
+        for j in range(lo, hi):
+            kpos = torch.arange(j * BK, (j + 1) * BK)[None, :]
+            ok = kpos < S
+            if causal:
+                ok = ok & (kpos <= qpos)
+            if window:
+                ok = ok & (qpos - kpos < window)
+            s = qf[:, :, q0:q0 + BQ] @ kf[:, :, j * BK:(j + 1) * BK] \
+                .transpose(-1, -2)
+            s = torch.where(ok, s * scale2, torch.tensor(NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            p_hi = p.to(T).float()
+            p_lo = (p - p_hi).to(T).float() if split \
+                else torch.zeros_like(p)
+            vt = vf[:, :, j * BK:(j + 1) * BK]
+            acc = acc * alpha + p_hi @ vt + p_lo @ vt
+            m = m_new
+        out[:, :, q0:q0 + BQ] = acc / torch.clamp(l, min=1e-30)
+    return out[:, :, :S].transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (1, 128, 4, 4, 64, None),
+    (2, 256, 8, 2, 64, None),
+    (1, 384, 4, 1, 128, None),
+    (1, 200, 4, 2, 64, None),
+    (2, 200, 4, 1, 128, 40),     # first visited tiles fully masked
+    (1, 150, 2, 1, 256, 50),     # Griffin's width: 16-key tiles
+])
+def test_mma_emulation_matches_pallas_kernel(B, S, H, KV, hd, window):
+    """The tensor-core kernel's arithmetic, rounded to bf16, agrees with
+    the Pallas kernel in interpret mode at the bf16 tolerance, over the
+    sweep's shapes and the windowed, ragged and hd-256 cases."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(7, B, S, H, KV, hd, "bfloat16")
+    ref = jax_flash(qj, kj, vj, causal=True, window=window, interpret=True)
+    out = _mma_emulation(qt, kt, vt, window=window).to(torch.bfloat16)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 256, 8, 2, 128, None),
+    (2, 200, 4, 1, 128, 40),
+    (1, 150, 2, 1, 256, 50),
+])
+def test_mma_emulation_is_float32_before_rounding(B, S, H, KV, hd, window,
+                                                  dtype):
+    """Before the final rounding the emulated kernel is within 1e-5 of
+    the float32 reference on the same 16-bit inputs (rtol 1e-5, atol 1e-5
+    of the largest output): the products are exact and hi + lo carries
+    each p to 2^-18 of itself in bf16. Rounding p once to the operand
+    type instead (what the kernel does not do) misses that bound."""
+    rs = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rs.randn(B, S, n, hd).astype(np.float32))
+               .to(dtype) for n in (H, KV, KV))
+    ref = attention_ref(q.float(), k.float(), v.float(), window=window)
+    out = _mma_emulation(q, k, v, window=window)
+    scale = float(ref.abs().max())
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5 * scale)
+    once = _mma_emulation(q, k, v, window=window, split=False)
+    assert float((once - ref).abs().max()) > 1e-5 * scale

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor anything of the JAX package
 (``repro.*``): every ``repro_torch`` module and ``chip_smoke.py`` import in
 a subprocess where ``import jax`` fails, and a static scan finds no such
-import in their sources. A subprocess because tests/conftest.py has
-already imported jax into this one."""
+import in their sources or in the measurement scripts under ``tools/``.
+A subprocess because tests/conftest.py has already imported jax into
+this one."""
 import os
 import re
 import subprocess
@@ -17,6 +18,13 @@ def _port_sources():
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
+
+
+def _tool_sources():
+    """The port's measurement scripts under tools/ (run on the card)."""
+    tools = os.path.join(REPO, "tools")
+    return sorted(os.path.join(tools, f) for f in os.listdir(tools)
+                  if f.endswith(".py"))
 
 
 def _port_modules():
@@ -57,7 +65,7 @@ def test_no_jax_or_reference_imports_in_sources():
                      r"from\s+repro\.|from\s+repro\s+import|import\s+repro\s*$)",
                      re.MULTILINE)
     offenders = {}
-    for path in _port_sources():
+    for path in _port_sources() + _tool_sources():
         with open(path) as fh:
             hits = pat.findall(fh.read())
         if hits:
