@@ -5,9 +5,11 @@
 Builds the four CUDA kernels of the serving paths (``hyper_step``,
 ``flash_attention``, ``rglru_scan``, ``rwkv6_scan``) from the sources in
 the checkout, one nvcc process each, all started together; holds each
-kernel against its plain PyTorch version at the serving shapes and times
-both (flash attention also beside ``scaled_dot_product_attention`` as a
-yardstick the port never calls); serves full-width ``qwen3_4b`` (36
+kernel against its plain PyTorch version at the serving shapes and at
+the edges of its design (``hs_cases``, ``FLASH_CASES``, ``RGLRU_CASES``,
+``RWKV6_CASES``) and times both cold-L2 (``time_ms``; flash attention
+also beside ``scaled_dot_product_attention`` as a yardstick the port
+never calls); serves full-width ``qwen3_4b`` (36
 layers, d 2560), full-width ``recurrentgemma_2b`` (26 layers, d 2560)
 and full-width ``rwkv6_1p6b`` (24 layers, d 2048), bf16, random weights
 from a seeded generator, through the port's serving CLI (and, for
@@ -95,16 +97,23 @@ def ordered_bits(t: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, -(b & 0x7FFF), b)
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
+def time_ms(fn, flush: torch.Tensor, reps: int = 30,
+            clean: bool = False) -> float:
     """Median device time of ``fn`` in ms, cold L2: the flush buffer is
     rewritten before each run, and a sleep kernel keeps the stream busy
-    while the host enqueues, so the events bracket device work only."""
+    while the host enqueues, so the events bracket device work only.
+    ``clean=True`` reads the buffer after the sleep instead, which leaves
+    the L2 holding clean lines (no write-back for the timed run's misses)
+    and device memory busy until the timed run starts."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if not clean:
+            flush.zero_()
         torch.cuda._sleep(5_000_000)
+        if clean:
+            flush.view(torch.int64).sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -115,63 +124,120 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     return float(np.median(times))
 
 
+@dataclasses.dataclass(frozen=True)
+class HsCase:
+    """One hyper_step case: operand dtypes (state, then each live stage),
+    g's dtype (None: no g), the tableau's live b and order, eps ("rows":
+    the serving batch's per-sample 1/K, or a Python float) and the active
+    row ("mixed": rows 6 of 8, "frozen": none, None: no mask)."""
+    name: str
+    shape: tuple
+    dtypes: tuple
+    g: object
+    b: tuple
+    order: int
+    eps: object = "rows"
+    active: object = "mixed"
+
+
+def hs_cases():
+    """The serving shape in bf16 and fp32 for euler + g, heun and the live
+    stages of dopri5, then the kernel's edges: a bf16 state with a float32
+    later stage (heun under per-sample eps, the reference's promotion),
+    rows of N % 8 != 0, every row frozen, and one row under a scalar eps."""
+    bf, f32 = torch.bfloat16, torch.float32
+    dopri = tuple(bj for bj in get_tableau("dopri5").b if bj != 0.0)
+    cases = [HsCase(name, (B, S, D), (dt,) * (1 + len(b)), dt if g else None,
+                    b, order)
+             for dt in (bf, f32)
+             for name, b, g, order in (("euler+g", (1.0,), True, 1),
+                                       ("heun", (0.5, 0.5), False, 2),
+                                       ("dopri5-live", dopri, False, 5))]
+    return cases + [
+        HsCase("heun-promoted", (B, S, D), (bf, bf, f32), None, (0.5, 0.5), 2),
+        HsCase("ragged-n", (B, 129, 333), (bf, bf), bf, (1.0,), 1),
+        HsCase("all-frozen", (B, S, D), (bf, bf), bf, (1.0,), 1,
+               active="frozen"),
+        HsCase("b1-scalar-eps", (B, S, D), (bf, bf), bf, (1.0,), 1, eps=0.25,
+               active=None),
+    ]
+
+
+def hs_inputs(case, gen, dev):
+    """(z, stages, g, eps, active) of ``case``, drawn from ``gen``."""
+    def draw(dt):
+        return torch.randn(case.shape, generator=gen, device=dev).to(dt)
+    z, stages = draw(case.dtypes[0]), [draw(d) for d in case.dtypes[1:]]
+    g = draw(case.g) if case.g is not None else None
+    Ks = torch.tensor([2, 4, 8, 8, 4, 2, 8, 4], dtype=torch.int32, device=dev)
+    eps = (torch.tensor(1.0, device=dev) / Ks if case.eps == "rows"
+           else case.eps)
+    act = {"mixed": [1, 1, 1, 1, 1, 1, 0, 0], "frozen": [0] * B,
+           None: None}[case.active]
+    if act is not None:
+        act = torch.tensor(act, dtype=torch.int32, device=dev)
+    return z, stages, g, eps, act
+
+
+def hs_check(case, out, ref, z, act) -> float:
+    """Raises unless ``out`` is within 1e-6 abs + 1e-6 rel of the plain
+    version in fp32, one ulp in 16 bits, with frozen rows equal to z bit
+    for bit; returns the max abs error."""
+    err = float((out.float() - ref.float()).abs().max())
+    if z.dtype == torch.float32:
+        ok = bool(((out - ref).abs() <= 1e-6 + 1e-6 * ref.abs()).all())
+    else:
+        ok = int((ordered_bits(out) - ordered_bits(ref)).abs().max()) <= 1
+    if not ok:
+        raise AssertionError(f"hyper_step {case.name} {z.dtype}: kernel "
+                             f"disagrees with plain (max {err})")
+    if act is not None and not torch.equal(out[act == 0], z[act == 0]):
+        raise AssertionError(f"hyper_step {case.name}: frozen rows moved")
+    return err
+
+
 def phase_kernels(dev, bandwidth):
-    """hyper_step at the serving shape: kernel against plain version, both
-    timed, and the bound of this run's data (frozen rows read only z)."""
+    """hyper_step at every case of ``hs_cases``: kernel against plain
+    version, both timed cold-L2, and the bound of this run's data (an
+    active row reads every operand and writes z, a frozen row reads and
+    writes z only)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    Ks = torch.tensor([2, 4, 8, 8, 4, 2, 8, 4], dtype=torch.int32, device=dev)
-    eps = torch.tensor(1.0, device=dev) / Ks
-    act = torch.tensor([1, 1, 1, 1, 1, 1, 0, 0], dtype=torch.int32,
-                       device=dev)
-    dopri = tuple(bj for bj in get_tableau("dopri5").b if bj != 0.0)
-    cases = [("euler+g", (1.0,), True, 1), ("heun", (0.5, 0.5), False, 2),
-             ("dopri5-live", dopri, False, 5)]
-    rows, max_err = [], 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, b, with_g, order in cases:
-            draw = lambda: torch.randn((B, S, D), generator=gen,  # noqa
-                                       device=dev).to(dtype)
-            z, stages = draw(), [draw() for _ in b]
-            g = draw() if with_g else None
-            out = hs_ops.fused_rk_update(z, stages, g, eps, b, order,
-                                         active=act)
-            ref = fused_rk_update_ref(z, stages, g, eps, b, order, active=act)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            if dtype == torch.float32:
-                ok = bool(((out - ref).abs()
-                           <= 1e-6 + 1e-6 * ref.abs()).all())
-            else:
-                ok = int((ordered_bits(out) - ordered_bits(ref))
-                         .abs().max()) <= 1
-            if not ok:
-                raise AssertionError(f"hyper_step {name} {dtype}: kernel "
-                                     f"disagrees with plain (max {err})")
-            if not torch.equal(out[act == 0], z[act == 0]):
-                raise AssertionError(f"hyper_step {name}: frozen rows moved")
-            max_err = max(max_err, err)
-            eps_row, epsp_row = eps.contiguous(), eps ** (order + 1)
-            buf = torch.empty_like(z)
-            ms = time_ms(lambda: hs_ops.launch(
-                buf, z, stages, g, eps_row, epsp_row, act, b), flush)
-            plain_ms = time_ms(lambda: fused_rk_update_ref(
-                z, stages, g, eps, b, order, active=act), flush)
-            n_act = int(act.sum())
-            per_row = S * D * z.element_size()
-            operands = len(b) + 2 + int(with_g)
-            nbytes = (n_act * operands + (B - n_act) * 2) * per_row + B * 12
-            flops = n_act * S * D * 2 * (len(b) + int(with_g))
-            bound_ms = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
-            rows.append(dict(case=name, dtype=str(dtype).replace("torch.", ""),
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bytes=nbytes,
-                             bound_by="bytes" if nbytes / bandwidth
-                             >= flops / FP32_PEAK else "operations"))
-    emit(phase="kernels", kernel="hyper_step", shape=[B, S, D],
-         eps=eps.tolist(), active=act.tolist(), cases=rows,
-         max_abs_err=max_err)
-    return rows, max_err
+    rows = []
+    for case in hs_cases():
+        z, stages, g, eps, act = hs_inputs(case, gen, dev)
+        b, order = case.b, case.order
+        out = hs_ops.fused_rk_update(z, stages, g, eps, b, order, active=act)
+        ref = fused_rk_update_ref(z, stages, g, eps, b, order, active=act)
+        torch.cuda.synchronize()
+        err = hs_check(case, out, ref, z, act)
+        eps_row, epsp_row, act_row = hs_ops.row_operands(z, eps, order, act)
+        buf = torch.empty_like(z)
+        ms = time_ms(lambda: hs_ops.launch(
+            buf, z, stages, g, eps_row, epsp_row, act_row, b), flush)
+        plain_ms = time_ms(lambda: fused_rk_update_ref(
+            z, stages, g, eps, b, order, active=act), flush)
+        n_rows = act_row.numel()
+        n = z.numel() // n_rows
+        n_act = int(act_row.sum())
+        active_bytes = 2 * z.element_size() + sum(
+            t.element_size() for t in stages + ([g] if g is not None else []))
+        nbytes = n * (n_act * active_bytes
+                      + (n_rows - n_act) * 2 * z.element_size()) + n_rows * 12
+        flops = n_act * n * 2 * (len(b) + int(g is not None))
+        bound_ms = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
+        rows.append(dict(case=case.name, shape=list(case.shape),
+                         dtype=str(z.dtype).replace("torch.", ""),
+                         dtypes=[str(t).replace("torch.", "")
+                                 for t in case.dtypes],
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bytes=nbytes,
+                         bound_by="bytes" if nbytes / bandwidth
+                         >= flops / FP32_PEAK else "operations"))
+        del z, stages, g, out, ref, buf
+    emit(phase="kernels", kernel="hyper_step", cases=rows,
+         max_abs_err=max(r["max_abs_err"] for r in rows))
+    return rows, max(r["max_abs_err"] for r in rows)
 
 
 def attention_pairs(S_len, causal, window):
@@ -257,12 +323,24 @@ def phase_flash(dev, bandwidth):
 
 
 # name, (B, T, W), input dtype: the serving shape (fp32 gates, as
-# nn/rglru.py::_gates gives them) and ragged shapes, one in bf16
+# nn/rglru.py::_gates gives them), a long prompt at batch 1 (the deep
+# ring), ragged shapes in fp32, bf16 and fp16 (W 1000 and 2000: 16-byte
+# rows, a part-filled last 32-channel tile; W 333: rows not 16-byte
+# aligned, the scalar path), and T 5, below one stage of the ring
 RGLRU_CASES = [
     ("serve", (8, 128, 2560), torch.float32),
+    ("long-prompt", (1, 2048, 2560), torch.float32),
     ("ragged", (3, 77, 1000), torch.float32),
     ("ragged-bf16", (2, 45, 333), torch.bfloat16),
+    ("ragged-fp16", (4, 50, 2000), torch.float16),
+    ("short-unaligned", (2, 5, 333), torch.float32),
 ]
+
+
+def rglru_inputs(shape, dtype, gen, dev):
+    """Gates a in (0, 1) and inputs b of ``shape`` in ``dtype``."""
+    a = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    return a, torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
 def phase_rglru(dev, bandwidth):
@@ -272,9 +350,7 @@ def phase_rglru(dev, bandwidth):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for name, shape, dtype in RGLRU_CASES:
-        a = torch.sigmoid(torch.randn(shape, generator=gen,
-                                      device=dev)).to(dtype)
-        b = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        a, b = rglru_inputs(shape, dtype, gen, dev)
         out = rg_ops.rglru_scan(a, b)
         ref = rglru_scan_ref(a, b)
         torch.cuda.synchronize()

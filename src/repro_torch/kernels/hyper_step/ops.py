@@ -32,7 +32,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = _build.load("hyper_step")
+    return bind(_build.load("hyper_step"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from ``csrc/hyper_step.cu``
+    (or another source of the same entry points) on ``lib``."""
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.hyper_step_launch.argtypes = [P, P, I, P, P, P, I, P, I, P, P, P,
                                       LL, LL, I, P]
@@ -40,6 +45,21 @@ def _library() -> ctypes.CDLL:
     lib.hyper_step_error_string.argtypes = [ctypes.c_int]
     lib.hyper_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def row_operands(z: torch.Tensor, eps, order: int, active=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's per-row operands on z's device: float32 eps and
+    eps**(order+1) rows and an int32 active row (all ones without a
+    mask), one entry per batch row of ``_rows``."""
+    dev = z.device
+    eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    B, _ = _rows(z, eps_t, active)
+    eps_row = eps_t.reshape(-1).expand(B).contiguous()
+    act_row = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
+               else torch.as_tensor(active, device=dev).to(torch.int32)
+               .reshape(B).contiguous())
+    return eps_row, eps_row ** (order + 1), act_row
 
 
 def _rows(z: torch.Tensor, eps: torch.Tensor, active) -> Tuple[int, int]:
@@ -98,11 +118,7 @@ def fused_rk_update(z: torch.Tensor, stages: Sequence[torch.Tensor],
         raise ValueError(f"fused_rk_update: batch {B} > {MAX_BATCH}")
     if n == 0:
         return z.clone()
-    eps_row = eps_t.reshape(-1).expand(B).contiguous()
-    epsp_row = eps_row ** (order + 1)
-    act_row = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
-               else torch.as_tensor(active, device=dev).to(torch.int32)
-               .reshape(B).contiguous())
+    eps_row, epsp_row, act_row = row_operands(z, eps_t, order, active)
     zc = z.contiguous()
     out = torch.empty_like(zc)
     launch(out, zc, [r.contiguous() for r in stages],

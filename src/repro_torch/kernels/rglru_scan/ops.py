@@ -24,7 +24,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = _build.load("rglru_scan")
+    return bind(_build.load("rglru_scan"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from ``csrc/rglru_scan.cu``
+    (or another source of the same entry points) on ``lib``."""
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rglru_scan_launch.argtypes = [P, P, P, I, I, I, I, P]
     lib.rglru_scan_launch.restype = ctypes.c_int

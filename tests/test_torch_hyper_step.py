@@ -20,8 +20,8 @@ from repro.kernels.hyper_step.ops import fused_rk_update as jax_fused
 from repro.kernels.hyper_step.ops import hyper_step as jax_hyper_step
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.core.tableaus import get as torch_tableau
-from repro_torch.kernels.hyper_step.ops import LAUNCHES, fused_rk_update
-from repro_torch.kernels.hyper_step.ops import hyper_step
+from repro_torch.kernels.hyper_step.ops import (
+    LAUNCHES, fused_rk_update, hyper_step, row_operands)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),
@@ -111,3 +111,58 @@ def test_fused_rk_update_rejects_bad_shapes():
     z = torch.zeros(4, 5)
     with pytest.raises(ValueError):
         fused_rk_update(z, [z], None, 0.1, (0.5, 0.5), 2)
+
+
+@pytest.mark.parametrize("eps,active,rows", [
+    (0.25, None, 1),                                   # scalar eps: one row
+    (np.linspace(0.1, 0.4, 4, dtype=np.float32), None, 4),
+    (0.5, np.array([1, 0, 1, 0]), 4),                  # mask alone batches
+])
+def test_row_operands(eps, active, rows):
+    z = torch.zeros(4, 3, 5)
+    eps_t = torch.as_tensor(eps, dtype=torch.float32)
+    act = None if active is None else torch.from_numpy(active)
+    eps_row, epsp_row, act_row = row_operands(z, eps_t, 2, act)
+    assert eps_row.shape == epsp_row.shape == act_row.shape == (rows,)
+    assert eps_row.dtype == epsp_row.dtype == torch.float32
+    assert act_row.dtype == torch.int32
+    assert torch.equal(epsp_row, eps_row ** 3)
+    assert torch.equal(eps_row, eps_t.reshape(-1).expand(rows))
+    want = np.ones(rows) if active is None else active
+    assert act_row.tolist() == list(want)
+
+
+@pytest.mark.parametrize("case", ["ragged-n", "all-frozen", "b1-scalar-eps",
+                                  "heun-promoted"])
+def test_fused_rk_update_edge_cases_match_jax(case):
+    """The cases chip_smoke.py adds for the kernel's edges, against the
+    Pallas kernel: rows of N % 8 != 0, every row frozen, one row under a
+    scalar eps, and a bf16 state with a float32 later stage (heun under a
+    per-sample eps, the reference's promotion)."""
+    rs = np.random.RandomState(21)
+    shape = (4, 3, 7) if case == "ragged-n" else (4, 16)
+    eps = np.linspace(0.1, 0.4, 4).astype(np.float32)
+    active = np.array([1, 1, 0, 1], np.int32)
+    b, order, g_on = (1.0,), 1, True
+    dts = ["bfloat16", "bfloat16"]
+    if case == "all-frozen":
+        active = np.zeros(4, np.int32)
+    if case == "heun-promoted":
+        b, order, g_on, dts = (0.5, 0.5), 2, False, ["bfloat16", "bfloat16",
+                                                     "float32"]
+    zj, zt = _pair(rs.randn(*shape), dts[0])
+    pairs = [_pair(rs.randn(*shape), d) for d in dts[1:]]
+    gj, gt = _pair(rs.randn(*shape), "bfloat16") if g_on else (None, None)
+    sj, st = tuple(p[0] for p in pairs), [p[1] for p in pairs]
+    if case == "b1-scalar-eps":
+        out_j = jax_fused(zj, sj, gj, 0.25, b, order, interpret=True)
+        out_t = fused_rk_update(zt, st, gt, 0.25, b, order)
+    else:
+        out_j = jax_fused(zj, sj, gj, jnp.asarray(eps), b, order,
+                          active=jnp.asarray(active), interpret=True)
+        out_t = fused_rk_update(zt, st, gt, torch.from_numpy(eps), b, order,
+                                active=torch.from_numpy(active))
+        frozen = torch.from_numpy(active == 0)
+        assert torch.equal(out_t[frozen], zt[frozen])
+    assert_matches(out_t, out_j, "bfloat16")
+    assert LAUNCHES["hyper_step"] == 0

@@ -23,7 +23,7 @@ from repro.kernels.rglru_scan.ops import rglru_scan as jax_scan
 from repro.nn import rglru as jrg
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ops import MAX_BATCH, rglru_scan
 from repro_torch.nn import rglru as trg
 
 LAYER_TOL = dict(rtol=2e-4, atol=1e-5)
@@ -38,8 +38,11 @@ def _to_torch(tree):
     (2, 32, 16, 8, 8),       # several chunks and width blocks
     (1, 20, 12, 8, 8),       # ragged T and W
     (3, 64, 128, 16, 128),
+    (1, 5, 40, 8, 8),        # T below one stage of the kernel's ring, B 1
+    (2, 45, 333, 16, 128),   # ragged T, W past a 32-channel tile, odd rows
+    (1, 77, 100, 8, 8),      # T not a multiple of 16 or 32, W % 32 = 4
 ])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_rglru_scan_matches_jax(B, T, W, chunk, bw, dtype):
     rs = np.random.RandomState(8)
     jdt = getattr(jnp, dtype)
@@ -155,4 +158,12 @@ def test_rglru_scan_raises_where_it_has_no_kernel():
         rglru_scan(d, d)
     with pytest.raises(ValueError, match="one \\(B, T, W\\) shape"):
         rglru_scan(a, a[:, :4])
+    assert LAUNCHES["rglru_scan"] == 0
+
+
+def test_rglru_scan_raises_past_max_batch():
+    """Batches past the launcher's grid limit raise before any launch."""
+    a = torch.zeros(MAX_BATCH + 1, 1, 1).as_subclass(_CudaLike)
+    with pytest.raises(ValueError, match=f"batch {MAX_BATCH + 1} > "):
+        rglru_scan(a, a)
     assert LAUNCHES["rglru_scan"] == 0
