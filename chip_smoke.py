@@ -16,6 +16,17 @@ from a seeded generator, through the port's serving CLI (and, for
 qwen3_4b, the engine with hyper_euler), every batch mixing K; counts
 each kernel's launches against the block applications and solver steps
 of those runs; and checks fused against unfused serving in float32.
+Then the cached decode path of each model (``phase_decode``; qwen3_4b
+through the CLI's default, the others through ``greedy_generate`` on the
+params their serve phase returned): 8 prompts of 128 tokens, 32 greedy
+tokens, the launches exactly one flash_attention per attention block and
+one rglru_scan per recurrent block (the prefill) and one rwkv6_scan per
+rwkv block and token, the prefill's logits ``torch.equal`` to the
+readout of ``lm_forward``'s hidden states at the last position, the
+bf16 decode logits within a limit of a teacher-forced forward and a
+planted fault (lost cache writes) outside it, and prefill, decode and
+readout times beside the weight-bytes bound per token; and the same
+teacher-forced check in float32 at 4 layers (Griffin 6).
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -50,13 +61,27 @@ from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
-    EngineConfig, MultiRateEngine, lm_depth_model, snap_to_buckets)
+    EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
+    snap_to_buckets)
 from repro_torch.models import cdepth, lm  # noqa: E402
 from repro_torch.models.cdepth import lm_g_init  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
 from repro_torch.nn.module import truncated_normal_init  # noqa: E402
 
 B, S, D = 8, 128, 2560          # the serving phases' batch of prompts
+GEN = 32                        # tokens each decode phase generates
+# Teacher-forced decode limits, a share of the largest |logit|, each
+# between the sound runs' largest reading and the planted fault's
+# (``lost_cache_writes``) smallest, read by tools/decode_limits.py on the
+# H100 (PERF.md section 6). bf16 readings differ by model, so each has
+# its own: sound 7.8e-3 / 4.0e-4 / 4.3e-2, fault 0.18 / 7.9e-3 / 1.09.
+BF16_DECODE_TOL = {"qwen3_4b": 3e-2, "recurrentgemma_2b": 2e-3,
+                   "rwkv6_1p6b": 0.2}
+# float32 at these depths (Griffin: two groups of rec, rec, attn): sound
+# <= 4.0e-6, fault >= 3.6e-3
+FP32_DECODE_TOL = 1e-4
+FP32_DECODE_LAYERS = {"qwen3_4b": 4, "recurrentgemma_2b": 6,
+                      "rwkv6_1p6b": 4}
 BUCKETS = "2,4,8"
 FP32_PEAK = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_PEAK = 989e12              # H100 SXM dense bf16/fp16 tensor cores
@@ -382,7 +407,8 @@ def phase_rglru(dev, bandwidth):
 # ragged fp32, D 16 over 200 tokens (past the reference kernel's
 # 128-token chunk), a given S0 with the final state asked for, and the
 # smallest and largest instantiated head sizes (D 8, whose block is 4
-# threads, and D 128 with a state)
+# threads, and D 128 with a state), and one decode step of the serving
+# model (T 1 from a given S0, every rwkv block of every generated token)
 RWKV6_CASES = [
     ("serve", (8, 128, 32, 64), torch.bfloat16, torch.float32,
      torch.bfloat16, False),
@@ -395,6 +421,8 @@ RWKV6_CASES = [
     ("d8-t77", (3, 77, 6, 8), torch.float32, torch.float32,
      torch.float32, False),
     ("d128-state", (2, 100, 8, 128), torch.bfloat16, torch.float32,
+     torch.bfloat16, True),
+    ("decode", (8, 1, 32, 64), torch.bfloat16, torch.float32,
      torch.bfloat16, True),
 ]
 RWKV6_TOL = 2e-6    # max abs error over max |plain|
@@ -467,9 +495,9 @@ def count_blocks():
     counts = collections.Counter()
     orig = lm.block_apply
 
-    def counted(p, cfg, kind, h):
+    def counted(p, cfg, kind, h, cache=None):
         counts[kind] += 1
-        return orig(p, cfg, kind, h)
+        return orig(p, cfg, kind, h, cache)
 
     for mod in (lm, cdepth):
         mod.block_apply = counted
@@ -656,7 +684,8 @@ def serve_counted(dev, arch):
     with every kernel launch and block application counted; checks what
     every serving path holds (each request served, hyper_step once per
     solver step, the block kernels once per block application) and
-    returns the phase's report, launches and block applications."""
+    returns the phase's report, launches and block applications, and the
+    served params and prompt."""
     torch.cuda.reset_peak_memory_stats(dev)
     calib = serve_cli(arch)
     cfg, prompt = calib["cfg"], calib["prompt"]
@@ -690,9 +719,10 @@ def serve_counted(dev, arch):
         euler_breakdown_ms=serve_breakdown(cli["engine"], prompt),
         logits_bytes=B * S * cfg.vocab * 4,
         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    params = cli["params"]
     del cli
     torch.cuda.empty_cache()
-    return report, launches, blocks
+    return report, launches, blocks, params, prompt
 
 
 def phase_serve_griffin(dev):
@@ -700,7 +730,8 @@ def phase_serve_griffin(dev):
     rec, rec, attn and 2 tail rec layers). Every recurrent block runs
     rglru_scan, every local attention block flash_attention, every solver
     step hyper_step."""
-    report, launches, blocks = serve_counted(dev, "recurrentgemma_2b")
+    report, launches, blocks, params, prompt = serve_counted(
+        dev, "recurrentgemma_2b")
     idle = [k for k in ("hyper_step", "flash_attention", "rglru_scan")
             if not launches.get(k)]
     if idle:
@@ -711,14 +742,15 @@ def phase_serve_griffin(dev):
         raise AssertionError(f"griffin: {blocks} is not 2 rec per attn "
                              "plus 2 per tail pass")
     emit(**report, tail_passes=tail_passes)
-    return launches
+    return launches, params, prompt
 
 
 def phase_serve_rwkv6(dev):
     """A main path: full-width rwkv6_1p6b (24 rwkv layers, d 2048, 32 WKV
     heads of 64). Every rwkv block runs rwkv6_scan, every solver step
     hyper_step; nothing attends."""
-    report, launches, blocks = serve_counted(dev, "rwkv6_1p6b")
+    report, launches, blocks, params, prompt = serve_counted(dev,
+                                                             "rwkv6_1p6b")
     idle = [k for k in ("hyper_step", "rwkv6_scan") if not launches.get(k)]
     if idle:
         raise AssertionError(f"rwkv6: {idle} never launched")
@@ -727,7 +759,7 @@ def phase_serve_rwkv6(dev):
         raise AssertionError(f"rwkv6: blocks {blocks}, launches {launches}: "
                              "only rwkv blocks and their kernels should run")
     emit(**report)
-    return launches
+    return launches, params, prompt
 
 
 def phase_fused_vs_unfused(dev):
@@ -769,6 +801,231 @@ def phase_fused_vs_unfused(dev):
     emit(phase="fused_vs_unfused", layers=4, dtype="float32", **report)
 
 
+def expected_decode_launches(cfg, gen):
+    """Kernel launches of one generate: the prefill runs flash_attention
+    once per attention block and rglru_scan once per recurrent block
+    (decode attention and the RG-LRU decode step are plain, as in the
+    reference); rwkv6_scan runs once per rwkv block in the prefill and in
+    each of the gen - 1 decode steps; no solver step."""
+    pattern, n_groups, tail = lm.group_layout(cfg)
+    kinds = collections.Counter(pattern * n_groups + pattern[:tail])
+    return {"flash_attention": kinds["dense"] + kinds["attn"],
+            "rglru_scan": kinds["rec"], "rwkv6_scan": kinds["rwkv"] * gen,
+            "hyper_step": 0}
+
+
+@contextlib.contextmanager
+def lost_cache_writes():
+    """A planted fault for the teacher-forced decode check: every
+    ``block_decode`` leaves its block's cache as it found it, so later
+    tokens see neither a generated token's k, v and conv rows nor the
+    recurrent state it reached (the prefill's writes stay). The check
+    must read this fault above its limit."""
+    orig = lm.block_decode
+
+    def faulty(p, cfg, kind, h, cache, cur_index):
+        saved = {k: v.clone() for k, v in cache.items()}
+        out = orig(p, cfg, kind, h, cache, cur_index)
+        for k, v in saved.items():
+            cache[k].copy_(v)
+        return out
+
+    lm.block_decode = faulty
+    try:
+        yield
+    finally:
+        lm.block_decode = orig
+
+
+def generate_logits(params, cfg, prompt, gen, w):
+    """``greedy_generate``'s steps with their logits kept: the prefill,
+    then gen - 1 greedy decode steps. Returns (logits (B, gen, V) float32,
+    tokens (B, gen), prefill ms, decode ms per token), each time on the
+    host clock around synchronised work."""
+    caches = lm.init_lm_cache(cfg, prompt.shape[0], prompt.shape[1] + gen,
+                              device=prompt.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.lm_prefill(params, cfg, prompt, caches, readout_w=w)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, toks = [logits], [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for t in range(prompt.shape[1], prompt.shape[1] + gen - 1):
+        logits, caches = lm.lm_decode_step(params, cfg, toks[-1], caches, t,
+                                           readout_w=w)
+        out.append(logits)
+        toks.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (gen - 1)
+    return (torch.stack(out, dim=1), torch.stack(toks, dim=1), prefill_ms,
+            step_ms)
+
+
+def forward_logits(params, cfg, tokens, start, w):
+    """The readout of ``lm_forward``'s hidden states from position
+    ``start`` on (the same function as ``lm_forward(tokens)[0][:,
+    start:]``, with the readout at the shape the decode path uses)."""
+    h = lm._blocks(params, cfg, lm._embed(params, cfg, tokens))
+    return lm._readout(params, cfg, h[:, start:], w)
+
+
+def teacher_forced_err(params, cfg, prompt, logits, toks, w):
+    """Largest |decode logit - teacher-forced logit| over the largest
+    |teacher-forced logit|: the forward runs the prompt and every
+    generated token but the last, and its positions P-1.. are the
+    logits the generate produced at each step."""
+    seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+    full = forward_logits(params, cfg, seq, prompt.shape[1] - 1, w)
+    return float((logits - full).abs().max() / full.abs().max())
+
+
+def check_decode(params, cfg, prompt, logits, toks, w, tol):
+    """Holds a generate's logits to the teacher-forced forward within
+    ``tol`` of the largest |logit|, and the same generate under
+    ``lost_cache_writes`` above it; raises unless both hold."""
+    err = teacher_forced_err(params, cfg, prompt, logits, toks, w)
+    with lost_cache_writes():
+        f_logits, f_toks, _, _ = generate_logits(params, cfg, prompt,
+                                                 toks.shape[1], w)
+    fault = teacher_forced_err(params, cfg, prompt, f_logits, f_toks, w)
+    if not err <= tol < fault:
+        raise AssertionError(
+            f"{cfg.name} {cfg.dtype}: teacher-forced decode error {err}, "
+            f"planted fault {fault}, limit {tol} of the largest |logit|")
+    return dict(teacher_forced_rel_err=err, planted_fault_rel_err=fault,
+                limit=tol)
+
+
+def decode_breakdown(params, cfg, prompt, gen, dev):
+    """The generate's pieces, run again outside the counted window
+    (``generate_logits``): prefill ms, raising unless its logits equal the
+    readout of ``lm_forward``'s hidden states at the last position bit for
+    bit; decode ms per token, raising unless every logit is finite; the
+    bf16 decode logits held to a teacher-forced forward (``check_decode``,
+    the model's ``BF16_DECODE_TOL``); and one step's float32 readout
+    (median of CUDA-event timings)."""
+    dt = lm.dtype_of(cfg.dtype)
+    toks = torch.as_tensor(prompt, device=dev)
+    with torch.no_grad():
+        w = lm.readout_weight(params, cfg, dt)
+        logits, gen_toks, prefill_ms, step_ms = generate_logits(
+            params, cfg, toks, gen, w)
+        last = forward_logits(params, cfg, toks, -1, w)[:, 0]
+        if not torch.equal(logits[:, 0], last):
+            diff = float((logits[:, 0] - last).abs().max())
+            raise AssertionError(
+                f"{cfg.name}: prefill logits differ from lm_forward's last "
+                f"position (max abs {diff})")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
+        checked = check_decode(params, cfg, toks, logits, gen_toks, w,
+                               BF16_DECODE_TOL[cfg.name])
+        del logits
+        h = torch.randn((toks.shape[0], 1, cfg.d_model), device=dev).to(dt)
+        times = []
+        for _ in range(20):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            lm._readout(params, cfg, h, w)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    del w
+    return dict(prefill_ms=prefill_ms, decode_ms_per_token=step_ms,
+                readout_ms_per_step=float(np.median(times[5:])), **checked)
+
+
+def phase_decode(dev, bandwidth, cfg, run):
+    """A main path: the cached greedy decode of a full-width model, bf16,
+    8 prompts of 128 tokens, 32 generated tokens. ``run()`` drives the
+    generate through an entry point a user calls and returns (tokens,
+    seconds, params, prompt); its kernel launches are counted and must be
+    exactly ``expected_decode_launches``. Then ``decode_breakdown`` times
+    the pieces and holds the prefill and the decode logits to the
+    forward. The bound per token is the weights' bytes (2 B a parameter,
+    each read once a step) over the card's memory rate."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    toks, seconds, params, prompt = run()
+    launches = dict(LAUNCHES)
+    expected = expected_decode_launches(cfg, GEN)
+    got = {k: launches.get(k, 0) for k in expected}
+    if got != expected:
+        raise AssertionError(f"{cfg.name} decode: launches {got}, "
+                             f"expected {expected}")
+    toks = np.asarray(toks)
+    if toks.shape != (B, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{cfg.name} decode: tokens {toks.shape} out "
+                             f"of range [0, {cfg.vocab})")
+    pieces = decode_breakdown(params, cfg, prompt, GEN, dev)
+    n_params = lm.count_params(params)
+    emit(phase="decode", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
+         gen=GEN, seconds=seconds, tok_per_s=B * GEN / seconds,
+         launches=launches, expected_launches=expected, **pieces,
+         params=n_params,
+         weight_bytes_bound_ms_per_token=2 * n_params / bandwidth * 1e3,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         sample=toks[0, :8].tolist())
+    return launches
+
+
+def phase_decode_qwen(dev, bandwidth):
+    """Full-width qwen3_4b through the serving CLI with no --solver: the
+    default, the cached decode path."""
+    def run():
+        out = serve.main(["--arch", "qwen3_4b", "--batch", str(B),
+                          "--prompt-len", str(S), "--gen", str(GEN)])
+        return out["tokens"], out["seconds"], out["params"], out["prompt"]
+    launches = phase_decode(dev, bandwidth, get("qwen3_4b"), run)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_decode_served(dev, bandwidth, arch, params, prompt):
+    """Full-width ``arch`` through ``engine.greedy_generate`` on the params
+    and prompt its serve phase returned (no second weight init)."""
+    def run():
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = greedy_generate(params, get(arch), prompt, GEN)
+            torch.cuda.synchronize()
+        return toks.cpu(), time.perf_counter() - t0, params, prompt
+    launches = phase_decode(dev, bandwidth, get(arch), run)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_decode_fp32(dev):
+    """Full width in float32 (TF32 off) at ``FP32_DECODE_LAYERS``, 8
+    prompts of 128 tokens, 32 generated: the port's prefill-plus-decode
+    logits against a teacher-forced forward of the prompt and the
+    generated tokens, within ``FP32_DECODE_TOL`` of the largest |logit|,
+    and ``lost_cache_writes`` above it
+    (``check_decode``; the on-card counterpart of
+    tests/test_torch_decode.py::test_decode_matches_forward)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    report = {}
+    for arch, n_layers in FP32_DECODE_LAYERS.items():
+        cfg = dataclasses.replace(get(arch), n_layers=n_layers,
+                                  dtype="float32", param_dtype="float32")
+        params = init_lm(torch.Generator(device=dev).manual_seed(7), cfg,
+                         device=dev)
+        prompt = torch.as_tensor(np.random.RandomState(8).randint(
+            0, cfg.vocab, (B, S)), device=dev)
+        with torch.no_grad():
+            w = lm.readout_weight(params, cfg, torch.float32)
+            logits, toks, _, _ = generate_logits(params, cfg, prompt, GEN, w)
+            report[arch] = dict(layers=n_layers, **check_decode(
+                params, cfg, prompt, logits, toks, w, FP32_DECODE_TOL))
+        del params, w, logits
+        torch.cuda.empty_cache()
+    emit(phase="decode_fp32", batch=B, prompt_len=S, gen=GEN, **report)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -798,10 +1055,17 @@ def main() -> int:
     flash_rows = phase_flash(dev, bandwidth)
     rglru_rows = phase_rglru(dev, bandwidth)
     rwkv6_rows = phase_rwkv6(dev, bandwidth)
-    launches = collections.Counter()
-    for phase in (phase_serve, phase_serve_griffin, phase_serve_rwkv6):
-        launches.update(phase(dev))
+    launches = collections.Counter(phase_serve(dev))
+    launches.update(phase_decode_qwen(dev, bandwidth))
+    for arch, phase in (("recurrentgemma_2b", phase_serve_griffin),
+                        ("rwkv6_1p6b", phase_serve_rwkv6)):
+        served, params, prompt = phase(dev)
+        launches.update(served)
+        launches.update(phase_decode_served(dev, bandwidth, arch, params,
+                                            prompt))
+        del params
     phase_fused_vs_unfused(dev)
+    phase_decode_fp32(dev)
 
     head = next(r for r in rows if r["case"] == "euler+g"
                 and r["dtype"] == "bfloat16")

@@ -147,7 +147,9 @@ def _check_fusable_on_card(z: Pytree) -> None:
 
 
 class OneTimeWarning:
-    """One-time RuntimeWarning latch (one per warn-once site)."""
+    """Resettable one-time RuntimeWarning latch (one per warn-once site).
+    Each site exposes a ``reset_*`` function, so tests can re-arm it and
+    a warning assertion does not depend on test order."""
 
     __slots__ = ("warned",)
 
@@ -159,8 +161,16 @@ class OneTimeWarning:
             warnings.warn(message, RuntimeWarning, stacklevel=stacklevel)
             self.warned = True
 
+    def reset(self) -> None:
+        self.warned = False
+
 
 _fused_fallback = OneTimeWarning()
+
+
+def reset_fused_fallback_warning() -> None:
+    """Re-arm the one-time fused-fallback RuntimeWarning (test isolation)."""
+    _fused_fallback.reset()
 
 
 @dataclasses.dataclass(frozen=True)

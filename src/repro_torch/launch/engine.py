@@ -16,8 +16,12 @@ retry ladder for non-finite outputs are kept. The K=0 flow tier, the
 residual-ledger capture and the fault injector wait for their slices
 (ROADMAP.md queue 1): asking for them raises.
 
-Where the reference jit-compiles one cell per (shape, k_max), the port
-runs eagerly: a probe and a solve are plain calls on the model's device.
+The discrete path, ``greedy_generate``, is the standard cached decode
+(the CLI's default): a prefill, then one greedy token a step.
+
+Where the reference jit-compiles one cell per (shape, k_max) and one
+decode step, the port runs eagerly: a probe, a solve and a decode step
+are plain calls on the model's device.
 """
 from __future__ import annotations
 
@@ -36,8 +40,33 @@ from repro_torch.core.controllers import (EmbeddedErrorController,
                                           HypersolverResidualController)
 from repro_torch.core.integrate import Integrator, OneTimeWarning
 from repro_torch.models.cdepth import lm_g_init, lm_integrator
+from repro_torch.models.lm import (dtype_of, init_lm_cache, lm_decode_step,
+                                  lm_prefill, readout_weight)
 
 _FLOW_TIER = "ROADMAP.md queue 1 item 4 (the K=0 flow tier)"
+
+
+# ----------------------------------------------------------- discrete path ----
+
+def greedy_generate(params, cfg: ArchConfig, prompt, gen_len: int):
+    """Standard cached decode on the device of ``params``; prompt: (B, P)
+    int. Prefill is one full-sequence forward that fills the caches
+    (models/lm.py::lm_prefill), then ``gen_len - 1`` greedy decode steps.
+    The float32 readout matrix is built once for the whole generate, and
+    tokens stay on the device between steps (no host sync per token).
+    Returns (B, gen_len) int32 tokens on that device."""
+    dev = params["embed"]["table"].device
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, P = prompt.shape
+    caches = init_lm_cache(cfg, B, P + gen_len, device=dev)
+    w = readout_weight(params, cfg, dtype_of(cfg.dtype))
+    logits, caches = lm_prefill(params, cfg, prompt, caches, readout_w=w)
+    out = [logits.argmax(-1).to(torch.int32)]
+    for t in range(P, P + gen_len - 1):
+        logits, caches = lm_decode_step(params, cfg, out[-1], caches, t,
+                                        readout_w=w)
+        out.append(logits.argmax(-1).to(torch.int32))
+    return torch.stack(out, dim=1)
 
 
 # -------------------------------------------------------------- g loading ----
@@ -131,6 +160,17 @@ def lm_depth_model(params, cfg: ArchConfig, solver: str = "euler",
 
 _snap_overflow = OneTimeWarning()
 _probe_nonfinite = OneTimeWarning()
+
+
+def reset_snap_overflow_warning() -> None:
+    """Re-arm the one-time bucket-overflow RuntimeWarning (test isolation)."""
+    _snap_overflow.reset()
+
+
+def reset_probe_nonfinite_warning() -> None:
+    """Re-arm the one-time non-finite-probe RuntimeWarning (test
+    isolation)."""
+    _probe_nonfinite.reset()
 
 
 def screen_probe_errors(errs: np.ndarray) -> int:
@@ -248,6 +288,11 @@ class StepReport:
     batches: int = 0
     probe_nonfinite: int = 0          # non-finite probe errors this drain
     finish_offset: Dict[int, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def waste_steps(self) -> int:
+        """Masked sample-steps: rows scanned past their own K_i."""
+        return self.total_steps - self.useful_steps
 
 
 # terminal request statuses (the reference's tuple; ``escalated`` only

@@ -3,29 +3,32 @@ plus ``--device`` (default ``cuda``; ``cpu`` on request, never as a
 fallback). Batching/eps policy lives in ``launch/engine.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \
+        --batch 8 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_4b \
         --solver euler --multirate --fused --buckets 2,4,8 \
         --batch 8 --prompt-len 128
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma_2b --reduced --device cpu --solver euler \
         --multirate --fused --batch 2 --prompt-len 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1p6b \
-        --solver euler --multirate --fused --batch 8 --prompt-len 128
 
 Any ported architecture serves (``qwen3_4b``, ``recurrentgemma_2b``,
-``rwkv6_1p6b``). The default ``--solver`` is the reference's discrete
-decode path, which is not ported yet, so a solver is named.
+``rwkv6_1p6b``).
 
-Serves the continuous-depth drain path: ``--solver euler|heun|...|hyper_*``
-at a fixed ``--nfe K`` or error-controlled ``--multirate`` (``--tol``,
+solver=discrete (default): standard full-depth cached decode
+(``engine.greedy_generate``): the prompt is prefilled through the port's
+kernels, then ``--gen`` tokens are decoded greedily one at a time.
+Reports tokens per second and the NFE equivalent (one per group).
+
+solver=euler|heun|...|hyper_* : continuous-depth scoring at a fixed
+``--nfe K`` or error-controlled ``--multirate`` (``--tol``,
 ``--buckets``, ``--max-batch``), with ``--fused`` routing every solver
 step's update through the CUDA kernel, and ``--g-ckpt``/``--g-rank``
 loading a correction the JAX package trained. Reports per-request K, NFE
 and argmax agreement against the full-depth forward.
 
 Flags of slices not ported yet exit non-zero naming their ROADMAP.md item:
-``--solver discrete`` (the cached decode path), ``--inflight`` and its
-knobs, ``--mesh``, ``--overlap``, ``--refine*``, ``--flow-*``,
-``--cost-oracle roofline`` and ``--profile-dir``.
+``--inflight`` and its knobs, ``--mesh``, ``--overlap``, ``--refine*``,
+``--flow-*``, ``--cost-oracle roofline`` and ``--profile-dir``.
 """
 from __future__ import annotations
 
@@ -39,11 +42,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get
 from repro_torch.launch.engine import (EngineConfig, MultiRateEngine,
-                                       lm_depth_model, load_g_params)
-from repro_torch.models.lm import group_layout, init_lm, lm_forward
+                                       greedy_generate, lm_depth_model,
+                                       load_g_params)
+from repro_torch.models.lm import (discrete_nfe, group_layout, init_lm,
+                                   lm_forward)
 
 _ITEM = {
-    "decode": "ROADMAP.md queue 1 item 2 (the cached decode path)",
     "inflight": "ROADMAP.md queue 1 item 3 (the in-flight scheduler)",
     "flow": "ROADMAP.md queue 1 item 4 (the K=0 flow tier)",
     "refine": "ROADMAP.md queue 1 item 5 (the online refinery)",
@@ -131,8 +135,6 @@ def _refuse_unported(args) -> None:
     """Exit non-zero, naming the ROADMAP.md item, for any flag of a slice
     that is not ported yet (a silently ignored flag would mislabel a run)."""
     waits = []
-    if args.solver == "discrete":
-        waits.append(("--solver discrete", "decode"))
     if args.inflight or args.overlap or args.seg != 2 or args.slots != 4 \
             or args.arrival_trace != "none" or args.arrival_rate != 0.25 \
             or args.deadline or args.queue_cap \
@@ -155,9 +157,15 @@ def _refuse_unported(args) -> None:
             f"{flag} waits for {_ITEM[item]}" for flag, item in waits))
 
 
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
-    """Run the CLI; returns what it served (params, prompt, engine,
-    results, timings) for programmatic callers."""
+    """Run the CLI; returns what it served (params, prompt and timings,
+    with the tokens of the discrete path or the engine and results of a
+    solver) for programmatic callers."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -169,6 +177,21 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     params = init_lm(gen, cfg, device=device)
     prompt = np.random.RandomState(1).randint(
         0, cfg.vocab, size=(args.batch, args.prompt_len)).astype(np.int32)
+
+    if args.solver == "discrete":
+        with torch.no_grad():
+            _synchronize(device)
+            t0 = time.perf_counter()
+            toks = greedy_generate(params, cfg, prompt, args.gen)
+            _synchronize(device)
+            dt = time.perf_counter() - t0
+        toks = toks.cpu().numpy()
+        print(f"[discrete] {args.batch}x{args.gen} tokens in {dt:.2f}s "
+              f"({args.batch * args.gen / dt:.1f} tok/s), "
+              f"NFE/token = {discrete_nfe(cfg)} groups")
+        print("sample:", toks[0, :16])
+        return dict(cfg=cfg, params=params, prompt=prompt, tokens=toks,
+                    seconds=dt, device=device)
 
     _, n_groups, _ = group_layout(cfg)
     g_params = None
@@ -199,12 +222,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                                           device=device))
         full_top = full.argmax(-1).cpu().numpy()
         del full
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _synchronize(device)
         t0 = time.perf_counter()
         results = engine.run(prompt)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _synchronize(device)
         dt = time.perf_counter() - t0
     agree = [float(np.mean(np.argmax(r.outputs, -1) == full_top[i]))
              for i, r in enumerate(results)]

@@ -10,23 +10,36 @@ Ported: ``dense`` blocks (attention + FFN, no experts), Griffin's
 blocks, and RWKV-6's ``rwkv`` blocks (time mix + channel mix). MoE
 blocks, learned positions and modality frontends raise
 ``NotImplementedError`` naming their ROADMAP.md item.
+
+Decode keeps per-block caches with the reference's tree and dtypes: KV
+buffers for attention (a rotating buffer under a window), the conv
+carry and float32 RG-LRU state for ``rec``, the token-shift rows and
+float32 WKV state for ``rwkv``; group caches stack on a leading
+``n_groups`` axis. ``lm_decode_step`` updates them in place. A prefill
+from position 0 is the full-sequence forward (``block_apply`` with a
+cache), so it runs the port's kernels; its hidden states are those of
+``lm_forward``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs import ArchConfig
-from repro_torch.nn.attention import attention_init, mha
+from repro_torch.nn.attention import (NEG_INF, attention_init,
+                                     decode_attend, decode_qkv, init_cache,
+                                     mha, mha_decode, write_kv)
 from repro_torch.nn.ffn import (ffn_apply, ffn_init, rwkv_channel_mix,
                                 rwkv_channel_mix_init)
-from repro_torch.nn.module import (dense_init, embedding_init, rmsnorm,
-                                   rmsnorm_init)
-from repro_torch.nn.rglru import (griffin_recurrent_apply,
-                                  griffin_recurrent_init)
-from repro_torch.nn.rwkv6 import rwkv6_init, rwkv6_time_mix
+from repro_torch.nn.module import (dense, dense_init, embedding_init,
+                                   rmsnorm, rmsnorm_init)
+from repro_torch.nn.rglru import (causal_conv1d, griffin_recurrent_apply,
+                                  griffin_recurrent_init, rglru_decode_step)
+from repro_torch.nn.rwkv6 import (rwkv6_decode_step, rwkv6_init,
+                                  rwkv6_time_mix)
 
 Params = Any
 
@@ -121,25 +134,151 @@ def _attn_kwargs(cfg: ArchConfig, kind: str) -> Dict:
                 qk_norm=cfg.qk_norm, use_rope=(cfg.pos == "rope"))
 
 
-def block_apply(p: Params, cfg: ArchConfig, kind: str,
-                h: torch.Tensor) -> torch.Tensor:
+def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
+                cache: Params = None) -> torch.Tensor:
     """Full-sequence (train / prefill) block application. The reference
-    threads an aux-loss dict through; these block kinds never touch it."""
+    threads an aux-loss dict through; these block kinds never touch it.
+
+    With ``cache`` (the block's decode cache, ``block_cache_init``'s
+    layout) the sequence sits at positions 0..S-1: the recurrent blocks
+    start from the cache's state (zeros in a fresh cache), and the block
+    writes into ``cache``, in place, what decoding position S needs — the
+    state that feeding the tokens one by one through ``block_decode``
+    leaves."""
     _require_ported(kind)
     if kind == "rwkv":
-        tm, _ = rwkv6_time_mix(p["tmix"], rmsnorm(p["ln1"], h),
-                               cfg.rwkv_heads, want_state=False)
+        state = None if cache is None else (cache["x_tmix"].to(h.dtype),
+                                            cache["S"])
+        tm, (x_tmix, S) = rwkv6_time_mix(
+            p["tmix"], rmsnorm(p["ln1"], h), cfg.rwkv_heads, state=state,
+            want_state=cache is not None)
         h = h + tm
         xn = rmsnorm(p["ln2"], h)
-        x_prev = torch.cat([torch.zeros_like(xn[:, :1]), xn[:, :-1]], dim=1)
+        first = torch.zeros_like(xn[:, :1]) if cache is None \
+            else cache["x_cmix"][:, None].to(xn.dtype)
+        x_prev = torch.cat([first, xn[:, :-1]], dim=1)
+        if cache is not None:
+            cache["x_tmix"].copy_(x_tmix)
+            cache["S"].copy_(S)
+            cache["x_cmix"].copy_(xn[:, -1])
         return h + rwkv_channel_mix(p["cmix"], xn, x_prev)
     if kind == "rec":
-        y, _ = griffin_recurrent_apply(p["griffin"], rmsnorm(p["ln1"], h))
+        state = None if cache is None else (cache["conv"].to(h.dtype),
+                                            cache["h"])
+        y, (conv, h_T) = griffin_recurrent_apply(
+            p["griffin"], rmsnorm(p["ln1"], h), state)
+        if cache is not None:
+            cache["conv"].copy_(conv)
+            cache["h"].copy_(h_T)
         h = h + y
     else:   # dense, attn
-        h = h + mha(p["attn"], rmsnorm(p["ln1"], h),
-                    **_attn_kwargs(cfg, kind))
+        kwargs = _attn_kwargs(cfg, kind)
+        a = mha(p["attn"], rmsnorm(p["ln1"], h),
+                return_kv=cache is not None, **kwargs)
+        if cache is not None:
+            a, (k, v) = a
+            _prefill_kv(cache, k, v, kwargs["window"])
+        h = h + a
     return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h), act=cfg.act)
+
+
+def _prefill_kv(cache, k: torch.Tensor, v: torch.Tensor, window) -> None:
+    """Positions 0..S-1 of k, v into the cache as the token-by-token
+    writes leave it: position p at slot p % buf, so a rotating (windowed)
+    buffer keeps the last buf positions."""
+    S, buf = k.shape[1], cache["k"].shape[1]
+    if window is None and S > buf:
+        raise ValueError(f"prefill of {S} positions into a KV cache of "
+                         f"{buf}")
+    pos = torch.arange(max(S - buf, 0), S, device=k.device)
+    write_kv(cache, pos % buf, k[:, pos], v[:, pos])
+
+
+# ------------------------------------------------------------- caches ----
+
+def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     dtype: torch.dtype, device=None) -> Params:
+    _require_ported(kind)
+    d = cfg.d_model
+    if kind in ("dense", "attn"):
+        window = _attn_kwargs(cfg, kind)["window"]
+        buf = min(max_len, window) if window else max_len
+        return init_cache(batch, buf, cfg.n_kv, cfg.d_head, dtype,
+                          device=device)
+    if kind == "rwkv":
+        hd = d // cfg.rwkv_heads
+        return {
+            "x_tmix": torch.zeros((batch, d), dtype=dtype, device=device),
+            "S": torch.zeros((batch, cfg.rwkv_heads, hd, hd),
+                             dtype=torch.float32, device=device),
+            "x_cmix": torch.zeros((batch, d), dtype=dtype, device=device),
+        }
+    return {    # rec
+        "conv": torch.zeros((batch, 3, cfg.lru_width), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def _rotating_decode_attn(p, cfg: ArchConfig, kind: str, h, cache,
+                          cur_index: int):
+    """Decode attention with a rotating buffer when windowed (O(window));
+    plain indexed cache otherwise. RoPE is applied at write time with
+    absolute positions (rotation-safe: scores depend on position
+    deltas)."""
+    kwargs = _attn_kwargs(cfg, kind)
+    window = kwargs.pop("window")
+    if window is None:
+        return mha_decode(p["attn"], h, cache, cur_index, **kwargs)
+    buf = cache["k"].shape[1]
+    q, k_new, v_new = decode_qkv(p["attn"], h, cur_index, **kwargs)
+    slot = cur_index % buf
+    write_kv(cache, slice(slot, slot + 1), k_new, v_new)
+    k_all, v_all = cache["k"].to(h.dtype), cache["v"].to(h.dtype)
+    # slot i holds absolute position cur - ((slot - i) mod buf)
+    idx = torch.arange(buf, device=h.device)
+    abs_pos = cur_index - torch.remainder(slot - idx, buf)
+    valid = (abs_pos >= 0) & (cur_index - abs_pos < window)
+    bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    return decode_attend(p["attn"], q, k_all, v_all, bias, h.dtype), cache
+
+
+def block_decode(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
+                 cache: Params, cur_index: int):
+    """Single-token decode. h: (B, 1, d); ``cur_index``: the Python int
+    position. Updates ``cache`` in place; returns (h, cache)."""
+    _require_ported(kind)
+    if kind in ("dense", "attn"):
+        a, cache = _rotating_decode_attn(p, cfg, kind, rmsnorm(p["ln1"], h),
+                                         cache, cur_index)
+        h = h + a
+        return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h),
+                             act=cfg.act), cache
+    if kind == "rwkv":
+        xn = rmsnorm(p["ln1"], h)[:, 0]
+        tm, (x_tmix, S) = rwkv6_decode_step(
+            p["tmix"], xn, (cache["x_tmix"].to(xn.dtype), cache["S"]),
+            cfg.rwkv_heads)
+        h = h + tm[:, None]
+        xn2 = rmsnorm(p["ln2"], h)[:, 0]
+        cm = rwkv_channel_mix(p["cmix"], xn2[:, None],
+                              cache["x_cmix"][:, None].to(xn2.dtype))
+        cache["x_tmix"].copy_(x_tmix)
+        cache["S"].copy_(S)
+        cache["x_cmix"].copy_(xn2)
+        return h + cm, cache
+    # rec
+    xn = rmsnorm(p["ln1"], h)
+    gp = p["griffin"]
+    u = dense(gp["in_rec"], xn)
+    g = F.gelu(dense(gp["in_gate"], xn), approximate="tanh")
+    u, conv = causal_conv1d(gp["conv"], u, cache["conv"].to(u.dtype))
+    y_t, h_state = rglru_decode_step(gp["rglru"], u[:, 0], cache["h"])
+    h = h + dense(gp["out"], y_t[:, None] * g)
+    cache["conv"].copy_(conv)
+    cache["h"].copy_(h_state)
+    return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h), act=cfg.act), cache
 
 
 # -------------------------------------------------------------- model ----
@@ -180,29 +319,125 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _readout(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Float32 logits: low-precision operands multiplied exactly and summed
-    in float32 (never rounded to the activation type)."""
-    h = rmsnorm(params["ln_f"], h)
+def readout_weight(params, cfg: ArchConfig,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The float32 (d, V) readout matrix for activations of ``dtype``: the
+    vocabulary table rounded to ``dtype``, then widened. For tied
+    embeddings this is a full float32 copy of the table, so a decode loop
+    builds it once and passes it to every step."""
     if cfg.tie_embeddings:
-        w = params["embed"]["table"].to(h.dtype).T
-    else:
-        w = params["head"]["kernel"].to(h.dtype)
-    return torch.matmul(h.float(), w.float())
+        return params["embed"]["table"].to(dtype).T.float()
+    return params["head"]["kernel"].to(dtype).float()
+
+
+def _readout(params, cfg: ArchConfig, h: torch.Tensor,
+             w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Float32 logits: low-precision operands multiplied exactly and summed
+    in float32 (never rounded to the activation type). ``w``: a prebuilt
+    ``readout_weight`` (built here when None)."""
+    h = rmsnorm(params["ln_f"], h)
+    if w is None:
+        w = readout_weight(params, cfg, h.dtype)
+    return torch.matmul(h.float(), w)
+
+
+def _blocks(params, cfg: ArchConfig, h: torch.Tensor,
+            caches=None) -> torch.Tensor:
+    """Every block over the full sequence h, groups then tail; with
+    ``caches`` (``init_lm_cache``'s tree) each block also fills its own."""
+    pattern, n_groups, tail = group_layout(cfg)
+    for g in range(n_groups):
+        gp = group_params(params, g)
+        gc = None if caches is None else _group_caches(caches, g)
+        for i, kind in enumerate(pattern):
+            h = block_apply(gp[f"b{i}"], cfg, kind, h,
+                            None if gc is None else gc[f"b{i}"])
+    for i in range(tail):
+        h = block_apply(params["tail"][f"t{i}"], cfg, pattern[i], h,
+                        None if caches is None
+                        else caches["tail"][f"t{i}"])
+    return h
 
 
 def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor):
     """tokens: (B, S) int. Returns (logits float32 (B, S, V), aux dict);
     the aux losses are zero for the ported block kinds."""
     _require_plain_lm(cfg)
-    pattern, n_groups, tail = group_layout(cfg)
-    h = _embed(params, cfg, tokens)
-    for g in range(n_groups):
-        gp = group_params(params, g)
-        for i, kind in enumerate(pattern):
-            h = block_apply(gp[f"b{i}"], cfg, kind, h)
-    for i in range(tail):
-        h = block_apply(params["tail"][f"t{i}"], cfg, pattern[i], h)
+    h = _blocks(params, cfg, _embed(params, cfg, tokens))
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"moe_aux": zero, "moe_z": zero, "moe_dropped": zero}
     return _readout(params, cfg, h), aux
+
+
+# ------------------------------------------------------------- decode ----
+
+def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype: Optional[torch.dtype] = None, device=None) -> Params:
+    """Zeroed decode caches, the reference's tree: group caches stacked on
+    a leading ``n_groups`` axis, tail caches beside them."""
+    _require_plain_lm(cfg)
+    dtype = dtype or dtype_of(cfg.dtype)
+    pattern, n_groups, tail = group_layout(cfg)
+    one = {f"b{i}": block_cache_init(cfg, kind, batch, max_len, dtype,
+                                     device)
+           for i, kind in enumerate(pattern)}
+    stacked = pytree.tree_map(
+        lambda l: l[None].repeat(n_groups, *([1] * l.ndim)), one)
+    tail_caches = {f"t{i}": block_cache_init(cfg, pattern[i], batch,
+                                             max_len, dtype, device)
+                   for i in range(tail)}
+    return {"groups": stacked, "tail": tail_caches}
+
+
+def _group_caches(caches, g: int) -> Params:
+    """Group ``g``'s slice of the stacked caches (views: writes land in
+    the stack)."""
+    return pytree.tree_map(lambda l: l[g], caches["groups"])
+
+
+def lm_decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches,
+                   cur_index: int, readout_w: Optional[torch.Tensor] = None):
+    """One decode step. token: (B,) int; ``cur_index``: the Python int
+    position; ``readout_w``: a prebuilt ``readout_weight``. Updates
+    ``caches`` in place; returns (logits (B, V) float32, caches)."""
+    _require_plain_lm(cfg)
+    pattern, n_groups, tail = group_layout(cfg)
+    h = _embed(params, cfg, token[:, None])
+    for g in range(n_groups):
+        gp, gc = group_params(params, g), _group_caches(caches, g)
+        for i, kind in enumerate(pattern):
+            h, _ = block_decode(gp[f"b{i}"], cfg, kind, h, gc[f"b{i}"],
+                                cur_index)
+    for i in range(tail):
+        h, _ = block_decode(params["tail"][f"t{i}"], cfg, pattern[i], h,
+                            caches["tail"][f"t{i}"], cur_index)
+    return _readout(params, cfg, h, readout_w)[:, 0], caches
+
+
+def lm_prefill(params, cfg: ArchConfig, prompt: torch.Tensor, caches,
+               start_index: int = 0,
+               readout_w: Optional[torch.Tensor] = None):
+    """Populate the decode caches for a whole prompt (B, P) placed at
+    positions ``start_index``.. and return (logits of the last position
+    (B, V) float32, caches); the caches are updated in place.
+
+    From position 0 this is the full-sequence forward with every block
+    filling its cache (``block_apply``), the port's counterpart of the
+    reference's one compiled forward: the kernels run, and the hidden
+    states are ``lm_forward``'s. Only the last position is read out.
+    From a later position it is the reference's own algorithm: one
+    ``lm_decode_step`` per position."""
+    _require_plain_lm(cfg)
+    if start_index:
+        logits = None
+        for i in range(prompt.shape[1]):
+            logits, caches = lm_decode_step(params, cfg, prompt[:, i],
+                                            caches, start_index + i,
+                                            readout_w)
+        return logits, caches
+    h = _blocks(params, cfg, _embed(params, cfg, prompt), caches)
+    return _readout(params, cfg, h[:, -1:], readout_w)[:, 0], caches
+
+
+def count_params(params) -> int:
+    return sum(l.numel() for l in pytree.tree_leaves(params))

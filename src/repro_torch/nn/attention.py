@@ -1,5 +1,5 @@
-"""Grouped-query attention with RoPE and optional qk-norm — full-sequence
-(training / prefill) path of ``repro/nn/attention.py``.
+"""Grouped-query attention with RoPE and optional qk-norm, and the decode
+KV cache — ``repro/nn/attention.py``.
 
 Layouts (the reference's): q proj ``(d_model, n_heads * d_head)`` "wq",
 k/v ``(d_model, n_kv * d_head)`` "wk"/"wv", out ``(n_heads * d_head,
@@ -10,18 +10,28 @@ follows the Pallas flash kernel's contract, which differs from the
 reference ``mha``'s einsums in one place: the softmax probabilities stay
 float32 for P.V, where the reference rounds them to the activation type
 first. In float32 the two agree up to the order of summation; in bf16
-the port is the more precise. The decode KV cache and ``mha_decode``
-wait for the decode slice (ROADMAP.md queue 1).
+the port is the more precise.
+
+Decode (``init_cache``, ``mha_decode``) is plain PyTorch, as the
+reference's is plain ``jnp``: one query row against the whole cache
+buffer under a ``NEG_INF`` additive bias, scores and softmax in float32,
+the probabilities rounded to the activation type for P.V. The cache is
+updated in place (the reference returns a new one). The reference's
+int8 cache (``kv_int8``) is set only by its TPU dry-run launcher and
+waits for that launcher (ROADMAP.md queue 1 item 12); cross-attention decode
+(``cross_kv``) serves ``whisper_base`` and waits for queue 1 item 6.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.nn.module import (dense_init, rmsnorm, rmsnorm_init,
                                    truncated_normal_init)
+
+NEG_INF = -1e30
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -69,8 +79,11 @@ def _proj(w, x: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
 def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
         rope_theta: float = 1e4, positions: Optional[torch.Tensor] = None,
         causal: bool = True, window: Optional[int] = None,
-        use_rope: bool = True, qk_norm: bool = False) -> torch.Tensor:
-    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d)."""
+        use_rope: bool = True, qk_norm: bool = False,
+        return_kv: bool = False):
+    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d); with
+    ``return_kv`` also the post-RoPE ``(k, v)``, each (B, S, n_kv, d_head),
+    for a prefill to write into its decode cache."""
     B, S, _ = x.shape
     q = _proj(params["wq"], x, n_heads, d_head)     # (B,S,H,hd)
     k = _proj(params["wk"], x, n_kv, d_head)        # (B,S,KV,hd)
@@ -85,4 +98,84 @@ def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
         k = apply_rope(k, positions, rope_theta)
     ctx = flash_attention(q, k, v, causal=causal, window=window)
     ctx = ctx.reshape(B, S, n_heads * d_head)
-    return torch.matmul(ctx, params["wo"]["kernel"].to(x.dtype))
+    out = torch.matmul(ctx, params["wo"]["kernel"].to(x.dtype))
+    return (out, (k, v)) if return_kv else out
+
+
+# -------------------------------------------------------------- decode ----
+
+def init_cache(batch: int, max_len: int, n_kv: int, d_head: int,
+               dtype=torch.bfloat16, device=None):
+    """Zeroed KV buffers (B, max_len, n_kv, d_head)."""
+    shape = (batch, max_len, n_kv, d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def write_kv(cache, slots, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write k, v (B, T, KV, hd) at the T cache positions ``slots`` (a
+    slice or a (T,) index tensor), in place, cast to the cache dtype."""
+    cache["k"][:, slots] = k.to(cache["k"].dtype)
+    cache["v"][:, slots] = v.to(cache["v"].dtype)
+
+
+def decode_qkv(params, x: torch.Tensor, pos: int, *, n_heads: int,
+               n_kv: int, d_head: int, rope_theta: float, use_rope: bool,
+               qk_norm: bool):
+    """q, k, v of one token x (B, 1, d) at position ``pos``, post-norm and
+    post-RoPE. The position is built on x's device from the Python int,
+    so no host-to-device copy or sync happens per token."""
+    q = _proj(params["wq"], x, n_heads, d_head)     # (B,1,H,hd)
+    k = _proj(params["wk"], x, n_kv, d_head)        # (B,1,KV,hd)
+    v = _proj(params["wv"], x, n_kv, d_head)
+    if qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    if use_rope:
+        positions = torch.arange(pos, pos + 1, device=x.device)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def decode_attend(params, q: torch.Tensor, k_all: torch.Tensor,
+                  v_all: torch.Tensor, bias: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """One query row q (B, 1, H, hd) against the buffers (B, T, KV, hd)
+    under an additive float32 bias (T,): float32 scores and softmax, the
+    probabilities rounded to ``dtype`` for P.V, then the output
+    projection. Returns (B, 1, d)."""
+    B, _, H, hd = q.shape
+    KV = k_all.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k_all.float())
+    probs = torch.softmax(scores * (hd ** -0.5) + bias, dim=-1).to(dtype)
+    ctx = torch.einsum("bngst,btnh->bsngh", probs, v_all.to(dtype))
+    ctx = ctx.reshape(B, 1, H * hd)
+    return torch.matmul(ctx, params["wo"]["kernel"].to(dtype))
+
+
+def mha_decode(params, x: torch.Tensor, cache: Any, cur_index: int, *,
+               n_heads: int, n_kv: int, d_head: int,
+               rope_theta: float = 1e4, window: Optional[int] = None,
+               use_rope: bool = True, qk_norm: bool = False,
+               cross_kv: Optional[Any] = None):
+    """Single-token self-attention decode. x: (B, 1, d); cache k/v: (B,
+    Smax, KV, hd); ``cur_index``: the Python int position being
+    generated. Writes the token's k, v at ``cur_index`` in place and
+    returns (out (B, 1, d), cache)."""
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross_kv (encoder-decoder decode): ROADMAP.md queue 1 item 6 "
+            "(other LM block kinds and models)")
+    q, k_new, v_new = decode_qkv(
+        params, x, cur_index, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
+        rope_theta=rope_theta, use_rope=use_rope, qk_norm=qk_norm)
+    write_kv(cache, slice(cur_index, cur_index + 1), k_new, v_new)
+    k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    k_pos = torch.arange(k_all.shape[1], device=x.device)
+    valid = k_pos <= cur_index
+    if window is not None:
+        valid = valid & (cur_index - k_pos < window)
+    bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    return decode_attend(params, q, k_all, v_all, bias, x.dtype), cache

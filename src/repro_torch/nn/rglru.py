@@ -14,8 +14,9 @@ the CPU. The two forms agree to rtol 2e-4 / atol 1e-5 (the bound
 ``tests/test_nn_layers.py`` holds them to). The casts are the
 reference's: dense projections in the activation type, gates in fp32,
 the conv accumulated in fp32 in tap order, ``h`` cast to the activation
-type before the output gate. The single-step ``rglru_decode_step`` waits
-for the decode slice (ROADMAP.md queue 1 item 2).
+type before the output gate. The single-step ``rglru_decode_step`` of
+the cached decode path is plain PyTorch, as the reference's is: three
+elementwise ops on the gates, no kernel.
 """
 from __future__ import annotations
 
@@ -69,6 +70,14 @@ def rglru_apply(p, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
         b[:, 0] = b[:, 0] + a[:, 0] * h0.float()
     h = rglru_scan(a, b)
     return h.to(x.dtype), h[:, -1]
+
+
+def rglru_decode_step(p, x_t: torch.Tensor, h: torch.Tensor):
+    """x_t: (B, width); h: (B, width) fp32 carry. Returns (y in x_t's
+    dtype, the fp32 new carry)."""
+    a, b = _gates(p, x_t[:, None, :])
+    h_new = a[:, 0, :] * h + b[:, 0, :]
+    return h_new.to(x_t.dtype), h_new
 
 
 # ---------------------------------------------------------------- conv1d ----

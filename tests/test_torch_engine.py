@@ -14,6 +14,7 @@ The tolerances of the probe were picked so that no request's
 differences between the frameworks cannot flip a K."""
 import dataclasses
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -155,3 +156,202 @@ def test_params_from_jax_keeps_bf16_bits():
         out["a"]["kernel"].view(torch.int16).numpy(),
         np.asarray(tree["a"]["kernel"]).view(np.int16))
     assert out["b"][0].dtype == torch.int32 and out["b"][1] is None
+
+
+# ---------------------------------------------------- failure paths ----
+# A toy servable model in both packages: a request x = (lam, z0...) runs
+# z' = -lam * z from z0, and the field is NaN wherever |z| > 10, so a
+# coarse Euler mesh that overshoots diverges while a finer one does not:
+# lam 1 is finite at every bucket, lam 10 from |z0| 2.8 is NaN at K = 2
+# (z1 = -4 z0) and finite at K = 4, lam 100 is NaN at every bucket.
+
+TOY_D = 4
+
+
+def _toy_jax():
+    from repro.core import Integrator as JaxIntegrator
+    from repro.core import get_tableau as jax_tableau
+
+    def field_of(x):
+        x = jnp.asarray(x)
+        lam = x[:, :1]
+        return lambda s, z: jnp.where(jnp.abs(z) > 10.0, jnp.nan, -lam * z)
+
+    return jeng.DepthModel(
+        embed=lambda x: jnp.asarray(x)[:, 1:] + 0.0, field_of=field_of,
+        readout=lambda x, zT: zT,
+        integ=JaxIntegrator(tableau=jax_tableau("euler")))
+
+
+def _toy_torch():
+    from repro_torch.core.integrate import Integrator
+    from repro_torch.core.tableaus import get as torch_tableau
+
+    def field_of(x):
+        lam = torch.as_tensor(x)[:, :1]
+        return lambda s, z: torch.where(z.abs() > 10.0, float("nan"),
+                                        -lam * z)
+
+    return teng.DepthModel(
+        embed=lambda x: torch.as_tensor(x)[:, 1:] + 0.0, field_of=field_of,
+        readout=lambda x, zT: zT,
+        integ=Integrator(tableau=torch_tableau("euler")))
+
+
+def _toy_requests(lams, z0=2.8):
+    xs = np.full((len(lams), TOY_D), z0, np.float32)
+    xs[:, 0] = lams
+    return xs
+
+
+@pytest.fixture(autouse=True)
+def _rearm_port_warnings():
+    """Re-arm the port's one-time warning latches per test, so a warning
+    assertion does not depend on test order (tests/conftest.py re-arms
+    the reference's)."""
+    teng.reset_snap_overflow_warning()
+    teng.reset_probe_nonfinite_warning()
+    yield
+
+
+def _drain(eng, xs, now=0.0):
+    """Submit xs, step until empty; per-request (uid, K, nfe, status) in
+    completion order, and each drain's report."""
+    for x in xs:
+        eng.submit(x)
+    done, reports = [], []
+    while len(eng):
+        for c in eng.step(now=now):
+            done.append((c.uid, c.K, c.nfe, c.status))
+        reports.append(eng.last_report)
+    return done, reports
+
+
+def _both(ecfg_kw, xs, **engine_kw):
+    """The same requests through the reference's engine and the port's."""
+    runs = []
+    for mod, toy in ((jeng, _toy_jax), (teng, _toy_torch)):
+        eng = mod.MultiRateEngine(toy(), mod.EngineConfig(**ecfg_kw),
+                                  **engine_kw)
+        runs.append(_drain(eng, xs))
+    return runs
+
+
+def test_engine_retry_ladder_matches_jax():
+    """Non-finite outputs requeue once at the next bucket: finite there is
+    ``retried``, NaN again is ``diverged``; the failed attempt's NFE is
+    charged (tests/test_faults.py::test_engine_overload_and_retry_paths)."""
+    xs = _toy_requests([1.0, 10.0, 100.0, 1.0, 10.0])
+    (ref, _), (out, reports) = _both(
+        dict(buckets=(2, 4, 8), controller="fixed", fixed_K=2, max_batch=4),
+        xs)
+    assert out == ref
+    assert out == [(1, 2, 2, "ok"), (4, 2, 2, "ok"), (2, 4, 6, "retried"),
+                   (3, 4, 6, "diverged"), (5, 4, 6, "retried")]
+    assert len(reports) == 2
+
+
+def test_engine_nonfinite_probe_matches_jax():
+    """A NaN request probes a non-finite error: ``screen_probe_errors``
+    counts it and warns once, the controller sends it to k_max, and the
+    retry at the same (top) bucket ends ``diverged``."""
+    xs = _toy_requests([1.0, 1.0, 1.0], z0=0.5)
+    xs[1, 1] = np.nan
+    with pytest.warns(RuntimeWarning, match="non-finite probe error"):
+        (ref, ref_reports), (out, reports) = _both(
+            dict(buckets=(2, 4, 8), tol=1e-2, max_batch=4), xs)
+    assert out == ref
+    assert [c[3] for c in sorted(out)] == ["ok", "diverged", "ok"]
+    assert dict((c[0], c[1]) for c in out)[2] == 8
+    assert [r.probe_nonfinite for r in reports] == \
+        [r.probe_nonfinite for r in ref_reports] == [1, 1]
+
+
+def test_screen_probe_errors_matches_jax():
+    errs = np.array([0.1, np.nan, np.inf, 0.2, -np.inf], np.float32)
+    for mod in (jeng, teng):
+        with pytest.warns(RuntimeWarning, match="non-finite probe error"):
+            assert mod.screen_probe_errors(errs) == 3
+    with warnings.catch_warnings():      # one-time: silent until re-armed
+        warnings.simplefilter("error", RuntimeWarning)
+        assert teng.screen_probe_errors(errs[:2]) == 1
+        assert teng.screen_probe_errors(errs[[0, 3]]) == 0
+    teng.reset_probe_nonfinite_warning()
+    with pytest.warns(RuntimeWarning, match="non-finite probe error"):
+        teng.screen_probe_errors(errs)
+
+
+def test_snap_to_buckets_overflow_matches_jax():
+    """K above the largest bucket clamps down to it with a one-time
+    warning, re-armed by ``reset_snap_overflow_warning``
+    (tests/test_engine.py::test_snap_to_buckets*)."""
+    Ks = np.array([1, 2, 3, 4, 5, 8])
+    for buckets in ((2, 4, 8), (16,)):
+        np.testing.assert_array_equal(teng.snap_to_buckets(Ks, buckets),
+                                      jeng.snap_to_buckets(Ks, buckets))
+    with pytest.warns(RuntimeWarning, match="exceeds the largest"):
+        out = teng.snap_to_buckets(np.array([3, 40]), (2, 4, 8))
+    np.testing.assert_array_equal(out, [4, 8])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        np.testing.assert_array_equal(
+            teng.snap_to_buckets(np.array([99]), (2, 4, 8)), [8])
+    teng.reset_snap_overflow_warning()
+    with warnings.catch_warnings():      # in-range snapping never warns
+        warnings.simplefilter("error", RuntimeWarning)
+        teng.snap_to_buckets(np.array([1, 8]), (2, 4, 8))
+    with pytest.warns(RuntimeWarning, match="exceeds the largest"):
+        teng.snap_to_buckets(np.array([9]), (2, 4, 8))
+
+
+def test_engine_degrade_policy_matches_jax():
+    """Past the queue cap, ``degrade`` admits everything and serves one
+    bucket coarser than the free run (tests/test_faults.py::
+    test_overload_degrade_caps_k_under_pressure, for the drain engine)."""
+    lams = np.linspace(0.5, 6.0, 8, dtype=np.float32)
+    xs = _toy_requests(lams, z0=0.5)
+    kw = dict(buckets=(2, 4, 8), tol=2e-2, max_batch=4)
+    (free_ref, _), (free, _) = _both(kw, xs)
+    (ref, _), (out, reports) = _both(kw, xs, queue_cap=2,
+                                     overload_policy="degrade")
+    assert free == free_ref and out == ref
+    assert len({c[1] for c in free}) > 1, "K is not mixed"
+    assert all(c[3] == "ok" for c in out) and len(out) == 8
+    k_free = {c[0]: c[1] for c in free}
+    assert any(c[1] < k_free[c[0]] for c in out)
+    assert all(c[1] <= k_free[c[0]] for c in out)
+    assert reports[0].waste_steps == \
+        reports[0].total_steps - reports[0].useful_steps
+
+
+def test_engine_block_policy_raises_queue_full():
+    """``block`` raises the engine's own ``QueueFull`` at the cap, and
+    ``can_submit`` gates it, as the reference's does."""
+    xs = _toy_requests([1.0, 1.0, 1.0], z0=0.5)
+    for mod, toy in ((jeng, _toy_jax), (teng, _toy_torch)):
+        eng = mod.MultiRateEngine(
+            toy(), mod.EngineConfig(buckets=(2,), controller="fixed",
+                                    fixed_K=2),
+            queue_cap=1, overload_policy="block")
+        assert eng.can_submit()
+        eng.submit(xs[0])
+        assert not eng.can_submit()
+        with pytest.raises(mod.QueueFull):
+            eng.submit(xs[1])
+        assert [c.status for c in eng.step()] == ["ok"]
+        assert eng.can_submit()
+        eng.submit(xs[1])
+        assert [c.uid for c in eng.step()] == [2]
+
+
+def test_step_report_waste_steps_matches_jax():
+    """Masked sample-steps of a mixed-K drain: rows scanned past their own
+    K, the reference's ``StepReport.waste_steps``."""
+    lams = np.linspace(0.5, 6.0, 8, dtype=np.float32)
+    xs = _toy_requests(lams, z0=0.5)
+    (_, ref), (_, out) = _both(dict(buckets=(2, 4, 8), tol=2e-2,
+                                    max_batch=8), xs)
+    assert [(r.useful_steps, r.total_steps, r.waste_steps) for r in out] \
+        == [(r.useful_steps, r.total_steps, r.waste_steps) for r in ref]
+    assert out[0].waste_steps > 0
+    assert teng.StepReport(useful_steps=3, total_steps=8).waste_steps == 5

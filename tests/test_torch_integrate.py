@@ -24,11 +24,21 @@ from repro.core.solvers import FixedGrid as JaxGrid
 from repro_torch.core import tableaus as torch_tableaus
 from repro_torch.core.controllers import EmbeddedErrorController
 from repro_torch.core.controllers import HypersolverResidualController
-from repro_torch.core.integrate import Integrator, tree_axpy
+from repro_torch.core.integrate import (Integrator,
+                                        reset_fused_fallback_warning,
+                                        tree_axpy)
 from repro_torch.core.solvers import FixedGrid
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 B, D = 6, 32
+
+
+@pytest.fixture(autouse=True)
+def _rearm_fused_fallback_warning():
+    """Re-arm the port's one-time fused-fallback latch per test, so a
+    warning assertion does not depend on test order."""
+    reset_fused_fallback_warning()
+    yield
 
 
 def f_jax(s, z):
@@ -203,8 +213,10 @@ def test_fused_state_outside_kernel_dtypes(where):
         assert not calls
         return
     plain = Integrator(torch_tableaus.get("heun"), g=g_torch, fused=False)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
+    with pytest.warns(RuntimeWarning, match="falling back"):
         out = fused.step(f_torch, 0.0, 0.25, z)[0]
+    with warnings.catch_warnings():     # one-time: silent until re-armed
+        warnings.simplefilter("error", RuntimeWarning)
+        fused.step(f_torch, 0.0, 0.25, z)
     assert out.dtype == torch.float64
     assert torch.equal(out, plain.step(f_torch, 0.0, 0.25, z)[0])

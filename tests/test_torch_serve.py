@@ -1,7 +1,8 @@
 """The port's serving CLI (repro_torch/launch/serve.py): it serves the
 continuous-depth drain path of ``qwen3_4b``, ``recurrentgemma_2b`` and
-``rwkv6_1p6b`` on the CPU when asked, its flag set is the reference parser's plus
-``--device``, it refuses the CPU silently (no
+``rwkv6_1p6b`` on the CPU when asked (the default discrete decode path
+is tested in tests/test_torch_decode.py), its flag set is the reference
+parser's plus ``--device``, it never falls back to the CPU silently (no
 CUDA and no ``--device cpu`` exits non-zero), and flags of slices not
 ported yet exit non-zero naming their ROADMAP.md item."""
 import os
@@ -63,7 +64,6 @@ def test_serves_fixed_k_on_cpu(capsys, arch):
 
 
 @pytest.mark.parametrize("extra", [
-    [],                                    # --solver discrete (default)
     ["--solver", "euler", "--inflight"],
     ["--solver", "euler", "--slots", "8"],
     ["--solver", "euler", "--mesh", "2"],
@@ -86,15 +86,18 @@ def test_hyper_solver_without_g_exits():
 
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_no_cpu_fallback(arch):
-    """Without ``--device cpu`` the CLI asks for CUDA; with no card it
-    exits non-zero instead of serving on the CPU."""
+    """Without ``--device cpu`` the CLI asks for CUDA; with no card its
+    default (discrete decode) and a solver both exit non-zero instead of
+    serving on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-         "--reduced", "--solver", "euler", "--multirate", "--fused"],
-        capture_output=True, text=True, env=env, timeout=120)
-    assert proc.returncode != 0
-    assert "torch.cuda.is_available() is False" in proc.stderr
-    assert "scored" not in proc.stdout
+    for extra in ([], ["--solver", "euler", "--multirate", "--fused"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             arch, "--reduced", *extra],
+            capture_output=True, text=True, env=env, timeout=120)
+        assert proc.returncode != 0
+        assert "torch.cuda.is_available() is False" in proc.stderr
+        assert "scored" not in proc.stdout
+        assert "[discrete]" not in proc.stdout
