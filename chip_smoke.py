@@ -26,7 +26,16 @@ readout of ``lm_forward``'s hidden states at the last position, the
 bf16 decode logits within a limit of a teacher-forced forward and a
 planted fault (lost cache writes) outside it, and prefill, decode and
 readout times beside the weight-bytes bound per token; and the same
-teacher-forced check in float32 at 4 layers (Griffin 6).
+teacher-forced check in float32 at 4 layers (Griffin 6). And the
+in-flight scheduler (``phase_inflight``) on each model's serve-phase
+params and tolerance: 16 prompts of 128 tokens on a Poisson trace, slots
+4, seg 2, once with the synchronous loop and once with the overlap loop
+(qwen3_4b through the CLI's ``--inflight --arrival-trace poisson
+--overlap``), the two equal uid for uid and bit for bit, K and nfe equal
+to the drain engine's, logits near the drain's, hyper_step once per
+segment step and each block kernel once per block application; it prints
+wall times, segments, the host syncs per segment and the virtual p50/p99
+latency.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -40,9 +49,11 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -63,6 +74,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
     snap_to_buckets)
+from repro_torch.launch.scheduler import InflightScheduler  # noqa: E402
+from repro_torch.launch.workload import (  # noqa: E402
+    latency_stats, poisson_trace, replay_scheduler)
 from repro_torch.models import cdepth, lm  # noqa: E402
 from repro_torch.models.cdepth import lm_g_init  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
@@ -83,6 +97,15 @@ FP32_DECODE_TOL = 1e-4
 FP32_DECODE_LAYERS = {"qwen3_4b": 4, "recurrentgemma_2b": 6,
                       "rwkv6_1p6b": 4}
 BUCKETS = "2,4,8"
+# The in-flight phases: 16 prompts of 128 tokens (the serve phase's 8 and
+# 8 more from the same generator), slots 4, seg 2, a Poisson trace at the
+# CLI's default 0.25 requests per cost unit, seed 0. A request's logits
+# are held to the drain engine's for the same prompt within this share of
+# the drain's largest |logit| (the decode limits above: bf16 rounding
+# through the whole stack, here from GEMMs of another row count), or must
+# agree with them by argmax at every position.
+INFLIGHT_REQUESTS, SLOTS, SEG, ARRIVAL_RATE = 16, 4, 2, 0.25
+INFLIGHT_TOL = BF16_DECODE_TOL
 FP32_PEAK = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_PEAK = 989e12              # H100 SXM dense bf16/fp16 tensor cores
 
@@ -673,9 +696,9 @@ def phase_serve(dev):
          euler_breakdown_ms=breakdown,
          logits_bytes=B * S * cfg.vocab * 4,
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    del cli, params, model, engine, gp
+    del cli, model, engine, gp
     torch.cuda.empty_cache()
-    return launches
+    return launches, params, prompt, tol_euler
 
 
 def serve_counted(dev, arch):
@@ -742,7 +765,7 @@ def phase_serve_griffin(dev):
         raise AssertionError(f"griffin: {blocks} is not 2 rec per attn "
                              "plus 2 per tail pass")
     emit(**report, tail_passes=tail_passes)
-    return launches, params, prompt
+    return launches, params, prompt, report["euler"]["tol"]
 
 
 def phase_serve_rwkv6(dev):
@@ -759,7 +782,7 @@ def phase_serve_rwkv6(dev):
         raise AssertionError(f"rwkv6: blocks {blocks}, launches {launches}: "
                              "only rwkv blocks and their kernels should run")
     emit(**report)
-    return launches, params, prompt
+    return launches, params, prompt, report["euler"]["tol"]
 
 
 def phase_fused_vs_unfused(dev):
@@ -799,6 +822,189 @@ def phase_fused_vs_unfused(dev):
         report[solver] = dict(tol=tol, K=ks[1], max_abs_diff=diff,
                               max_abs_logit=scale)
     emit(phase="fused_vs_unfused", layers=4, dtype="float32", **report)
+
+
+def inflight_prompts(cfg, prompt):
+    """The in-flight phases' requests: ``INFLIGHT_REQUESTS`` prompts from
+    the serving CLI's generator, whose first ``B`` are the serve phase's."""
+    prompts = np.random.RandomState(1).randint(
+        0, cfg.vocab, size=(INFLIGHT_REQUESTS, S)).astype(np.int32)
+    if not np.array_equal(prompts[:B], prompt):
+        raise AssertionError(f"{cfg.name}: the in-flight prompts do not "
+                             "start with the serve phase's")
+    return prompts
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Counts, by the source line that made them, the host syncs the CUDA
+    runtime reports while open (``torch.cuda.set_sync_debug_mode``: a
+    blocking copy between host and card, a stream or device sync). Waits
+    on a CUDA event (the scheduler's readbacks) are not reported."""
+    where = collections.Counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield where
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where[f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"] += 1
+
+
+def run_inflight(model, ecfg, prompts, overlap):
+    """One in-flight replay of the prompts on the Poisson trace: the
+    scheduler, its trace report, and the wall seconds (host clock around
+    synchronised work)."""
+    sched = InflightScheduler(model, ecfg, slots=SLOTS, seg=SEG,
+                              overlap=overlap)
+    trace = poisson_trace(prompts, rate=ARRIVAL_RATE, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = replay_scheduler(sched, trace)
+    torch.cuda.synchronize()
+    return sched, report, time.perf_counter() - t0
+
+
+def own_outputs(report):
+    """The report with each record's outputs copied out of the scheduler's
+    pinned readback buffers (the records hold views of them), so those
+    buffers go back to the pinned allocator's cache."""
+    return dataclasses.replace(report, records=tuple(
+        dataclasses.replace(r, outputs=None if r.outputs is None
+                            else np.array(r.outputs))
+        for r in report.records))
+
+
+def check_inflight(tag, sync_rep, over_rep, drain, limit):
+    """Raises unless every request is ``ok``, the overlap loop's records
+    equal the sync loop's uid for uid (outputs bit for bit, K, nfe,
+    completion order, virtual stamps), and each request's K and nfe equal
+    the drain engine's for its prompt and its logits lie within ``limit``
+    of the drain's largest |logit| or agree with them by argmax at every
+    position. Returns the largest relative difference and the worst
+    argmax agreement."""
+    for rec in sync_rep.records + over_rep.records:
+        if rec.status != "ok":
+            raise AssertionError(f"{tag}: request {rec.uid} {rec.status}")
+    key = lambda r: (r.uid, r.K, r.nfe, r.t_submit, r.t_admit, r.t_done)
+    if [key(r) for r in sync_rep.records] != \
+            [key(r) for r in over_rep.records]:
+        raise AssertionError(f"{tag}: sync and overlap records differ")
+    for a, b in zip(sync_rep.records, over_rep.records):
+        if not np.array_equal(a.outputs, b.outputs):
+            raise AssertionError(f"{tag}: request {a.uid}'s outputs differ "
+                                 "between the sync and overlap loops")
+    worst_rel, worst_agree = 0.0, 1.0
+    for rec in sync_rep.records:
+        ref = drain[rec.uid - 1]
+        if (rec.K, rec.nfe) != (ref.K, ref.nfe):
+            raise AssertionError(f"{tag}: request {rec.uid} K/nfe "
+                                 f"{rec.K}/{rec.nfe}, drain "
+                                 f"{ref.K}/{ref.nfe}")
+        rel = float(np.abs(rec.outputs - ref.outputs).max()
+                    / np.abs(ref.outputs).max())
+        agree = float(np.mean(rec.outputs.argmax(-1)
+                              == ref.outputs.argmax(-1)))
+        if rel > limit and agree < 1.0:
+            raise AssertionError(f"{tag}: request {rec.uid} logits {rel} "
+                                 f"of the largest |logit| from the drain's "
+                                 f"(limit {limit}), argmax agreement "
+                                 f"{agree}")
+        worst_rel, worst_agree = max(worst_rel, rel), min(worst_agree, agree)
+    return dict(max_rel_diff_vs_drain=worst_rel,
+                min_argmax_agreement_vs_drain=worst_agree,
+                rel_limit=limit)
+
+
+def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
+    """A main path: the in-flight scheduler serving ``INFLIGHT_REQUESTS``
+    full-width prompts of a model on its serve phase's params and
+    calibrated tolerance (euler, multi-rate over buckets 2,4,8, fused),
+    slots 4, seg 2, a Poisson trace at 0.25 per cost unit, seed 0; once
+    with the synchronous loop and once with the overlap loop (for qwen3_4b
+    through the serving CLI, whose weights from the same seed must equal
+    the serve phase's). Every segment runs hyper_step once per step, every
+    block application its kernel. Before the counted runs, the drain
+    engine serves the same prompts (the reference for K, nfe and logits)
+    and both loops run once more with their host syncs counted."""
+    prompts = inflight_prompts(cfg, prompt)
+    ecfg = EngineConfig(buckets=tuple(int(b) for b in BUCKETS.split(",")),
+                        tol=tol, max_batch=B, solver="euler", fused=True)
+    model = lm_depth_model(params, cfg, solver="euler", fused=True)
+    with torch.no_grad():
+        drain = MultiRateEngine(model, ecfg).run(prompts)
+    syncs = {}
+    for overlap in (False, True):
+        with count_syncs() as where:
+            counted = run_inflight(model, ecfg, prompts, overlap)[0]
+        total = sum(where.values())
+        syncs["overlap" if overlap else "sync"] = dict(
+            total=total, segments=counted.dispatches,
+            per_segment=total / counted.dispatches,
+            by_line=dict(where.most_common()))
+        del counted
+
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        sync_sched, sync_rep, sync_s = run_inflight(model, ecfg, prompts,
+                                                    False)
+        # not timed: the overlap run then finds the pinned cache the sync
+        # run found, not one held by the sync run's outputs
+        sync_rep = own_outputs(sync_rep)
+        if via_cli:
+            cli = serve_cli(cfg.name, "--batch", str(INFLIGHT_REQUESTS),
+                            "--tol", repr(tol), "--inflight",
+                            "--arrival-trace", "poisson", "--overlap")
+            over_sched, over_rep, over_s = (cli["sched"], cli["report"],
+                                            cli["seconds"])
+        else:
+            over_sched, over_rep, over_s = run_inflight(model, ecfg,
+                                                        prompts, True)
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    if via_cli:
+        same = np.array_equal(cli["prompt"], prompts) and all(
+            torch.equal(a, b) for a, b in zip(
+                pytree.tree_leaves(cli["params"]), pytree.tree_leaves(params)))
+        del cli
+        if not same:
+            raise AssertionError(f"{cfg.name}: the CLI's prompts or weights "
+                                 "differ from the serve phase's")
+    tag = f"{cfg.name} inflight"
+    checked = check_inflight(tag, sync_rep, over_rep, drain,
+                             INFLIGHT_TOL[cfg.name])
+    dispatches = sync_sched.dispatches + over_sched.dispatches
+    if launches.get("hyper_step", 0) != dispatches * SEG:
+        raise AssertionError(f"{tag}: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, the "
+                             f"segments dispatched x seg were "
+                             f"{dispatches * SEG}")
+    check_block_launches(launches, blocks, tag)
+    stats = latency_stats(sync_rep)
+    emit(phase="inflight", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, requests=INFLIGHT_REQUESTS,
+         prompt_len=S, slots=SLOTS, seg=SEG, arrival_rate=ARRIVAL_RATE,
+         tol=tol, overlap_via_cli=via_cli,
+         wall_s=dict(sync=sync_s, overlap=over_s),
+         segments=dict(sync=sync_sched.dispatches,
+                       overlap=over_sched.dispatches),
+         host_syncs=syncs,
+         virtual=dict(p50_latency=stats["p50_latency"],
+                      p99_latency=stats["p99_latency"],
+                      makespan=sync_rep.makespan,
+                      waste_frac=stats["waste_frac"],
+                      occupancy=stats["occupancy"],
+                      cost_unit=stats["cost_unit"]),
+         K=[r.K for r in sorted(sync_rep.records, key=lambda r: r.uid)],
+         drain_K=[r.K for r in drain],
+         drain_err_over_tol=[r.err_probe / tol for r in drain],
+         launches=launches, expected_hyper_step_launches=dispatches * SEG,
+         block_applications=blocks, **checked)
+    del drain, sync_rep, over_rep
+    torch.cuda.empty_cache()
+    return launches
 
 
 def expected_decode_launches(cfg, gen):
@@ -1055,12 +1261,18 @@ def main() -> int:
     flash_rows = phase_flash(dev, bandwidth)
     rglru_rows = phase_rglru(dev, bandwidth)
     rwkv6_rows = phase_rwkv6(dev, bandwidth)
-    launches = collections.Counter(phase_serve(dev))
+    served, params, prompt, tol = phase_serve(dev)
+    launches = collections.Counter(served)
+    launches.update(phase_inflight(dev, get("qwen3_4b"), params, prompt, tol,
+                                   via_cli=True))
+    del params
+    torch.cuda.empty_cache()
     launches.update(phase_decode_qwen(dev, bandwidth))
     for arch, phase in (("recurrentgemma_2b", phase_serve_griffin),
                         ("rwkv6_1p6b", phase_serve_rwkv6)):
-        served, params, prompt = phase(dev)
+        served, params, prompt, tol = phase(dev)
         launches.update(served)
+        launches.update(phase_inflight(dev, get(arch), params, prompt, tol))
         launches.update(phase_decode_served(dev, bandwidth, arch, params,
                                             prompt))
         del params

@@ -4,7 +4,8 @@ from repro_torch.core.tableaus import (  # noqa: F401
     alpha_family, get as get_tableau,
 )
 from repro_torch.core.integrate import (  # noqa: F401
-    Integrator, SolveStats, rk_stages, tree_axpy, tree_lincomb, with_initial,
+    Integrator, SegmentCarry, SolveStats, make_segment_carry, rk_stages,
+    tree_axpy, tree_lincomb, with_initial,
 )
 from repro_torch.core.solvers import FixedGrid  # noqa: F401
 from repro_torch.core.controllers import (  # noqa: F401

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
@@ -171,6 +171,58 @@ _fused_fallback = OneTimeWarning()
 def reset_fused_fallback_warning() -> None:
     """Re-arm the one-time fused-fallback RuntimeWarning (test isolation)."""
     _fused_fallback.reset()
+
+
+def _nonfinite_rows(z: Pytree, like: torch.Tensor) -> torch.Tensor:
+    """Per-slot non-finite flag: True where any floating element of a
+    slot's state row is NaN/Inf, reduced over every non-slot axis of
+    every floating leaf (row-wise: a row's flag depends only on its own
+    data). ``like`` supplies the (B,) shape and device for stateless
+    pools."""
+    flags = [~torch.isfinite(l).reshape(l.shape[0], -1).all(dim=1)
+             for l in pytree.tree_leaves(z)
+             if isinstance(l, torch.Tensor) and l.is_floating_point()]
+    if not flags:
+        return torch.zeros_like(like, dtype=torch.bool)
+    bad = flags[0]
+    for f in flags[1:]:
+        bad = bad | f
+    return bad
+
+
+class SegmentCarry(NamedTuple):
+    """Resumable per-slot state of a segmented multi-rate solve: one row
+    per slot (leading axis B on every tensor and leaf). ``z`` is a
+    slot's current state, ``k`` the next depth step it takes, ``Ks`` its
+    target mesh length (0 = empty slot), ``eps`` its step size;
+    ``first_stage`` optionally carries the admission probe's
+    ``dz0 = f(s0, z0)`` rows, substituted as stage 0 exactly while a slot
+    is still at ``k == 0``. Occupancy is data, never a shape: an empty
+    slot has ``Ks == 0``, so ``k < Ks`` is always False and the freeze
+    mask keeps its row inert."""
+
+    z: Pytree
+    k: torch.Tensor                 # (B,) int32 — next depth-step index
+    Ks: torch.Tensor                # (B,) int32 — target mesh lengths
+    eps: torch.Tensor               # (B,) float32 — per-slot step sizes
+    first_stage: Optional[Pytree]   # probe dz0 rows, used only at k == 0
+
+
+def make_segment_carry(z0: Pytree, Ks, span, *,
+                       first_stage: Optional[Pytree] = None) -> SegmentCarry:
+    """Fresh carry for a slot batch: every slot at ``k = 0`` with
+    ``eps_i = (s1 - s0) / Ks[i]``, the arithmetic of ``solve_multirate``
+    (float32), so a segment-driven solve walks the same mesh. An empty
+    slot (``Ks[i] == 0``) gets eps 1.0, so no inf or NaN rides along in
+    its frozen row."""
+    s0, s1 = span
+    dev = pytree.tree_leaves(z0)[0].device
+    Ks = torch.as_tensor(Ks, dtype=torch.int32, device=dev)
+    eps = torch.tensor(s1 - s0, dtype=torch.float32, device=dev) \
+        / torch.clamp(Ks, min=1)
+    eps = torch.where(Ks > 0, eps, torch.ones_like(eps))
+    return SegmentCarry(z=z0, k=torch.zeros_like(Ks), Ks=Ks, eps=eps,
+                        first_stage=first_stage)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,3 +404,83 @@ class Integrator:
         )
         return result, stats
 
+    # ---------------------------------------------------------- segments ----
+    def solve_segment(self, f, carry: SegmentCarry, seg: int, *, s0=0.0):
+        """Advance every slot of ``carry`` by ``seg`` depth steps; returns
+        ``(carry', finished)`` — the resumable core of in-flight batching
+        (launch/scheduler.py).
+
+        Slot i steps at ``eps_i`` from ``s = s0 + k_i * eps_i`` and
+        freezes (state and counter) once ``k_i >= Ks_i``: the masked
+        update ``solve_multirate`` runs, so a batch driven to completion
+        segment by segment is step for step one ``solve_multirate`` call
+        with the same ``Ks``. Between segments a caller may retire
+        finished slots and refill them (a new z row, ``k = 0``, a new
+        ``Ks``/``eps``). A slot admitted with a probe ``first_stage`` row
+        uses it on its ``k == 0`` step only; the field is evaluated once
+        per step for the whole batch either way.
+
+        ``finished`` is ``k >= Ks`` after the segment (True for empty
+        slots too: callers keep their own occupancy). Each step is one
+        eager call; on the fused path its update is one kernel launch
+        per state leaf."""
+        z, k, Ks, eps, fs = carry
+        for _ in range(int(seg)):
+            active = k < Ks
+            s = s0 + k * eps
+            if fs is None:
+                dz0 = None
+            else:
+                # fresh slots (k == 0) take their probe's dz row as stage
+                # 0: the same values as f(s0, z) there, so the probe's
+                # saved evaluation stays honest in the NFE accounting
+                dz = f(s, z)
+                fresh = k == 0
+                dz0 = pytree.tree_map(
+                    lambda a, b: torch.where(_bcast(fresh, b), a, b), fs, dz)
+            z_next, _, _ = self.step(f, s, eps, z, first_stage=dz0,
+                                     active=active)
+            _check_carry(z, z_next)
+            z = z_next
+            k = torch.where(active, k + 1, k)
+        return SegmentCarry(z, k, Ks, eps, fs), k >= Ks
+
+    def segment_cell(self, field_of, seg: int, *, s0=0.0, g_apply=None):
+        """The serving loop's segment call: ``run(xs, z, k, Ks, eps, fs)
+        -> (z', fs', meta)`` (with ``g_apply``, a trailing ``gp``
+        operand: ``g = g_apply(gp, eps, s, z, dz)`` is bound per call, so
+        the correction's params are an input, not a constant of the cell).
+
+        ``meta`` is the stacked ``(3, B)`` int32 ``[k'; finished;
+        nonfinite]`` on the state's device: one device-to-host transfer
+        retires a segment, and the caller may read it a segment later
+        (the overlap loop). ``nonfinite`` (``_nonfinite_rows`` of the
+        post-segment state) is the per-slot quarantine flag.
+
+        The reference's buffer donation on PyTorch terms: the pool's
+        ``z`` is a preallocated buffer, and the cell writes ``z'`` into
+        its storage (the returned ``z'`` is the same tensor), so slot
+        state never gets a second pool-sized buffer between segments;
+        ``fs'`` is ``fs`` itself, untouched. Any read of the old state (a
+        readout gather, a refill scatter) must be enqueued before the
+        call, which stream order then keeps."""
+
+        def run(xs, z, k, Ks, eps, fs, *gp):
+            integ = self
+            if g_apply is not None:
+                (params,) = gp
+                integ = dataclasses.replace(
+                    self, g=lambda e, s, zz, dzz: g_apply(params, e, s, zz,
+                                                          dzz))
+            carry = SegmentCarry(z, k.to(torch.int32), Ks.to(torch.int32),
+                                 eps, fs)
+            out, fin = integ.solve_segment(field_of(xs), carry, seg, s0=s0)
+            bad = _nonfinite_rows(out.z, like=fin)
+            meta = torch.stack([out.k.to(torch.int32), fin.to(torch.int32),
+                                bad.to(torch.int32)])
+            for dst, src in zip(pytree.tree_leaves(z),
+                                pytree.tree_leaves(out.z)):
+                dst.copy_(src)
+            return z, out.first_stage, meta
+
+        return run

@@ -11,10 +11,10 @@
            update is one launch of the CUDA kernel, for any K mix
         -> Completed{outputs, K, nfe, err_probe} per request
 
-Deadlines, the bounded queue's shed/degrade/block policies and the
-retry ladder for non-finite outputs are kept. The K=0 flow tier, the
-residual-ledger capture and the fault injector wait for their slices
-(ROADMAP.md queue 1): asking for them raises.
+Deadlines, the bounded queue's shed/degrade/block policies, the retry
+ladder for non-finite outputs and the fault injector's admission hook
+are kept. The K=0 flow tier and the residual-ledger capture wait for
+their slices (ROADMAP.md queue 1): asking for them raises.
 
 The discrete path, ``greedy_generate``, is the standard cached decode
 (the CLI's default): a prefill, then one greedy token a step.
@@ -342,10 +342,6 @@ class MultiRateEngine:
                  fault_injector=None, ledger=None):
         from repro_torch.distributed.fault import RetryPolicy
         from repro_torch.launch.oracle import SequentialEvalOracle
-        if fault_injector is not None:
-            raise NotImplementedError(
-                "fault_injector: ROADMAP.md queue 1 item 3 (in-flight "
-                "scheduler and serving chaos)")
         if ledger is not None:
             raise NotImplementedError(
                 "ledger: ROADMAP.md queue 1 item 5 (the online refinery)")
@@ -364,6 +360,7 @@ class MultiRateEngine:
         self.queue_cap = queue_cap
         self.overload_policy = overload_policy
         self.retry = retry or RetryPolicy()
+        self.fault_injector = fault_injector
         self._queue: deque = deque()
         self._uid = 0
         self._shed: List[Completed] = []
@@ -474,7 +471,11 @@ class MultiRateEngine:
             by_shape.setdefault(r.x.shape, []).append(r)
 
         for shape, reqs in by_shape.items():
-            xs = np.stack([r.x for r in reqs])
+            rows = [r.x for r in reqs]
+            if self.fault_injector is not None:
+                rows = [self.fault_injector.corrupt_admission(
+                    r.uid, r.attempts, x) for r, x in zip(reqs, rows)]
+            xs = np.stack(rows)
             if isinstance(self.controller, FixedController):
                 Ks_raw = np.full((len(reqs),), self.controller.K, np.int32)
                 errs = np.zeros((len(reqs),), np.float32)

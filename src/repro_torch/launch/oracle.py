@@ -1,8 +1,9 @@
 """Serving cost oracle — the ``SequentialEvalOracle`` of
 ``repro/launch/oracle.py``: one cost unit per SEQUENTIAL vector-field
 evaluation (a K-step loop of an s-stage tableau costs ``s*K``, a probe its
-``probe_nfe``), batch width free. The roofline oracle waits for the cost
-model slice (ROADMAP.md queue 1 item 9)."""
+``probe_nfe``, a ``seg``-step segment of a slot pool ``s*seg``), batch
+width free. The roofline oracle waits for the cost model slice (ROADMAP.md
+queue 1 item 9); the K=0 flow tier's ``flow_cost`` waits for item 4."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +15,10 @@ class SequentialEvalOracle:
 
     def probe_cost(self, shape, width: int, probe_nfe: int) -> float:
         return float(probe_nfe)
+
+    def segment_cost(self, shape, seg: int, slots: int,
+                     stages: int) -> float:
+        return float(stages * seg)
 
     def solve_cost(self, shape, k_max: int, width: int,
                    stages: int) -> float:

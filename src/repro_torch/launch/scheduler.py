@@ -1,0 +1,850 @@
+"""In-flight depth-continuous batching — the port of
+``repro/launch/scheduler.py`` (see its docstring for the design).
+
+Where ``MultiRateEngine.step()`` drains the queue and solves each packed
+batch to completion, ``InflightScheduler`` keeps a fixed slot pool per
+request (shape, dtype) and advances it ``seg`` depth steps at a time
+(``Integrator.segment_cell``): between segments, finished slots retire
+(readout -> completion record) and free slots refill from the queue
+(probe on admission, padded to the pool width). A K=2 request admitted
+next to a half-done K=16 one leaves after its own segments.
+
+Policy on the host matches the reference exactly: request-to-slot
+assignment, K, nfe (probe and failed attempts included), status,
+completion order, and the virtual-clock stamps (``launch/oracle.py``;
+each pool's completions carry only that pool's probe and segment cost).
+
+PyTorch terms for the reference's JAX mechanisms:
+
+  * a jit cell per ``(shape, seg)`` is one eager ``segment_cell`` per
+    pool; the donated carry is the pool's own ``z`` buffer, which the
+    cell writes in place;
+  * async dispatch is the CUDA stream: host rows go up through pinned
+    buffers with non-blocking copies, and the ``(3, B)`` meta row and the
+    readout rows come back the same way, each behind a CUDA event that
+    ``retire_pending`` / ``finalize_retired`` wait on (a record's
+    outputs are a view of its pinned buffer, which returns to PyTorch's
+    pinned cache when the record is dropped). The overlap loop
+    (``overlap=True``) launches segment N+1 before it reads segment N's
+    meta. The depth field splits a batch by group index on the host
+    (``models/cdepth.py``), which waits for the device at every field
+    evaluation of a mixed pool, so on the card the overlap loop is
+    correct but overlaps little.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
+item: the slot pool over several GPUs (``mesh=``, item 10), the residual
+ledger and ``hot_swap_g`` (item 5), the K=0 flow tier and
+``hot_swap_flow`` (item 4).
+"""
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core.controllers import FixedController
+from repro_torch.distributed.fault import FaultInjector, RetryPolicy
+from repro_torch.launch.engine import (
+    STATUSES, DepthModel, EngineConfig, QueueFull, Request, bound_integrator,
+    make_controller, next_bucket_above, prepare_model, probe_net_nfe,
+    screen_probe_errors, snap_to_buckets,
+)
+from repro_torch.launch.oracle import SequentialEvalOracle
+
+__all__ = ["InflightScheduler", "InflightCompleted", "TickReport",
+           "STATUSES", "QueueFull", "RetryPolicy", "FaultInjector"]
+
+_MESH = "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)"
+_REFINERY = "ROADMAP.md queue 1 item 5 (the online refinery)"
+_FLOW = "ROADMAP.md queue 1 item 4 (the K=0 flow tier)"
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host row on ``device``: on a card through a pinned buffer and a
+    non-blocking copy (no wait for the device), on the CPU a copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class _Readback:
+    """A device-to-host copy in flight: on a card a non-blocking copy into
+    a pinned buffer behind a CUDA event, waited on by ``numpy()``; on the
+    CPU the tensor itself. ``numpy()`` returns a view of the host buffer
+    (which it keeps alive), not a copy."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = t
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class InflightCompleted:
+    """Per-request terminal record: queue wait (submit -> last admission)
+    and service (admission -> retirement) on the virtual clock.
+    ``ok``/``retried`` carry real outputs, ``diverged``/``deadline`` the
+    best-effort partial readout (None if the request expired queued),
+    ``shed`` None."""
+
+    uid: int
+    outputs: Optional[np.ndarray]
+    K: int                        # snapped mesh length actually integrated
+    nfe: int                      # probe (net of reuse) + stages * steps,
+    #                               summed over every attempt
+    err_probe: float
+    fused_kernel: bool
+    t_submit: float
+    t_admit: float
+    t_done: float
+    segments: int                 # pool segments this request rode
+    status: str = "ok"            # terminal status (engine.STATUSES)
+
+    @property
+    def queue_wait(self) -> float:
+        return self.t_admit - self.t_submit
+
+    @property
+    def latency(self) -> float:
+        return self.t_done - self.t_submit
+
+
+@dataclasses.dataclass(frozen=True)
+class TickReport:
+    """One scheduling round: admissions + at most one segment per pool."""
+
+    cost: float = 0.0             # virtual cost of this tick
+    probe_cost: float = 0.0
+    admitted: int = 0
+    retired: int = 0              # terminal records surfaced this tick
+    useful_steps: int = 0         # slot-steps that advanced a live request
+    total_steps: int = 0          # slots * seg over pools that ran
+    occupied_steps: int = 0       # occupied-slot-steps (live at segment start)
+    quarantined: int = 0          # slots force-retired non-finite this tick
+    deadline_evicted: int = 0     # slots/queued requests evicted past deadline
+    requeued: int = 0             # failed slots re-queued by the retry ladder
+    shed: int = 0                 # admission refusals surfaced this tick
+    probe_nonfinite: int = 0      # non-finite probe errors seen at admission
+
+    @property
+    def waste_steps(self) -> int:
+        """Slot-steps computed for frozen or empty rows."""
+        return self.total_steps - self.useful_steps
+
+
+@dataclasses.dataclass
+class _PendingSegment:
+    """A segment in flight: its ``[k'; finished; nonfinite]`` meta on its
+    way to the host, and the host snapshots that account it."""
+
+    meta: _Readback
+    k_old: np.ndarray             # k rows at launch
+    occ: np.ndarray               # occupancy at launch (bool row)
+    t_done: float                 # virtual completion stamp for retires
+
+
+@dataclasses.dataclass
+class _RetireBatch:
+    """Retiring rows staged for materialization: ``outs`` is still on its
+    way to the host; the host rows are snapshots, because admission may
+    refill the slots before ``finalize_retired``."""
+
+    idx: np.ndarray
+    outs: _Readback
+    t_done: float
+    fused: bool
+    uid: np.ndarray
+    K: np.ndarray
+    k_done: np.ndarray            # depth steps actually taken (== K for ok)
+    err: np.ndarray
+    t_submit: np.ndarray
+    t_admit: np.ndarray
+    segments: np.ndarray
+    status: List[str]             # terminal status per row
+
+
+@dataclasses.dataclass(frozen=True)
+class _RetireStats:
+    """Per-pool retirement accounting for one segment."""
+
+    retired: int = 0              # rows staged terminal (any status)
+    useful: int = 0
+    occupied: int = 0
+    quarantined: int = 0
+    deadline_evicted: int = 0
+    requeued: int = 0
+
+
+class _SlotPool:
+    """Fixed-width slot pool for one request (shape, dtype): the carry on
+    the model's device (``z`` and ``fs`` pytrees, allocated at the first
+    admission and written in place from then on) and the host rows (k,
+    Ks, eps, uid, timestamps)."""
+
+    def __init__(self, sched: "InflightScheduler", shape: Tuple[int, ...],
+                 dtype: np.dtype):
+        # a proxy, not a reference: the scheduler owns its pools, and a
+        # cycle would keep the model's weights on the card after the
+        # caller drops the scheduler, until a cyclic collection ran
+        self.sched = weakref.proxy(sched)
+        self.shape = shape
+        n = sched.slots
+        self.uid = np.full((n,), -1, np.int64)        # -1 = empty slot
+        self.k = np.zeros((n,), np.int32)
+        self.Ks = np.zeros((n,), np.int32)
+        self.eps = np.ones((n,), np.float32)
+        self.err = np.zeros((n,), np.float32)
+        self.t_submit = np.zeros((n,), np.float64)
+        self.t_admit = np.zeros((n,), np.float64)
+        self.segments = np.zeros((n,), np.int32)
+        self.deadline = np.full((n,), np.inf, np.float64)
+        self.attempts = np.zeros((n,), np.int32)
+        self.xs = np.zeros((n,) + shape, dtype)
+        self.device: Optional[torch.device] = None    # set on first admit
+        self._xs_dev = None     # device mirror of xs, refreshed on admit
+        self.z: Any = None                            # device pytree
+        self.fs: Any = None                           # probe dz rows or None
+        self._pending: Optional[_PendingSegment] = None
+        self._staged: List[_RetireBatch] = []
+        self._readout_widths: set = set()   # pow2 readout widths used
+        self._segment_fn = None
+
+    # ----------------------------------------------------------- cells ----
+    def _probe(self, xs):
+        m, sched = self.sched.model, self.sched
+        z0 = m.embed(xs)
+        p = sched.controller.select(bound_integrator(m, sched.g_params),
+                                    m.field_of(xs), z0, m.span)
+        return p.K, p.err, z0, p.dz0
+
+    def _segment(self):
+        """The pool's segment call (``Integrator.segment_cell``): one per
+        (shape, seg), built at the first launch."""
+        if self._segment_fn is None:
+            m, sched = self.sched.model, self.sched
+            self._segment_fn = m.integ.segment_cell(
+                m.field_of, sched.seg, s0=m.span[0], g_apply=m.g_apply)
+        return self._segment_fn
+
+    # ------------------------------------------------------- occupancy ----
+    @property
+    def free(self) -> np.ndarray:
+        return np.flatnonzero(self.uid < 0)
+
+    @property
+    def occupied(self) -> np.ndarray:
+        return self.uid >= 0
+
+    def busy(self) -> bool:
+        return bool((self.uid >= 0).any())
+
+    # ------------------------------------------------------- admission ----
+    def admit(self, reqs: List[Request], submit_t: Dict[int, float],
+              now: float, degrade: bool = False) -> Tuple[float, int]:
+        """Probe ``reqs`` (padded to pool width with copies of the first
+        row) and scatter them into free slots. Returns (probe cost,
+        non-finite probe count). ``degrade`` caps every admission one
+        bucket coarser (the overload policy's pressure response)."""
+        sched = self.sched
+        idx = self.free[:len(reqs)]
+        assert len(idx) == len(reqs), "caller admits at most `free` requests"
+        n_pad = sched.slots - len(reqs)
+        rows = [r.x for r in reqs]
+        if sched.fault_injector is not None:
+            # poisoned rows feed the probe and the device mirror; self.xs
+            # keeps the original input, so a retry re-admits clean data
+            rows = [sched.fault_injector.corrupt_admission(
+                r.uid, r.attempts, x) for r, x in zip(reqs, rows)]
+        xs_new = np.stack(rows)
+        assert xs_new.dtype == self.xs.dtype, (xs_new.dtype, self.xs.dtype)
+        xs_pad = np.concatenate(
+            [xs_new, np.repeat(xs_new[:1], n_pad, axis=0)]) \
+            if n_pad else xs_new
+        xs_in = xs_pad if self.device is None \
+            else _upload(xs_pad, self.device)
+
+        fixed = isinstance(sched.controller, FixedController)
+        probe_nonfinite = 0
+        if fixed:
+            z0 = sched.model.embed(xs_in)
+            dz0 = None
+            Ks_raw = np.full((len(reqs),), sched.controller.K, np.int32)
+            errs = np.zeros((len(reqs),), np.float32)
+            probe_cost = 0.0
+        else:
+            Ks_dev, err_dev, z0, dz0 = self._probe(xs_in)
+            Ks_raw = Ks_dev.cpu().numpy()[:len(reqs)]
+            errs = err_dev.cpu().numpy()[:len(reqs)]
+            probe_nonfinite = screen_probe_errors(errs)
+            # the probe runs at pool width, so the oracle prices a
+            # pool-width program however many rows refilled
+            probe_cost = sched.oracle.probe_cost(
+                self.shape, sched.slots,
+                getattr(sched.controller, "probe_nfe", 0))
+        Ks = snap_to_buckets(Ks_raw, sched.ecfg.buckets)
+        if degrade:
+            b = np.asarray(sorted(sched.ecfg.buckets), np.int32)
+            Ks = b[np.maximum(np.searchsorted(b, Ks) - 1, 0)]
+        # retry ladder: a re-queued request never serves below its floor
+        floors = np.asarray([r.K_floor for r in reqs], np.int32)
+        Ks = np.maximum(Ks, floors)
+
+        # scatter: host rows directly, device leaves in place. On the
+        # pool's first admission the padded probe output becomes the
+        # pool's own buffers.
+        n = len(reqs)
+        if self.z is None:
+            own = lambda t: pytree.tree_map(lambda l: l.clone(), t)
+            self.z = own(z0)
+            self.fs = None if dz0 is None else own(dz0)
+            self.device = pytree.tree_leaves(self.z)[0].device
+        else:
+            jidx = _upload(idx.astype(np.int64), self.device)
+
+            def upd(old, new):
+                for o, nl in zip(pytree.tree_leaves(old),
+                                 pytree.tree_leaves(new)):
+                    o[jidx] = nl[:n]
+
+            upd(self.z, z0)
+            if self.fs is not None:
+                upd(self.fs, dz0)
+        span = sched.model.span
+        for j, i in enumerate(idx):
+            r = reqs[j]
+            self.uid[i] = r.uid
+            self.k[i] = 0
+            self.Ks[i] = int(Ks[j])
+            self.eps[i] = (span[1] - span[0]) / float(Ks[j])
+            self.err[i] = float(errs[j])
+            self.t_submit[i] = submit_t.pop(r.uid)
+            self.t_admit[i] = now
+            self.segments[i] = 0
+            self.deadline[i] = np.inf if r.deadline is None else r.deadline
+            self.attempts[i] = r.attempts
+            self.xs[i] = r.x
+        # device mirror of xs: only the refilled rows go up after the
+        # first admission
+        if self._xs_dev is None:
+            self._xs_dev = _upload(self.xs, self.device)
+        else:
+            self._xs_dev[jidx] = _upload(xs_new, self.device)
+        return probe_cost, probe_nonfinite
+
+    # --------------------------------------------------------- segment ----
+    def launch_segment(self, t_done: float) -> None:
+        """Enqueue one ``seg``-step advance of the pool and start its meta
+        on its way to the host, reading nothing back: the rows go up
+        through pinned buffers, and the wait for the meta is
+        ``retire_pending``'s. Reads of the old state (readout gathers,
+        refill scatters) were enqueued before, so stream order keeps them
+        ahead of the in-place write."""
+        assert self._pending is None, "one in-flight segment per pool"
+        assert self._xs_dev is not None  # a busy pool has admitted
+        k_old = self.k.copy()
+        occ = self.occupied.copy()
+        dev = self.device
+        z, fs, meta = self._segment()(
+            self._xs_dev, self.z, _upload(self.k, dev),
+            _upload(self.Ks, dev), _upload(self.eps, dev), self.fs,
+            *self.sched._g_args())
+        self.z, self.fs = z, fs
+        self._pending = _PendingSegment(meta=_Readback(meta), k_old=k_old,
+                                        occ=occ, t_done=t_done)
+
+    def retire_pending(self) -> _RetireStats:
+        """Wait for the pending segment's ``[k'; finished; nonfinite]``
+        meta (one transfer per segment), stage terminal rows (their
+        readout enqueued), requeue retryable failures and free their
+        slots. Precedence: quarantine beats finished (a non-finite row's
+        flag is meaningless), finished beats deadline (a request that
+        finished completes ``ok`` even if its stamp lands late)."""
+        p = self._pending
+        assert p is not None, "retire_pending without a pending segment"
+        self._pending = None
+        sched = self.sched
+        meta = p.meta.numpy()
+        self.k = meta[0].copy()
+        occ = p.occ
+        self.segments[occ] += 1
+        useful = int((self.k - p.k_old)[occ].sum())
+        fin_row = meta[1] != 0
+        if sched.fault_injector is not None:
+            # lost completion signals, keyed per (uid, segment count): a
+            # dropped flag is re-drawn next segment
+            fin_row = sched.fault_injector.drop_retire_flags(
+                self.uid, self.segments, fin_row)
+        nonfin = occ & (meta[2] != 0)
+        finished = occ & fin_row & ~nonfin
+        expired = occ & ~nonfin & ~finished & (self.deadline < p.t_done)
+
+        idx: List[int] = [int(i) for i in np.flatnonzero(finished)]
+        status = ["ok" if self.attempts[i] == 0 else "retried" for i in idx]
+        requeued = 0
+        for i in np.flatnonzero(nonfin | expired):
+            st = "diverged" if nonfin[i] else "deadline"
+            # one bucket finer; at the top bucket the same bucket again
+            nxt = next_bucket_above(int(self.Ks[i]), sched.ecfg.buckets) \
+                or int(self.Ks[i])
+            if sched.retry.should_retry(st, int(self.attempts[i])):
+                self._requeue_slot(int(i), nxt)
+                requeued += 1
+            else:
+                idx.append(int(i))
+                status.append(st)
+        retired = 0
+        if idx:
+            retired = self._stage_retire(np.asarray(idx, np.int64),
+                                         p.t_done, status)
+        return _RetireStats(
+            retired=retired, useful=useful, occupied=int(occ.sum()),
+            quarantined=int(nonfin.sum()),
+            deadline_evicted=int(expired.sum()), requeued=requeued)
+
+    def _requeue_slot(self, i: int, K_floor: int) -> None:
+        """Send slot ``i`` back to the FRONT of the queue (both loops admit
+        it at the next ``_admit_tick``) with its floor raised, the failed
+        attempt's work charged to ``_nfe_extra``; free the slot without a
+        readout."""
+        sched = self.sched
+        uid = int(self.uid[i])
+        sched._nfe_extra[uid] = sched._nfe_extra.get(uid, 0) \
+            + sched.probe_nfe + sched.stages * int(self.k[i])
+        sched._submit_t[uid] = float(self.t_submit[i])
+        deadline = float(self.deadline[i])
+        sched._queue.appendleft(Request(
+            uid=uid, x=self.xs[i].copy(),
+            deadline=deadline if np.isfinite(deadline) else None,
+            attempts=int(self.attempts[i]) + 1, K_floor=K_floor))
+        self.uid[i] = -1
+        self.Ks[i] = 0
+        self.eps[i] = 1.0
+        self.k[i] = 0
+        self.deadline[i] = np.inf
+
+    def _stage_retire(self, idx: np.ndarray, t_done: float,
+                      status: List[str]) -> int:
+        """Retire the slots ``idx``: enqueue their readout (a force-retired
+        row's partial state is its best-effort answer), snapshot their
+        host rows, and free them."""
+        outs = self._readout_finished(idx)
+        self._staged.append(_RetireBatch(
+            idx=idx, outs=outs, t_done=t_done,
+            fused=self.sched.model.integ.fused_available(z=self.z),
+            uid=self.uid[idx].copy(), K=self.Ks[idx].copy(),
+            k_done=self.k[idx].copy(),
+            err=self.err[idx].copy(), t_submit=self.t_submit[idx].copy(),
+            t_admit=self.t_admit[idx].copy(),
+            segments=self.segments[idx].copy(), status=list(status)))
+        self.uid[idx] = -1            # retire: slot becomes refillable
+        self.Ks[idx] = 0              # Ks == 0 keeps the row frozen
+        self.eps[idx] = 1.0
+        self.k[idx] = 0
+        self.deadline[idx] = np.inf
+        return len(idx)
+
+    def _readout_finished(self, idx: np.ndarray) -> _Readback:
+        """Readout of only the retiring rows, the gather padded to the next
+        power of two (capped at the pool width) as the reference's readout
+        cells are; starts the rows on their way to the host."""
+        w = min(1 << (len(idx) - 1).bit_length(), self.sched.slots)
+        pad = idx if w == len(idx) else np.concatenate(
+            [idx, np.repeat(idx[:1], w - len(idx))])
+        self._readout_widths.add(int(w))
+        jidx = _upload(pad.astype(np.int64), self.device)
+        z_rows = pytree.tree_map(lambda l: l[jidx], self.z)
+        return _Readback(self.sched.model.readout(self._xs_dev[jidx],
+                                                  z_rows))
+
+    def finalize_retired(self) -> List[InflightCompleted]:
+        """Materialize staged completions — the only place readout rows
+        reach the host. The overlap loop calls it after launching the
+        next segments; the sync loop at once."""
+        sched = self.sched
+        done: List[InflightCompleted] = []
+        for b in self._staged:
+            outs = b.outs.numpy()
+            for j in range(len(b.idx)):
+                uid = int(b.uid[j])
+                # nfe bills the depth steps actually taken plus every
+                # failed attempt's probe and steps
+                done.append(InflightCompleted(
+                    uid=uid, outputs=outs[j], K=int(b.K[j]),
+                    nfe=sched.probe_nfe + sched.stages * int(b.k_done[j])
+                    + sched._nfe_extra.pop(uid, 0),
+                    err_probe=float(b.err[j]), fused_kernel=b.fused,
+                    t_submit=float(b.t_submit[j]),
+                    t_admit=float(b.t_admit[j]), t_done=b.t_done,
+                    segments=int(b.segments[j]), status=b.status[j]))
+        self._staged = []
+        return done
+
+    def run_segment(self, now_done: float) -> Tuple[List[InflightCompleted],
+                                                    _RetireStats]:
+        """The synchronous segment: ``launch_segment`` + ``retire_pending``
+        + ``finalize_retired`` with no lag (the overlap loop runs the same
+        three one segment apart)."""
+        self.launch_segment(now_done)
+        stats = self.retire_pending()
+        return self.finalize_retired(), stats
+
+
+class InflightScheduler:
+    """Continuous-batching serving loop: ``submit`` as traffic arrives,
+    ``step()`` repeatedly; each step admits into free slots and advances
+    every busy pool one segment. ``overlap=True`` swaps the synchronous
+    tick for the pipelined one (segment N+1 launched before segment N's
+    meta is read); completions, virtual stamps and totals are identical
+    to the synchronous loop, the oracle it is pinned against."""
+
+    def __init__(self, model: DepthModel,
+                 engine_cfg: Optional[EngineConfig] = None,
+                 *, slots: int = 4, seg: int = 2, mesh=None,
+                 oracle=None, overlap: bool = False,
+                 queue_cap: Optional[int] = None,
+                 overload_policy: str = "shed",
+                 deadline: Optional[float] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 fault_injector: Optional[FaultInjector] = None,
+                 ledger=None):
+        if mesh is not None:
+            raise NotImplementedError(f"mesh: {_MESH}")
+        if ledger is not None:
+            raise NotImplementedError(f"ledger: {_REFINERY}")
+        engine_cfg = engine_cfg or EngineConfig()
+        if overload_policy not in ("shed", "degrade", "block"):
+            raise ValueError(
+                f"overload_policy={overload_policy!r}: expected 'shed' "
+                "(refuse with status='shed'), 'degrade' (admit one "
+                "bucket coarser under pressure), or 'block' (raise "
+                "QueueFull; caller backs off)")
+        if queue_cap is not None and queue_cap < 1:
+            raise ValueError(f"queue_cap must be >= 1, got {queue_cap} "
+                             "(a zero-width queue can never admit)")
+        model = prepare_model(model, engine_cfg)
+        if seg < 1:
+            raise ValueError(f"seg must be >= 1, got {seg}")
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self.model = model
+        self.ecfg = engine_cfg
+        self.slots = int(slots)
+        self.seg = int(seg)
+        self.controller = make_controller(bound_integrator(model),
+                                          engine_cfg)
+        self.g_params = None if model.g_apply is None else model.g_params
+        self.overlap = bool(overlap)
+        self.oracle = oracle or SequentialEvalOracle()
+        self.stages = model.integ.tableau.stages
+        self.now = 0.0
+        self.ticks = 0
+        self.dispatches = 0
+        self.total_cost = 0.0
+        self.total_probe_cost = 0.0
+        self.total_useful_steps = 0
+        self.total_slot_steps = 0
+        self.total_occupied_steps = 0
+        self.total_quarantined = 0
+        self.total_deadline_evicted = 0
+        self.total_requeued = 0
+        self.total_shed = 0
+        self.last_report = TickReport()
+        self.queue_cap = None if queue_cap is None else int(queue_cap)
+        self.overload_policy = overload_policy
+        self.default_deadline = deadline  # relative slack, applied at submit
+        self.retry = retry or RetryPolicy()
+        self.fault_injector = fault_injector
+        self._queue: deque = deque()
+        self._submit_t: Dict[int, float] = {}
+        self._uid = 0
+        self._pools: Dict[Tuple, _SlotPool] = {}
+        self._shed: List[InflightCompleted] = []   # terminal, pre-admission
+        self._nfe_extra: Dict[int, int] = {}       # failed attempts' work
+
+    # ----------------------------------------------------------- queue ----
+    @property
+    def probe_nfe(self) -> int:
+        """Per-request probe cost net of the reused first stage."""
+        return probe_net_nfe(self.controller)
+
+    def _g_args(self) -> Tuple:
+        """Trailing segment-call operand of a parametric correction."""
+        return () if self.model.g_apply is None else (self.g_params,)
+
+    def hot_swap_g(self, gp):
+        raise NotImplementedError(f"hot_swap_g: {_REFINERY}")
+
+    def hot_swap_flow(self, fp):
+        raise NotImplementedError(f"hot_swap_flow: {_FLOW}")
+
+    def can_submit(self) -> bool:
+        """False exactly when the next ``submit`` would raise QueueFull."""
+        return not (self.queue_cap is not None
+                    and self.overload_policy == "block"
+                    and len(self._queue) >= self.queue_cap)
+
+    def submit(self, x, t: Optional[float] = None,
+               deadline: Optional[float] = None) -> int:
+        """Queue a request arriving at ``t`` on the virtual clock (default
+        now; a future ``t`` idle-jumps the clock, and is refused while
+        work is pending). ``deadline`` is absolute (default ``t`` plus
+        the scheduler's slack). Over a full bounded queue ``shed``
+        returns a uid whose ``status="shed"`` record surfaces from the
+        next ``step()``, ``block`` raises ``QueueFull``."""
+        t = self.now if t is None else float(t)
+        if t > self.now:
+            if self.pending:
+                raise ValueError(
+                    f"submit at t={t} > now={self.now} with "
+                    f"{self.pending} requests pending: advancing the "
+                    "clock mid-flight would misattribute latency; "
+                    "step() until now >= t, then submit")
+            self.advance_to(t)
+        if deadline is None and self.default_deadline is not None:
+            deadline = t + float(self.default_deadline)
+        at_cap = self.queue_cap is not None \
+            and len(self._queue) >= self.queue_cap
+        if at_cap and self.overload_policy == "block":
+            raise QueueFull(
+                f"admission queue at cap ({self.queue_cap}) under "
+                "overload_policy='block'; back off and resubmit "
+                "(can_submit() is the non-raising probe)")
+        self._uid += 1
+        if at_cap and self.overload_policy == "shed":
+            self._shed.append(InflightCompleted(
+                uid=self._uid, outputs=None, K=0, nfe=0, err_probe=0.0,
+                fused_kernel=False, t_submit=t, t_admit=t, t_done=t,
+                segments=0, status="shed"))
+            return self._uid
+        self._queue.append(Request(uid=self._uid, x=np.asarray(x),
+                                   deadline=deadline))
+        self._submit_t[self._uid] = t
+        return self._uid
+
+    def advance_to(self, t: float) -> None:
+        """Idle-jump the virtual clock forward (never backward); refused
+        while work is pending."""
+        if float(t) > self.now and self.pending:
+            raise ValueError(
+                f"advance_to(t={t}) > now={self.now} with {self.pending} "
+                "requests pending: the clock only idle-jumps; step() "
+                "until now >= t instead")
+        self.now = max(self.now, float(t))
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet surfaced: queued + in flight + shed records."""
+        inflight = sum(int(p.occupied.sum()) for p in self._pools.values())
+        return len(self._queue) + inflight + len(self._shed)
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    # ------------------------------------------------------------ tick ----
+    def step(self) -> List[InflightCompleted]:
+        """One scheduling round, synchronous or pipelined (``overlap``);
+        both admit identical request-to-slot assignments and stamp
+        identical virtual times."""
+        with torch.no_grad():
+            return self._step_overlap() if self.overlap \
+                else self._step_sync()
+
+    def _admit_tick(self) -> Tuple[float, int, Dict[Tuple, float],
+                                   List[InflightCompleted], int]:
+        """Refill free slots from the FIFO queue (probe on admission),
+        shared by both ticks. Requests already past their deadline drop
+        here, terminal, without a probe. Returns (probe cost, admitted,
+        per-pool probe cost, dropped records, non-finite probe count)."""
+        probe_cost = 0.0
+        admitted = 0
+        probe_nonfinite = 0
+        pool_probe: Dict[Tuple, float] = {}
+        dropped: List[InflightCompleted] = []
+        # degrade pressure is measured once, at tick start
+        degrade = (self.overload_policy == "degrade"
+                   and self.queue_cap is not None
+                   and len(self._queue) > self.queue_cap)
+        if self._queue:
+            batches: Dict[Tuple, List[Request]] = {}
+            budget: Dict[Tuple, int] = {}
+            leftover: deque = deque()
+            while self._queue:
+                r = self._queue.popleft()
+                if r.deadline is not None and r.deadline < self.now:
+                    dropped.append(InflightCompleted(
+                        uid=r.uid, outputs=None, K=0,
+                        nfe=self._nfe_extra.pop(r.uid, 0), err_probe=0.0,
+                        fused_kernel=False,
+                        t_submit=self._submit_t.pop(r.uid),
+                        t_admit=self.now, t_done=self.now,
+                        segments=0, status="deadline"))
+                    continue
+                # pools key on (shape, dtype): a request never casts into
+                # another dtype's pool
+                key = (r.x.shape, r.x.dtype.str)
+                if key not in self._pools:
+                    self._pools[key] = _SlotPool(self, r.x.shape,
+                                                 r.x.dtype)
+                if key not in budget:
+                    budget[key] = len(self._pools[key].free)
+                if budget[key] > 0:
+                    budget[key] -= 1
+                    batches.setdefault(key, []).append(r)
+                else:
+                    leftover.append(r)
+            self._queue = leftover
+            for key, batch in batches.items():
+                # pools are concurrent cells: each probe starts at tick start
+                pc, n_bad = self._pools[key].admit(
+                    batch, self._submit_t, self.now, degrade=degrade)
+                pool_probe[key] = pc
+                probe_cost += pc
+                probe_nonfinite += n_bad
+                admitted += len(batch)
+        return probe_cost, admitted, pool_probe, dropped, probe_nonfinite
+
+    def _segment_cost(self, pool: _SlotPool) -> float:
+        """One segment's virtual cost; a straggler fault is keyed on the
+        dispatch sequence, which both loops share."""
+        cost = self.oracle.segment_cost(pool.shape, self.seg, self.slots,
+                                        self.stages)
+        if self.fault_injector is not None:
+            cost = self.fault_injector.inflate_segment_cost(
+                self.dispatches, cost)
+        self.dispatches += 1
+        return cost
+
+    def _finish_tick(self, *, cost, probe_cost, admitted, retired,
+                     useful, total, occupied, quarantined=0,
+                     deadline_evicted=0, requeued=0, shed=0,
+                     probe_nonfinite=0) -> None:
+        """Advance the virtual clock and the totals (both ticks)."""
+        self.now += cost
+        self.ticks += 1
+        self.total_cost += cost
+        self.total_probe_cost += probe_cost
+        self.total_useful_steps += useful
+        self.total_slot_steps += total
+        self.total_occupied_steps += occupied
+        self.total_quarantined += quarantined
+        self.total_deadline_evicted += deadline_evicted
+        self.total_requeued += requeued
+        self.total_shed += shed
+        self.last_report = TickReport(
+            cost=cost, probe_cost=probe_cost, admitted=admitted,
+            retired=retired, useful_steps=useful, total_steps=total,
+            occupied_steps=occupied, quarantined=quarantined,
+            deadline_evicted=deadline_evicted, requeued=requeued,
+            shed=shed, probe_nonfinite=probe_nonfinite)
+
+    def _step_sync(self) -> List[InflightCompleted]:
+        """Admit, advance every busy pool one segment, retire. The clock
+        advances by the tick's summed cost; completions are stamped at
+        tick end with only their own pool's probe and segment cost."""
+        done: List[InflightCompleted] = list(self._shed)
+        shed = len(done)
+        self._shed = []
+        probe_cost, admitted, pool_probe, dropped, probe_nonfinite = \
+            self._admit_tick()
+        done.extend(dropped)
+        cost = probe_cost
+        useful = total = occupied = retired = 0
+        quarantined = evicted = requeued = 0
+        for key, pool in self._pools.items():
+            if not pool.busy():
+                continue
+            seg_cost = self._segment_cost(pool)
+            cost += seg_cost
+            d, st = pool.run_segment(
+                self.now + pool_probe.get(key, 0.0) + seg_cost)
+            done.extend(d)
+            retired += len(d)
+            useful += st.useful
+            total += self.slots * self.seg
+            occupied += st.occupied * self.seg
+            quarantined += st.quarantined
+            evicted += st.deadline_evicted
+            requeued += st.requeued
+        self._finish_tick(cost=cost, probe_cost=probe_cost,
+                          admitted=admitted,
+                          retired=retired + shed + len(dropped),
+                          useful=useful, total=total, occupied=occupied,
+                          quarantined=quarantined,
+                          deadline_evicted=evicted + len(dropped),
+                          requeued=requeued, shed=shed,
+                          probe_nonfinite=probe_nonfinite)
+        return done
+
+    def _step_overlap(self) -> List[InflightCompleted]:
+        """The pipelined tick: (1) retire every pool's pending segment
+        (launched last tick), (2) admit into the freed slots, (3) launch
+        the next segment of every busy pool, (4) materialize the staged
+        completions. A segment's step counts and retires land one tick
+        later in ``TickReport``; per-request records and totals equal the
+        synchronous loop's."""
+        done: List[InflightCompleted] = list(self._shed)
+        shed = len(done)
+        self._shed = []
+        useful = total = occupied = retired = 0
+        quarantined = evicted = requeued = 0
+        for pool in self._pools.values():
+            if pool._pending is not None:
+                st = pool.retire_pending()
+                retired += st.retired
+                useful += st.useful
+                total += self.slots * self.seg
+                occupied += st.occupied * self.seg
+                quarantined += st.quarantined
+                evicted += st.deadline_evicted
+                requeued += st.requeued
+        probe_cost, admitted, pool_probe, dropped, probe_nonfinite = \
+            self._admit_tick()
+        done.extend(dropped)
+        cost = probe_cost
+        for key, pool in self._pools.items():
+            if not pool.busy():
+                continue
+            seg_cost = self._segment_cost(pool)
+            cost += seg_cost
+            pool.launch_segment(self.now + pool_probe.get(key, 0.0)
+                                + seg_cost)
+        for pool in self._pools.values():
+            done.extend(pool.finalize_retired())
+        self._finish_tick(cost=cost, probe_cost=probe_cost,
+                          admitted=admitted,
+                          retired=retired + shed + len(dropped),
+                          useful=useful, total=total, occupied=occupied,
+                          quarantined=quarantined,
+                          deadline_evicted=evicted + len(dropped),
+                          requeued=requeued, shed=shed,
+                          probe_nonfinite=probe_nonfinite)
+        return done
+
+    # ----------------------------------------------------- convenience ----
+    def run(self, xs) -> List[InflightCompleted]:
+        """Submit a batch at the current instant and drive to completion;
+        results in submission order."""
+        uids = [self.submit(x) for x in np.asarray(xs)]
+        results: Dict[int, InflightCompleted] = {}
+        while self.pending:
+            for c in self.step():
+                results[c.uid] = c
+        return [results[u] for u in uids]

@@ -26,13 +26,33 @@ step's update through the CUDA kernel, and ``--g-ckpt``/``--g-rank``
 loading a correction the JAX package trained. Reports per-request K, NFE
 and argmax agreement against the full-depth forward.
 
+--inflight swaps the drain engine for the continuous-batching slot-pool
+scheduler (``launch/scheduler.py``): ``--slots`` slots advance ``--seg``
+depth steps per scheduling round, finished requests retire and refill
+between segments. ``--arrival-trace poisson|bursty`` replays a seeded
+arrival trace (``--arrival-rate`` requests per cost unit) and prints the
+``[inflight <trace>]`` latency line (``launch/workload.py``); ``none``
+submits the whole batch at once. ``--overlap`` runs the pipelined loop
+(uid-for-uid identical completions). Request hardening: ``--deadline``
+(virtual-clock slack), ``--queue-cap`` with ``--overload-policy``
+(shed/degrade/block), and ``--progress-every N`` prints a progress line
+every N ticks. A first SIGTERM/SIGINT stops admission and lets the
+in-flight slots drain; a second one gives up the drain.
+
+``--profile-dir DIR`` wraps the serving loop of every mode (decode,
+drain, in-flight) in ``torch.profiler`` (CPU activity, and CUDA on a
+card) and writes a Chrome trace, ``DIR/serve.pt.trace.json``.
+
 Flags of slices not ported yet exit non-zero naming their ROADMAP.md item:
-``--inflight`` and its knobs, ``--mesh``, ``--overlap``, ``--refine*``,
-``--flow-*``, ``--cost-oracle roofline`` and ``--profile-dir``.
+``--mesh``, ``--refine*``, ``--flow-*`` and ``--cost-oracle roofline``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import signal
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -48,12 +68,10 @@ from repro_torch.models.lm import (discrete_nfe, group_layout, init_lm,
                                    lm_forward)
 
 _ITEM = {
-    "inflight": "ROADMAP.md queue 1 item 3 (the in-flight scheduler)",
     "flow": "ROADMAP.md queue 1 item 4 (the K=0 flow tier)",
     "refine": "ROADMAP.md queue 1 item 5 (the online refinery)",
     "roofline": "ROADMAP.md queue 1 item 9 (cost model on H100 terms)",
     "mesh": "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)",
-    "profile": "ROADMAP.md queue 1 item 11 (serving-loop profiling)",
 }
 
 
@@ -92,29 +110,48 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fused", action="store_true",
                     help="route every solver step's update through the "
                          "hand-written CUDA kernel (any bucket mix fuses)")
-    ap.add_argument("--inflight", action="store_true", help=_ITEM["inflight"])
-    ap.add_argument("--seg", type=int, default=2, help=_ITEM["inflight"])
-    ap.add_argument("--slots", type=int, default=4, help=_ITEM["inflight"])
+    ap.add_argument("--inflight", action="store_true",
+                    help="serve through the in-flight slot-pool scheduler "
+                         "(launch/scheduler.py) instead of the drain engine")
+    ap.add_argument("--seg", type=int, default=2,
+                    help="depth steps per scheduling segment (--inflight)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="slot-pool width per request shape (--inflight)")
     ap.add_argument("--arrival-trace", default="none",
                     choices=["none", "poisson", "bursty"],
-                    help=_ITEM["inflight"])
+                    help="replay a seeded streaming arrival trace through "
+                         "the scheduler (--inflight only)")
     ap.add_argument("--arrival-rate", type=float, default=0.25,
-                    help=_ITEM["inflight"])
+                    help="poisson arrival rate / bursty burst pacing, in "
+                         "requests per virtual cost unit")
     ap.add_argument("--mesh", type=int, default=0, help=_ITEM["mesh"])
     ap.add_argument("--cost-oracle", default="sequential",
                     choices=["sequential", "roofline"],
                     help="virtual-clock pricing: 'sequential' counts "
                          "sequential field evals; 'roofline' waits for "
                          + _ITEM["roofline"])
-    ap.add_argument("--overlap", action="store_true", help=_ITEM["inflight"])
+    ap.add_argument("--overlap", action="store_true",
+                    help="pipelined in-flight loop (--inflight only): "
+                         "launch segment N+1 before reading segment N's "
+                         "retire metadata; completions are uid-for-uid "
+                         "identical to the synchronous loop")
     ap.add_argument("--deadline", type=float, default=0.0,
-                    help=_ITEM["inflight"])
+                    help="per-request deadline slack on the virtual clock "
+                         "(--inflight only): a request not finished within "
+                         "this many cost units of its arrival is dropped or "
+                         "evicted with status='deadline'; 0 = none")
     ap.add_argument("--queue-cap", type=int, default=0,
-                    help=_ITEM["inflight"])
+                    help="bound the admission queue at this many waiting "
+                         "requests (--inflight only); 0 = unbounded")
     ap.add_argument("--overload-policy", default="shed",
                     choices=["shed", "degrade", "block"],
-                    help=_ITEM["inflight"])
-    ap.add_argument("--profile-dir", default=None, help=_ITEM["profile"])
+                    help="what an over-cap submit does (--queue-cap): "
+                         "'shed' refuses terminally (status='shed'), "
+                         "'degrade' admits one K-bucket coarser under "
+                         "pressure, 'block' raises to the caller")
+    ap.add_argument("--profile-dir", default=None,
+                    help="wrap the serving loop in torch.profiler and write "
+                         "a Chrome trace (serve.pt.trace.json) here")
     ap.add_argument("--refine", action="store_true", help=_ITEM["refine"])
     ap.add_argument("--refine-dir", default=None, help=_ITEM["refine"])
     ap.add_argument("--capture-rate", type=float, default=1.0,
@@ -127,7 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help=_ITEM["refine"])
     ap.add_argument("--ledger-out", default=None, help=_ITEM["refine"])
     ap.add_argument("--progress-every", type=int, default=0,
-                    help=_ITEM["inflight"])
+                    help="print a progress line every N scheduler ticks "
+                         "(--inflight): the hardening counters; 0 = off")
     return ap
 
 
@@ -135,11 +173,6 @@ def _refuse_unported(args) -> None:
     """Exit non-zero, naming the ROADMAP.md item, for any flag of a slice
     that is not ported yet (a silently ignored flag would mislabel a run)."""
     waits = []
-    if args.inflight or args.overlap or args.seg != 2 or args.slots != 4 \
-            or args.arrival_trace != "none" or args.arrival_rate != 0.25 \
-            or args.deadline or args.queue_cap \
-            or args.overload_policy != "shed" or args.progress_every:
-        waits.append(("--inflight and its knobs", "inflight"))
     if args.mesh:
         waits.append(("--mesh", "mesh"))
     if args.refine or args.refine_dir or args.ledger_out \
@@ -150,11 +183,75 @@ def _refuse_unported(args) -> None:
         waits.append(("--flow-ckpt/--flow-threshold/--flow-rank", "flow"))
     if args.cost_oracle == "roofline":
         waits.append(("--cost-oracle roofline", "roofline"))
-    if args.profile_dir:
-        waits.append(("--profile-dir", "profile"))
     if waits:
         raise SystemExit("not ported to repro_torch yet: " + "; ".join(
             f"{flag} waits for {_ITEM[item]}" for flag, item in waits))
+
+
+def _check_flags(args) -> None:
+    """The reference CLI's checks of the in-flight flags: a knob of the
+    scheduler without ``--inflight`` exits with the reference's message."""
+    if args.overlap and not args.inflight:
+        raise SystemExit("--overlap pipelines the in-flight segment loop; "
+                         "pass --inflight with it (the drain engine has "
+                         "no segment loop to overlap)")
+    if (args.deadline or args.queue_cap) and not args.inflight:
+        raise SystemExit("--deadline/--queue-cap harden the in-flight "
+                         "scheduler's admission; pass --inflight with "
+                         "them")
+    if args.overload_policy != "shed" and not args.queue_cap:
+        raise SystemExit(f"--overload-policy {args.overload_policy} is "
+                         "meaningless without --queue-cap (an unbounded "
+                         "queue never overloads)")
+    if args.progress_every and not args.inflight:
+        raise SystemExit("--progress-every reports the in-flight "
+                         "scheduler's tick counters; pass --inflight "
+                         "with it")
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device: torch.device):
+    """``torch.profiler`` around the serving loop when --profile-dir is set
+    (CPU activity, and CUDA on a card); writes
+    ``profile_dir/serve.pt.trace.json`` when the loop ends."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          "serve.pt.trace.json"))
+
+
+@contextlib.contextmanager
+def _graceful_drain():
+    """A first SIGTERM/SIGINT sets the yielded flag (admission stops, the
+    in-flight slots drain); a second raises KeyboardInterrupt. Installed
+    only on the main thread; the previous handlers come back on exit."""
+    draining = [False]
+    if threading.current_thread() is not threading.main_thread():
+        yield draining
+        return
+
+    def on_signal(signum, frame):
+        if draining[0]:
+            raise KeyboardInterrupt  # second signal: give up the drain
+        draining[0] = True
+        print(f"[serve] caught signal {signum}: admission stopped, "
+              "draining in-flight slots", flush=True)
+
+    prev = {sig: signal.signal(sig, on_signal)
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield draining
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -162,12 +259,61 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _serve_inflight(args, sched, prompt, device):
+    """Drive the scheduler over the prompt rows: all at once, or replayed
+    on a seeded arrival trace (and tick by tick when a progress line is
+    asked for). Returns (records in uid order, the trace report or None,
+    wall seconds, whether a signal drained the run)."""
+    from repro_torch.launch.workload import (
+        Arrival, bursty_trace, latency_stats, poisson_trace,
+        replay_scheduler)
+
+    def on_tick(s):
+        if args.progress_every and s.ticks % args.progress_every == 0:
+            print("[progress] " + " ".join([
+                f"t={s.now:.1f}", f"ticks={s.ticks}", f"inflight={len(s)}",
+                f"quarantined={s.total_quarantined}",
+                f"deadline_evicted={s.total_deadline_evicted}",
+                f"requeued={s.total_requeued}", f"shed={s.total_shed}"]),
+                flush=True)
+
+    report = None
+    with _graceful_drain() as draining, \
+            _profiled(args.profile_dir, device):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        if args.arrival_trace == "none" and not args.progress_every:
+            results = sched.run(prompt)
+        else:
+            if args.arrival_trace == "none":
+                trace = [Arrival(t=0.0, x=row) for row in prompt]
+            elif args.arrival_trace == "poisson":
+                trace = poisson_trace(prompt, rate=args.arrival_rate,
+                                      seed=args.seed)
+            else:
+                trace = bursty_trace(prompt, burst=args.slots,
+                                     gap=args.slots / args.arrival_rate,
+                                     seed=args.seed)
+            report = replay_scheduler(
+                sched, trace, on_tick=on_tick,
+                should_admit=lambda: not draining[0])
+            # uid is submission order = prompt-row order
+            results = sorted(report.records, key=lambda r: r.uid)
+            if args.arrival_trace != "none":
+                print(f"[inflight {args.arrival_trace}] "
+                      f"{latency_stats(report)}")
+        _synchronize(device)
+        dt = time.perf_counter() - t0
+    return results, report, dt, draining[0]
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Run the CLI; returns what it served (params, prompt and timings,
-    with the tokens of the discrete path or the engine and results of a
-    solver) for programmatic callers."""
+    with the tokens of the discrete path, or the engine or scheduler and
+    the results of a solver) for programmatic callers."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    _check_flags(args)
     device = resolve_device(args.device)
 
     cfg = get(args.arch)
@@ -179,7 +325,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         0, cfg.vocab, size=(args.batch, args.prompt_len)).astype(np.int32)
 
     if args.solver == "discrete":
-        with torch.no_grad():
+        with torch.no_grad(), _profiled(args.profile_dir, device):
             _synchronize(device)
             t0 = time.perf_counter()
             toks = greedy_generate(params, cfg, prompt, args.gen)
@@ -201,6 +347,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.solver.startswith("hyper_") and g_params is None:
         raise SystemExit(f"--solver {args.solver} needs --g-ckpt "
                          "(a trained correction checkpoint)")
+    if args.inflight and args.arrival_trace != "none" \
+            and args.arrival_rate <= 0:
+        raise SystemExit("--arrival-rate must be > 0 for "
+                         f"--arrival-trace {args.arrival_trace}")
 
     buckets = tuple(int(b) for b in args.buckets.split(","))
     K_fixed = args.nfe or max(1, n_groups // 2)
@@ -215,13 +365,49 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     )
     model = lm_depth_model(params, cfg, solver=args.solver,
                            g_params=g_params, fused=args.fused)
-    engine = MultiRateEngine(model, ecfg)
+    mode = "multirate" if args.multirate else f"K={K_fixed}"
 
     with torch.no_grad():
         full, _ = lm_forward(params, cfg, torch.as_tensor(prompt,
                                                           device=device))
         full_top = full.argmax(-1).cpu().numpy()
         del full
+
+    if args.inflight:
+        from repro_torch.launch.scheduler import InflightScheduler
+        sched = InflightScheduler(model, ecfg, slots=args.slots,
+                                  seg=args.seg, overlap=args.overlap,
+                                  deadline=args.deadline or None,
+                                  queue_cap=args.queue_cap or None,
+                                  overload_policy=args.overload_policy)
+        results, report, dt, drained = _serve_inflight(args, sched, prompt,
+                                                       device)
+        if drained:
+            print(f"[serve] drained: {len(results)} completions flushed, "
+                  f"{len(prompt) - len(results)} arrivals never admitted")
+        # shed and expired requests carry no outputs: agreement is over
+        # the requests actually served (their status says why)
+        agree = {r.uid: float(np.mean(np.argmax(r.outputs, -1)
+                                      == full_top[r.uid - 1]))
+                 for r in results if r.outputs is not None}
+        nfes = [r.nfe for r in results if r.outputs is not None]
+        print(f"[{args.solver} {mode} inflight slots={args.slots} "
+              f"seg={args.seg} {device}] scored {len(agree)}/{args.batch} "
+              f"of {args.batch}x{args.prompt_len} in {dt:.3f}s; mean NFE "
+              f"{np.mean(nfes) if nfes else 0.0:.2f}/{n_groups} (probe "
+              f"{sched.probe_nfe}); mean argmax agreement vs full depth: "
+              f"{np.mean(list(agree.values())) if agree else 0.0:.3f}")
+        for r in results:
+            a = f"{agree[r.uid]:.3f}" if r.uid in agree else "-"
+            print(f"  req {r.uid}: K={r.K} nfe={r.nfe} agree={a} "
+                  f"wait={r.queue_wait:.1f} lat={r.latency:.1f} "
+                  f"status={r.status}")
+        return dict(cfg=cfg, params=params, prompt=prompt, sched=sched,
+                    results=results, report=report, agree=agree,
+                    full_top=full_top, seconds=dt, device=device)
+
+    engine = MultiRateEngine(model, ecfg)
+    with torch.no_grad(), _profiled(args.profile_dir, device):
         _synchronize(device)
         t0 = time.perf_counter()
         results = engine.run(prompt)
@@ -230,7 +416,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     agree = [float(np.mean(np.argmax(r.outputs, -1) == full_top[i]))
              for i, r in enumerate(results)]
     nfes = [r.nfe for r in results]
-    mode = "multirate" if args.multirate else f"K={K_fixed}"
     print(f"[{args.solver} {mode} {device}] scored "
           f"{args.batch}x{args.prompt_len} in {dt:.3f}s; mean NFE "
           f"{np.mean(nfes):.2f}/{n_groups} (probe {engine.probe_nfe}); mean "

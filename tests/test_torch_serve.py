@@ -1,18 +1,26 @@
 """The port's serving CLI (repro_torch/launch/serve.py): it serves the
-continuous-depth drain path of ``qwen3_4b``, ``recurrentgemma_2b`` and
-``rwkv6_1p6b`` on the CPU when asked (the default discrete decode path
-is tested in tests/test_torch_decode.py), its flag set is the reference
-parser's plus ``--device``, it never falls back to the CPU silently (no
-CUDA and no ``--device cpu`` exits non-zero), and flags of slices not
+continuous-depth drain path and the in-flight scheduler (``--inflight``,
+sync and ``--overlap``, on a Poisson trace) of ``qwen3_4b``,
+``recurrentgemma_2b`` and ``rwkv6_1p6b`` on the CPU when asked (the
+default discrete decode path is tested in tests/test_torch_decode.py),
+its flag set is the reference parser's plus ``--device``, the in-flight
+flags are checked with the reference's own messages, ``--profile-dir``
+writes a trace in every mode, it never falls back to the CPU silently
+(no CUDA and no ``--device cpu`` exits non-zero), and flags of slices not
 ported yet exit non-zero naming their ROADMAP.md item."""
+import ast
+import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 
 import pytest
 import torch
 
+from repro.launch import serve as jax_serve
 from repro_torch.launch import serve
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,19 +72,92 @@ def test_serves_fixed_k_on_cpu(capsys, arch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--solver", "euler", "--inflight"],
-    ["--solver", "euler", "--slots", "8"],
     ["--solver", "euler", "--mesh", "2"],
-    ["--solver", "euler", "--overlap"],
     ["--solver", "euler", "--refine"],
     ["--solver", "euler", "--flow-threshold", "0.2"],
     ["--solver", "euler", "--cost-oracle", "roofline"],
-    ["--solver", "euler", "--profile-dir", "prof"],
 ])
 def test_unported_flags_exit_naming_roadmap_item(extra):
     with pytest.raises(SystemExit) as e:
         serve.main(CPU_RUN + extra)
     assert "ROADMAP.md queue 1 item" in str(e.value.code)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--overlap"],
+    ["--deadline", "5"],
+    ["--inflight", "--overload-policy", "block"],
+    ["--progress-every", "2"],
+])
+def test_inflight_flag_checks_match_reference(monkeypatch, extra):
+    """A knob of the in-flight scheduler without what it needs exits
+    non-zero before any weight is drawn, with the reference CLI's own
+    message."""
+    argv = ["--solver", "euler", "--multirate"] + extra
+    with pytest.raises(SystemExit) as e:
+        serve.main(CPU_RUN + argv)
+    monkeypatch.setattr(sys, "argv", ["serve", "--reduced"] + argv)
+    with pytest.raises(SystemExit) as ref:
+        jax_serve.main()
+    assert isinstance(e.value.code, str) and e.value.code == ref.value.code
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("overlap", [False, True], ids=["sync", "overlap"])
+def test_serves_inflight_poisson_on_cpu(capsys, arch, overlap):
+    """``--inflight --arrival-trace poisson`` serves every request ``ok``
+    and prints the ``[inflight poisson]`` latency line (the reference's
+    ``latency_stats`` keys) and a progress line per tick asked for."""
+    extra = ["--solver", "euler", "--multirate", "--fused", "--inflight",
+             "--arrival-trace", "poisson", "--progress-every", "1"]
+    out = serve.main(_cpu_run(arch) + extra
+                     + (["--overlap"] if overlap else []))
+    lines = capsys.readouterr().out.splitlines()
+    stats = [l for l in lines if l.startswith("[inflight poisson] ")]
+    assert len(stats) == 1
+    summary = ast.literal_eval(stats[0][len("[inflight poisson] "):])
+    assert summary["requests"] == 3
+    assert summary["cost_unit"] == "sequential_evals"
+    assert any(l.startswith(f"[euler multirate inflight slots=4 seg=2 cpu]"
+                            f" scored 3/3 of 3x{ARCHS[arch]}") for l in lines)
+    reqs = [l for l in lines if l.strip().startswith("req ")]
+    assert len(reqs) == 3 and all("status=ok" in l for l in reqs)
+    assert sum(l.startswith("[progress] t=") for l in lines) \
+        == out["sched"].ticks
+    assert [r.uid for r in out["results"]] == [1, 2, 3]
+    assert all(r.status == "ok" and r.K in (2, 4, 8) for r in out["results"])
+    assert out["sched"].overlap is overlap
+
+
+@pytest.mark.parametrize("mode", [
+    [],
+    ["--solver", "euler", "--multirate", "--fused"],
+    ["--solver", "euler", "--multirate", "--fused", "--inflight"],
+], ids=["discrete", "drain", "inflight"])
+def test_profile_dir_writes_a_trace(tmp_path, mode):
+    """``--profile-dir`` wraps the serving loop of every mode in
+    ``torch.profiler`` and writes a Chrome trace into the directory."""
+    serve.main(CPU_RUN + ["--gen", "2", "--profile-dir", str(tmp_path)]
+               + mode)
+    with open(tmp_path / "serve.pt.trace.json") as fh:
+        trace = json.load(fh)
+    assert trace["traceEvents"]
+
+
+def test_first_signal_drains_second_interrupts():
+    """The serving loop's drain latch: a first SIGTERM sets the flag, a
+    second raises KeyboardInterrupt, and the previous handler comes back
+    when the loop ends."""
+    if threading.current_thread() is not threading.main_thread():
+        pytest.skip("signal handlers install only on the main thread")
+    before = signal.getsignal(signal.SIGTERM)
+    with serve._graceful_drain() as draining:
+        assert draining == [False]
+        signal.raise_signal(signal.SIGTERM)
+        assert draining == [True]
+        with pytest.raises(KeyboardInterrupt):
+            signal.raise_signal(signal.SIGTERM)
+    assert signal.getsignal(signal.SIGTERM) is before
 
 
 def test_hyper_solver_without_g_exits():
@@ -92,7 +173,9 @@ def test_no_cpu_fallback(arch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    for extra in ([], ["--solver", "euler", "--multirate", "--fused"]):
+    for extra in ([], ["--solver", "euler", "--multirate", "--fused"],
+                  ["--solver", "euler", "--multirate", "--fused",
+                   "--inflight", "--arrival-trace", "poisson"]):
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
              arch, "--reduced", *extra],
