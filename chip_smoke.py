@@ -36,6 +36,20 @@ to the drain engine's, logits near the drain's, hyper_step once per
 segment step and each block kernel once per block application; it prints
 wall times, segments, the host syncs per segment and the virtual p50/p99
 latency.
+Then, per model on the same params, the online refinery
+(``phase_refinery``: the in-flight trace replayed with a 64-row
+``ResidualLedger``, completions bit for bit the ledger-free run's, every
+kernel launch accounted for capture cells included; a ``Refinery``
+trains, shadow-scores and gates; its candidate hot-swapped after the
+4th segment moves only later completions, in both loops, and a swap of the current
+params moves none) and the K=0 flow tier (``phase_flow``: a rank-64 flow
+head fitted by ``train_flowhead`` on that ledger, saved and loaded back
+bit for bit; the drain and both in-flight loops with part of the traffic
+at K=0, a threshold of 0 serving the serve phase's outputs bit for bit,
+a planted flow fault escalating its uids); for qwen3_4b both through
+the CLI too (``--refine`` with its candidate served back through
+``--g-ckpt``, and ``--flow-ckpt``/``--flow-threshold``); and the fit's
+convergence in float32 at 4 layers (Griffin 6).
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -70,15 +84,21 @@ from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.core import FlowTrainConfig, train_flowhead  # noqa: E402
+from repro_torch.distributed.fault import FaultInjector, _hash01  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
-    snap_to_buckets)
+    load_flow_params, snap_to_buckets)
+from repro_torch.launch.refinery import (  # noqa: E402
+    Refinery, RefineryConfig, ResidualLedger)
 from repro_torch.launch.scheduler import InflightScheduler  # noqa: E402
 from repro_torch.launch.workload import (  # noqa: E402
     latency_stats, poisson_trace, replay_scheduler)
 from repro_torch.models import cdepth, lm  # noqa: E402
-from repro_torch.models.cdepth import lm_g_init  # noqa: E402
+from repro_torch.models.cdepth import (  # noqa: E402
+    lm_flow_apply, lm_flow_init, lm_g_init)
 from repro_torch.models.lm import init_lm  # noqa: E402
 from repro_torch.nn.module import truncated_normal_init  # noqa: E402
 
@@ -106,6 +126,15 @@ BUCKETS = "2,4,8"
 # agree with them by argmax at every position.
 INFLIGHT_REQUESTS, SLOTS, SEG, ARRIVAL_RATE = 16, 4, 2, 0.25
 INFLIGHT_TOL = BF16_DECODE_TOL
+# The refinery and flow-tier phases (after each model's in-flight phase,
+# on its serve-phase params): a 64-row ledger captured from the in-flight
+# trace, 4 held-out shadow prompts, 50 flow-head iterations of batch 16
+# at rank 64 (the CLI's --flow-rank default), the hot swap after the 4th
+# segment, a
+# flow fault on the uids whose hash falls below 0.5.
+LEDGER_CAP, SHADOW_PROMPTS, SWAP_SEGMENTS = 64, 4, 4
+FLOW_ITERS, FLOW_BATCH, FLOW_RANK, FLOW_NAN_FRAC = 50, 16, 64, 0.5
+BUILD = os.path.join(ROOT, "build")
 FP32_PEAK = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_PEAK = 989e12              # H100 SXM dense bf16/fp16 tensor cores
 
@@ -1007,6 +1036,489 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
     return launches
 
 
+def refinable_model(params, cfg):
+    """The served model with a parametric zero-readout g (rank 32, the
+    CLI's --g-rank default): the refinery's model."""
+    return lm_depth_model(params, cfg, solver="euler", fused=True,
+                          refinable=True, rank=32)
+
+
+def embedded_ecfg(tol, **kw):
+    """The in-flight phase's policy, with the embedded controller named:
+    a parametric g would make ``auto`` pick the residual controller."""
+    return EngineConfig(buckets=tuple(int(b) for b in BUCKETS.split(",")),
+                        tol=tol, max_batch=B, solver="euler",
+                        controller="embedded", fused=True, **kw)
+
+
+def replay(model, ecfg, prompts, *, overlap=False, ledger=None,
+           on_tick=None, fault_injector=None):
+    """One in-flight replay of the phase's Poisson trace (slots 4, seg 2,
+    seed 0): the scheduler, its report with outputs owned, wall seconds."""
+    sched = InflightScheduler(model, ecfg, slots=SLOTS, seg=SEG,
+                              overlap=overlap, ledger=ledger,
+                              fault_injector=fault_injector)
+    trace = poisson_trace(prompts, rate=ARRIVAL_RATE, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        report = replay_scheduler(sched, trace, on_tick=on_tick)
+    torch.cuda.synchronize()
+    return sched, own_outputs(report), time.perf_counter() - t0
+
+
+def records_equal(a, b) -> bool:
+    """Two replays' records equal uid for uid (K, nfe, status, virtual
+    stamps; outputs bit for bit). Completion order is not compared: the
+    overlap loop materialises a tick's flow rows before the previous
+    segment's retirements, as the reference's does."""
+    key = lambda r: (r.uid, r.K, r.nfe, r.status, r.t_submit, r.t_admit,
+                     r.t_done)
+    ra, rb = (sorted(x.records, key=lambda r: r.uid) for x in (a, b))
+    return [key(r) for r in ra] == [key(r) for r in rb] \
+        and all(np.array_equal(x.outputs, y.outputs, equal_nan=True)
+                for x, y in zip(ra, rb))
+
+
+def synced_ms(fn):
+    """(result, ms) of ``fn`` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def swapper(params, at=SWAP_SEGMENTS):
+    """An on_tick that hot-swaps ``params`` into the scheduler once ``at``
+    segments have been launched (segment ``at + 1`` is the first on the
+    new params, in the sync and the overlap loop alike) and notes the
+    virtual time of the swap."""
+    state = {"now": None}
+
+    def on_tick(s):
+        if s.dispatches >= at and state["now"] is None:
+            state["now"] = s.now
+            s.hot_swap_g(params)
+    return on_tick, state
+
+
+def phase_refinery(dev, cfg, params, prompt, tol):
+    """A main path: the online refinery on a full-width model's serve-phase
+    params (bf16). (1) The in-flight phase's trace replayed (sync loop)
+    with a ``ResidualLedger`` (64 rows, rate 1, seed 0): completions bit
+    for bit the ledger-free run's, every captured R finite, hyper_step =
+    segments x seg, each block kernel once per block application (the
+    capture cells' included). (2) A ``Refinery`` (shadow every 2 steps,
+    4 held-out prompts, ref_K = max(n_groups, 8)) trains, scores and
+    gates; swapping its candidate after the 4th segment moves only
+    completions after the swap (sync and overlap alike), swapping the
+    current params moves none. Returns (launches, the ledger)."""
+    prompts = inflight_prompts(cfg, prompt)
+    model = refinable_model(params, cfg)
+    ecfg = embedded_ecfg(tol)
+    syncs = {}
+    with count_syncs() as where:
+        base_sched, base, base_s = replay(model, ecfg, prompts)
+    syncs["without_ledger"] = sum(where.values()) / base_sched.dispatches
+    with count_syncs() as where:
+        counted = replay(model, ecfg, prompts, ledger=ResidualLedger(
+            model, capacity=LEDGER_CAP, capture_rate=1.0, seed=0))[0]
+    syncs["with_ledger"] = sum(where.values()) / counted.dispatches
+    syncs["with_ledger_by_line"] = dict(where.most_common(8))
+    del counted
+
+    ledger = ResidualLedger(model, capacity=LEDGER_CAP, capture_rate=1.0,
+                            seed=0)
+    offered, capture_ms = [0, 0], []
+    capture_pool = ledger.capture_pool
+
+    def timed_capture(pool, rows):
+        n, ms = synced_ms(lambda: capture_pool(pool, rows))
+        if len(rows):
+            capture_ms.append(ms)
+            offered[0] += len(rows)
+            offered[1] += n
+        return n
+
+    ledger.capture_pool = timed_capture
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        sched, rep, wall_s = replay(model, ecfg, prompts, ledger=ledger)
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    ledger.capture_pool = capture_pool
+    tag = f"{cfg.name} refinery"
+    if not records_equal(rep, base):
+        raise AssertionError(f"{tag}: capture moved a completion")
+    if not all(r.status == "ok" for r in rep.records):
+        raise AssertionError(f"{tag}: a request did not finish ok")
+    if ledger.fill == 0 or offered[0] != offered[1]:
+        raise AssertionError(f"{tag}: ledger fill {ledger.fill}, "
+                             f"{offered[0] - offered[1]} rows with a "
+                             "non-finite R")
+    if launches.get("hyper_step", 0) != sched.dispatches * SEG:
+        raise AssertionError(f"{tag}: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, "
+                             f"segments x seg {sched.dispatches * SEG}")
+    check_block_launches(launches, blocks, tag)
+    row = ledger._samples[0]
+    # the bf16 residual against the same rows' float32 residual: the same
+    # capture cell on z widened to float32 (the reference's arithmetic
+    # keeps the state's dtype through the first stage)
+    rows = ledger._samples[:SLOTS]
+    z16 = torch.stack([r[2] for r in rows]).to(dev)
+    s_r = torch.tensor([r[0] for r in rows], device=dev)
+    e_r = torch.tensor([r[1] for r in rows], device=dev)
+    R16 = ledger._cell(None, z16, s_r, e_r)[1].float()
+    R32 = ledger._cell(None, z16.float(), s_r, e_r)[1]
+    r_norm = lambda t: t.reshape(len(rows), -1).norm(dim=1)
+    bf16_resid = dict(
+        rel_diff_vs_fp32=(r_norm(R16 - R32) / r_norm(R32)).tolist(),
+        R_norm=r_norm(R32).tolist(),
+        dz_norm_over_eps=(r_norm(torch.stack([r[3] for r in rows])
+                                 .to(dev).float()) / e_r).tolist())
+    del z16, R16, R32
+
+    # (2) train, score, gate, swap
+    _, n_groups, _ = lm.group_layout(cfg)
+    shadow = np.random.RandomState(1000).randint(
+        0, cfg.vocab, (SHADOW_PROMPTS, S)).astype(np.int32)
+    refin, build_ms = synced_ms(lambda: Refinery(
+        model, ledger, RefineryConfig(
+            steps_per_tick=2, shadow_every=2,
+            min_fill=min(32, ledger.fill), ref_K=max(n_groups, 8)),
+        ecfg=ecfg, shadow_xs=shadow))
+    losses = []
+    _, fit_ms = synced_ms(refin.train_tick)
+    losses.append(refin.last_loss)
+    verdict, gate_ms = synced_ms(refin.maybe_promote)
+    refin.tick()
+    losses.append(refin.last_loss)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: fit losses {losses}")
+    cand = refin.candidate
+    on_tick, swap = swapper(cand)
+    swapped = replay(model, ecfg, prompts, on_tick=on_tick)[1]
+    on_tick, _ = swapper(cand)
+    swapped_over = replay(model, ecfg, prompts, overlap=True,
+                          on_tick=on_tick)[1]
+    on_tick, _ = swapper(model.g_params)
+    same = replay(model, ecfg, prompts, on_tick=on_tick)[1]
+    if not records_equal(same, base):
+        raise AssertionError(f"{tag}: hot_swap_g(current) moved outputs")
+    if not records_equal(swapped, swapped_over):
+        raise AssertionError(f"{tag}: the swap reached the sync and "
+                             "overlap loops differently")
+    before = {r.uid: r for r in base.records}
+    moved = early_moved = 0
+    for r in swapped.records:
+        differs = not np.array_equal(r.outputs, before[r.uid].outputs)
+        if r.t_done <= swap["now"]:
+            early_moved += differs
+        else:
+            moved += differs
+    if early_moved or not moved:
+        raise AssertionError(f"{tag}: the swap moved {early_moved} "
+                             "completions before it and "
+                             f"{moved} after it")
+    emit(phase="refinery", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, requests=len(prompts),
+         slots=SLOTS, seg=SEG, ledger=dict(
+             capacity=LEDGER_CAP, fill=ledger.fill,
+             holdout=ledger.holdout_fill, seen=ledger.seen,
+             captures=ledger.captures,
+             row_dtypes=[str(t.dtype).replace("torch.", "")
+                         for t in row[2:]],
+             row_mb=sum(t.numel() * t.element_size() for t in row[2:])
+             / 1e6),
+         capture_ms=dict(mean=float(np.mean(capture_ms)),
+                         max=float(np.max(capture_ms)),
+                         n=len(capture_ms)),
+         wall_s=dict(without_ledger=base_s, with_ledger=wall_s),
+         host_syncs_per_segment=syncs, segments=sched.dispatches,
+         launches=launches, block_applications=blocks,
+         refinery=dict(build_ms=build_ms, fit_step_ms=fit_ms / 2,
+                       shadow_score_ms=gate_ms / 2, losses=losses,
+                       verdict=verdict, ref_K=refin.cfg.ref_K),
+         swap=dict(after_segments=SWAP_SEGMENTS, now=swap["now"],
+                   moved_after=moved,
+                   moved_before=early_moved),
+         bf16_residual=bf16_resid)
+    del refin, swapped, swapped_over, same, base, rep
+    torch.cuda.empty_cache()
+    return launches, ledger
+
+
+def phase_refinery_cli(dev):
+    """A main path through the CLI: full-width qwen3_4b served in flight
+    with ``--refine`` (20 Poisson arrivals, K 4 at seg 1 so each request
+    is captured three times, 2 fit steps a tick, a gate every tick, 2
+    shadow prompts), then its candidate checkpoint served through
+    ``--g-ckpt`` as hyper_euler. Raises unless the progress lines carry
+    the refinery's fields, a candidate checkpoint exists, it serves, and
+    the flushed ledger loads."""
+    import io
+    import shutil
+    ckpt = os.path.join(BUILD, "refine_ckpt")
+    out_npz = os.path.join(BUILD, "refine_ledger.npz")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    buf = io.StringIO()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(["--arch", "qwen3_4b", "--batch", "20",
+                          "--prompt-len", str(S), "--solver", "euler",
+                          "--multirate", "--fused", "--buckets", "4,8",
+                          "--seg", "1", "--max-batch", "2", "--inflight",
+                          "--arrival-trace", "poisson", "--refine",
+                          "--refine-dir", ckpt, "--refine-steps", "2",
+                          "--shadow-every", "2", "--ledger-cap",
+                          str(LEDGER_CAP), "--ledger-out", out_npz,
+                          "--progress-every", "4"])
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    lines = buf.getvalue().splitlines()
+    prog = [l for l in lines if l.startswith("[progress] ")]
+    if not prog or not all(f" {k}=" in l for l in prog
+                           for k in ("ledger", "cand_step", "promotions")):
+        raise AssertionError(f"refine CLI: progress lines {prog[-2:]}")
+    status = out["refinery"].status()
+    step = CheckpointManager(ckpt).latest_step()
+    if step is None:
+        raise AssertionError(f"refine CLI: no checkpoint, {status}")
+    if not all(r.status == "ok" for r in out["results"]):
+        raise AssertionError("refine CLI: a request did not finish ok")
+    rows = np.load(out_npz)["s"].shape[0]
+    seconds = out["seconds"]
+    del out
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = serve.main(["--arch", "qwen3_4b", "--batch", str(B),
+                            "--prompt-len", str(S), "--solver",
+                            "hyper_euler", "--g-ckpt", ckpt, "--multirate",
+                            "--fused", "--buckets", BUCKETS])
+    if not all(r.status == "ok" and np.isfinite(r.outputs).all()
+               for r in again["results"]):
+        raise AssertionError("--g-ckpt of the refinery's candidate failed")
+    emit(phase="refinery_cli", arch="qwen3_4b", wall_s=wall,
+         cli_seconds=seconds, status=status,
+         checkpoint_step=step, ledger_rows_flushed=rows,
+         last_progress=prog[-1], launches=launches,
+         g_ckpt_serve=dict(K=[r.K for r in again["results"]],
+                           seconds=again["seconds"]))
+    del again
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_refinery_fp32(dev):
+    """Convergence on the card, in float32 at 4 layers (Griffin 6), full
+    width: a ledger captured in flight (16 prompts, K 4 at seg 1), then
+    50 fit steps; the loss on a fixed batch after them is below the
+    loss before the first (the on-card counterpart of
+    tests/test_torch_refinery.py::test_trainer_converges_on_captured_residuals)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    report = {}
+    for arch, n_layers in FP32_DECODE_LAYERS.items():
+        cfg = dataclasses.replace(get(arch), n_layers=n_layers,
+                                  dtype="float32", param_dtype="float32")
+        params = init_lm(torch.Generator(device=dev).manual_seed(11), cfg,
+                         device=dev)
+        model = refinable_model(params, cfg)
+        prompts = np.random.RandomState(12).randint(
+            0, cfg.vocab, (INFLIGHT_REQUESTS, S)).astype(np.int32)
+        ledger = ResidualLedger(model, capacity=LEDGER_CAP, seed=0)
+        sched = InflightScheduler(model, EngineConfig(
+            buckets=(4,), controller="fixed", fixed_K=4, fused=True),
+            slots=SLOTS, seg=1, ledger=ledger)
+        with torch.no_grad():
+            replay_scheduler(sched, poisson_trace(prompts, rate=1.0,
+                                                  seed=0))
+        refin = Refinery(model, ledger, RefineryConfig(
+            steps_per_tick=50, batch_size=32, min_fill=1, total_steps=50))
+        b = ledger.sample_batch(32, np.random.RandomState(0))
+        args = (b["s"], b["eps"], b["z"], b["dz"], b["R"])
+        before = float(refin._eval_loss(refin.current, *args))
+        _, ms = synced_ms(refin.train_tick)
+        after = float(refin._eval_loss(refin.candidate, *args))
+        if not after < before:
+            raise AssertionError(f"{arch} fp32 fit: loss {before} -> "
+                                 f"{after} after 50 steps")
+        report[arch] = dict(layers=n_layers, fill=ledger.fill,
+                            loss_before=before, loss_after_50=after,
+                            fit_step_ms=ms / 50)
+        del params, model, ledger, refin, sched
+        torch.cuda.empty_cache()
+    emit(phase="refinery_fp32", **report)
+
+
+def split_threshold(errs):
+    """(tol, flow_threshold) that route about half of ``errs`` to the K=0
+    tier: tol just above the largest error (every ladder row at the
+    smallest bucket), the threshold at the midpoint of the widest gap
+    between the middle two quartiles, so no error sits near it."""
+    e = np.sort(np.asarray(errs, np.float64))
+    tol = float(e[-1]) * 1.05
+    lo, hi = len(e) // 4, max(3 * len(e) // 4, len(e) // 4 + 1)
+    gaps = e[lo + 1:hi + 1] - e[lo:hi]
+    j = lo + int(np.argmax(gaps))
+    return tol, float((e[j] + e[j + 1]) / 2.0) / tol
+
+
+def phase_flow(dev, cfg, params, prompt, tol, ledger, via_cli=False):
+    """A main path: the K=0 flow tier on a full-width model's serve-phase
+    params (bf16). (1) ``train_flowhead`` fits a rank-64 head on the
+    refinery phase's ledger (50 iterations, batch 16), saved and loaded
+    back bit for bit. (2) The drain of the in-flight prompts with a
+    threshold from this run's probe errors: some rows, not all, at K=0
+    (nfe probe + 1, status ok), launches = block applications and packed
+    ladder steps; flow_threshold 0 serves the serve phase's 8 prompts at
+    its tol bit for bit as the flow-free model. (3) In flight, sync and
+    overlap bit for bit. (4) A flow fault on a fixed uid set: those
+    requests come back ``escalated`` (finite, K >= 2). (5) For qwen3_4b,
+    the CLI's --flow-ckpt/--flow-threshold. Returns the launches."""
+    tag = f"{cfg.name} flow"
+    flow_apply = lambda fp, eps, s, z, dz: lm_flow_apply(fp, eps, s, z, dz)
+    fp0 = lm_flow_init(torch.Generator(device=dev).manual_seed(21), cfg,
+                       rank=FLOW_RANK, param_dtype=torch.float32,
+                       device=dev)
+    (fp, losses), fit_ms = synced_ms(lambda: train_flowhead(
+        flow_apply, fp0, ledger, FlowTrainConfig(iters=FLOW_ITERS,
+                                                 batch_size=FLOW_BATCH)))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: fit losses {losses}")
+    ckpt = os.path.join(BUILD, "flow_ckpt", cfg.name)
+    CheckpointManager(ckpt).save(FLOW_ITERS, fp, wait=True)
+    loaded = load_flow_params(ckpt, cfg, rank=FLOW_RANK, device=dev)
+    if not all(torch.equal(loaded[k], fp[k]) for k in fp):
+        raise AssertionError(f"{tag}: the saved head does not load back")
+
+    prompts = inflight_prompts(cfg, prompt)
+    plain = lm_depth_model(params, cfg, solver="euler", fused=True)
+    with torch.no_grad():
+        errs = MultiRateEngine(plain, embedded_ecfg(tol)).probe(prompts)[1]
+    tol_f, thr = split_threshold(errs[:B])
+    model = lm_depth_model(params, cfg, solver="euler", fused=True,
+                           flow_params=loaded)
+    ecfg = embedded_ecfg(tol_f, flow_threshold=thr)
+    LAUNCHES.clear()
+    with count_blocks() as blocks, torch.no_grad():
+        eng = MultiRateEngine(model, ecfg)
+        drain, drain_ms = synced_ms(lambda: eng.run(prompts))
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    flow = [r for r in drain if r.K == 0]
+    n_flow = eng.last_report.flow_served
+    if not (0 < n_flow < len(prompts)) or n_flow != len(flow):
+        raise AssertionError(f"{tag}: {n_flow} of {len(prompts)} at K=0")
+    if not all(r.status == "ok" and r.nfe == eng.nfe_flow
+               and np.isfinite(r.outputs).all() for r in flow) \
+            or not all(r.status == "ok" for r in drain):
+        raise AssertionError(f"{tag}: a flow row is not ok at nfe "
+                             f"{eng.nfe_flow}")
+    ladder = [r for r in drain if r.K > 0]
+    if launches.get("hyper_step", 0) != packed_k_max_sum(ladder, B):
+        raise AssertionError(f"{tag}: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)}, ladder "
+                             f"steps {packed_k_max_sum(ladder, B)}")
+    check_block_launches(launches, blocks, tag)
+    with torch.no_grad():
+        off = MultiRateEngine(model, embedded_ecfg(tol)).run(prompt)
+        ref = MultiRateEngine(plain, embedded_ecfg(tol)).run(prompt)
+    if [(r.K, r.nfe) for r in off] != [(r.K, r.nfe) for r in ref] or \
+            not all(np.array_equal(a.outputs, b.outputs)
+                    for a, b in zip(off, ref)):
+        raise AssertionError(f"{tag}: flow_threshold=0 moved the serve "
+                             "phase's outputs")
+    del off, ref
+
+    # where the time goes: one flow eval against a ladder solve
+    with torch.no_grad():
+        x8 = prompt
+        z0 = model.embed(x8)
+        dz0 = model.field_of(x8)(0.0, z0)
+        _, flow_ms = synced_ms(lambda: model.flow_apply(
+            loaded, 1.0, 0.0, z0, dz0))
+        _, flow_readout_ms = synced_ms(lambda: eng._flow(x8, z0, dz0))
+        Ks = torch.full((len(x8),), 2, dtype=torch.int32, device=dev)
+        _, solve2_ms = synced_ms(lambda: model.integ.solve_multirate(
+            model.field_of(x8), z0, model.span, Ks, 2, first_stage=dz0))
+        Ks = torch.full((len(x8),), 8, dtype=torch.int32, device=dev)
+        _, solve8_ms = synced_ms(lambda: model.integ.solve_multirate(
+            model.field_of(x8), z0, model.span, Ks, 8, first_stage=dz0))
+        del z0, dz0
+
+    LAUNCHES.clear()
+    with count_blocks() as blocks2:
+        sync_s, sync_rep, sync_wall = replay(model, ecfg, prompts)
+        over_s, over_rep, over_wall = replay(model, ecfg, prompts,
+                                             overlap=True)
+    for k, v in LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    check_block_launches(dict(LAUNCHES), dict(blocks2), f"{tag} inflight")
+    if not records_equal(sync_rep, over_rep):
+        raise AssertionError(f"{tag}: sync and overlap differ")
+    inflight_flow = sync_s.total_flow_served
+    if not 0 < inflight_flow < len(prompts):
+        raise AssertionError(f"{tag}: in flight {inflight_flow} at K=0")
+
+    # the fault's uid set: the in-flight flow uids whose hash under the
+    # first seed that selects any falls below FLOW_NAN_FRAC
+    flow_uids = {r.uid for r in sync_rep.records if r.K == 0}
+    seed = next(sd for sd in range(64) if any(
+        _hash01(sd, "flow", u) < FLOW_NAN_FRAC for u in flow_uids))
+    poisoned = {u for u in flow_uids
+                if _hash01(seed, "flow", u) < FLOW_NAN_FRAC}
+    inj = FaultInjector(seed=seed, flow_nan_frac=FLOW_NAN_FRAC)
+    esc_s, esc_rep, _ = replay(model, ecfg, prompts, fault_injector=inj)
+    got = {r.uid: r for r in esc_rep.records}
+    bad = [u for u in poisoned if got[u].status != "escalated"
+           or got[u].K < 2 or not np.isfinite(got[u].outputs).all()]
+    if not poisoned or bad or esc_s.total_escalated != len(poisoned):
+        raise AssertionError(f"{tag}: poisoned {sorted(poisoned)}, not "
+                             f"escalated cleanly {bad}")
+
+    cli = None
+    if via_cli:
+        import io
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = serve.main(["--arch", cfg.name, "--batch", str(B),
+                              "--prompt-len", str(S), "--solver", "euler",
+                              "--multirate", "--fused", "--buckets",
+                              BUCKETS, "--tol", repr(tol_f),
+                              "--flow-ckpt", ckpt, "--flow-rank",
+                              str(FLOW_RANK), "--flow-threshold",
+                              repr(thr)])
+        res = out["results"]
+        n_cli = sum(r.K == 0 for r in res)
+        if not 0 < n_cli < len(res) or not all(r.status == "ok"
+                                               for r in res):
+            raise AssertionError(f"flow CLI: {n_cli} of {len(res)} at K=0")
+        cli = dict(flow_served=n_cli, seconds=out["seconds"],
+                   K=[r.K for r in res])
+        del out, res
+    emit(phase="flow", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, rank=FLOW_RANK,
+         fit=dict(iters=FLOW_ITERS, batch=FLOW_BATCH, ms=fit_ms,
+                  ms_per_iter=fit_ms / FLOW_ITERS, first_loss=losses[0],
+                  last_loss=losses[-1]),
+         tol=tol_f, flow_threshold=thr,
+         drain=dict(requests=len(prompts), flow_served=n_flow,
+                    flow_share=n_flow / len(prompts), ms=drain_ms,
+                    K=[r.K for r in drain], nfe_flow=eng.nfe_flow),
+         flow_eval_ms=flow_ms, flow_eval_and_readout_ms=flow_readout_ms,
+         solve_ms=dict(k2=solve2_ms, k8=solve8_ms),
+         inflight=dict(flow_served=inflight_flow, wall_s=dict(
+             sync=sync_wall, overlap=over_wall),
+             segments=sync_s.dispatches),
+         escalation=dict(seed=seed, poisoned=sorted(poisoned),
+                         escalated=esc_s.total_escalated),
+         launches=launches, block_applications=dict(blocks),
+         cli=cli)
+    del eng, drain, sync_rep, over_rep, esc_rep, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def expected_decode_launches(cfg, gen):
     """Kernel launches of one generate: the prefill runs flash_attention
     once per attention block and rglru_scan once per recurrent block
@@ -1265,7 +1777,14 @@ def main() -> int:
     launches = collections.Counter(served)
     launches.update(phase_inflight(dev, get("qwen3_4b"), params, prompt, tol,
                                    via_cli=True))
-    del params
+    refined, ledger = phase_refinery(dev, get("qwen3_4b"), params, prompt,
+                                     tol)
+    launches.update(refined)
+    launches.update(phase_flow(dev, get("qwen3_4b"), params, prompt, tol,
+                               ledger, via_cli=True))
+    del params, ledger
+    torch.cuda.empty_cache()
+    launches.update(phase_refinery_cli(dev))
     torch.cuda.empty_cache()
     launches.update(phase_decode_qwen(dev, bandwidth))
     for arch, phase in (("recurrentgemma_2b", phase_serve_griffin),
@@ -1273,11 +1792,17 @@ def main() -> int:
         served, params, prompt, tol = phase(dev)
         launches.update(served)
         launches.update(phase_inflight(dev, get(arch), params, prompt, tol))
+        refined, ledger = phase_refinery(dev, get(arch), params, prompt, tol)
+        launches.update(refined)
+        launches.update(phase_flow(dev, get(arch), params, prompt, tol,
+                                   ledger))
+        del ledger
         launches.update(phase_decode_served(dev, bandwidth, arch, params,
                                             prompt))
         del params
     phase_fused_vs_unfused(dev)
     phase_decode_fp32(dev)
+    phase_refinery_fp32(dev)
 
     head = next(r for r in rows if r["case"] == "euler+g"
                 and r["dtype"] == "bfloat16")

@@ -4,7 +4,8 @@
 arrays — ``np.asarray`` of each JAX leaf — and returns the same tree of
 tensors with the same leaf names, layouts and dtypes. bfloat16 leaves
 (numpy's ``ml_dtypes`` bfloat16) travel through their raw 16-bit pattern,
-so no value is rounded on the way. Works for LM params and g params alike.
+so no value is rounded on the way. Works for LM params, g params and
+optimizer states (NamedTuples such as the reference's ``AdamState``) alike.
 """
 from __future__ import annotations
 
@@ -28,7 +29,10 @@ def params_from_jax(tree: Any, device=None) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_jax(v, device) for v in tree)
+        children = [params_from_jax(v, device) for v in tree]
+        if hasattr(tree, "_fields"):     # a NamedTuple takes its fields
+            return type(tree)(*children)
+        return type(tree)(children)
     if tree is None:
         return None
     return tensor_from_numpy(tree, device)

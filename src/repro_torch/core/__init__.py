@@ -10,5 +10,12 @@ from repro_torch.core.integrate import (  # noqa: F401
 from repro_torch.core.solvers import FixedGrid  # noqa: F401
 from repro_torch.core.controllers import (  # noqa: F401
     EmbeddedErrorController, FixedController, HypersolverResidualController,
-    embedded_step, mesh_for_tolerance, per_sample_norm,
+    TierRouter, embedded_step, mesh_for_tolerance, per_sample_norm,
+)
+from repro_torch.core.flowhead import flow_combine, make_flow_apply  # noqa: F401
+from repro_torch.core.residual import (  # noqa: F401
+    flow_fitting_loss, ledger_fitting_loss,
+)
+from repro_torch.core.train import (  # noqa: F401
+    FlowTrainConfig, make_fit_step, train_flowhead,
 )

@@ -10,14 +10,15 @@ smallest mesh meeting ``tol`` is
 
 ``FixedController`` (no probe), ``EmbeddedErrorController`` (one
 embedded-pair probe step) and ``HypersolverResidualController`` (the
-correction magnitude ||g|| * h^{p+1}, one field evaluation) are ported;
-``TierRouter`` waits for the flow tier (ROADMAP.md, queue 1).
+correction magnitude ||g|| * h^{p+1}, one field evaluation) pick K;
+``TierRouter`` layers the K=0 flow tier on top of a probing controller.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -148,3 +149,47 @@ class HypersolverResidualController:
         e = per_sample_norm(corr) * (h ** (p + 1))
         Ks = mesh_for_tolerance(e, self.tol, p, self.k_min, self.k_max)
         return Probe(Ks, e, 1, dz)
+
+
+# ------------------------------------------------------------ tier router ----
+
+@dataclasses.dataclass(frozen=True)
+class TierRouter:
+    """The three-way serving ladder over a probing controller: ``flow``
+    (probe error at most ``flow_threshold * tol``: the K=0 learned
+    solution operator, core/flowhead.py, one net eval), ``hyper`` (K <=
+    ``hyper_k_max`` after the bucket snap) and ``high-K`` (the rest).
+    ``flow_threshold`` is a confidence margin inside ``tol``, not a second
+    tolerance; requests on the escalation path (``K_floor > 0``) never
+    route to flow again. Routing runs on the host over the probe's error
+    row, which the serving loops read back anyway."""
+
+    flow_threshold: float = 0.25   # route to flow iff err <= this * tol
+    hyper_k_max: int = 4           # hyper/high-K boundary (reporting tier)
+
+    def __post_init__(self):
+        if not (0.0 <= self.flow_threshold <= 1.0):
+            raise ValueError(
+                f"flow_threshold={self.flow_threshold}: expected a "
+                "confidence fraction in [0, 1] — the flow tier serves "
+                "requests whose probe error is confidently BELOW "
+                "tolerance, so a threshold above 1 would route requests "
+                "the probe already flagged as failing")
+
+    def flow_mask(self, err, tol: float, k_floor) -> np.ndarray:
+        """(B,) bool: rows to serve on the K=0 flow tier. Non-finite
+        probe errors and escalated requests (``k_floor > 0``) are
+        excluded. The comparison is in float32, the threshold rounded to
+        float32 as the reference rounds a Python scalar."""
+        err = np.asarray(err, np.float32)
+        k_floor = np.asarray(k_floor, np.int32)
+        return (np.isfinite(err)
+                & (err <= np.float32(self.flow_threshold * tol))
+                & (k_floor == 0))
+
+    def tier_of(self, K) -> np.ndarray:
+        """Reporting tier of a snapped bucket row: 1 = hyper (``K <=
+        hyper_k_max``), 2 = high-K (flow rows are tier 0, by
+        ``flow_mask``)."""
+        K = np.asarray(K, np.int32)
+        return np.where(K <= self.hyper_k_max, 1, 2).astype(np.int32)

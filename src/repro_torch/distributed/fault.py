@@ -7,9 +7,8 @@ answer. ``FaultInjector`` is the seeded serving-chaos source: every
 decision is a pure function of its keys through ``_hash01`` (the
 reference's blake2b of the key tuple's ``repr``), so the sync and overlap
 loops — and the reference's loops, given the same seed — draw the same
-fault schedule. Its K=0 flow-tier hook (``corrupt_flow_eval``) waits for
-ROADMAP.md queue 1 item 4; the training watchdog and ``FailureInjector``
-wait for item 12.
+fault schedule. The training watchdog and ``FailureInjector`` wait for
+ROADMAP.md queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -43,7 +42,7 @@ def _hash01(*keys) -> float:
 
 @dataclasses.dataclass
 class FaultInjector:
-    """Seeded serving-chaos source with three host-side fault sites:
+    """Seeded serving-chaos source with four host-side fault sites:
 
       * ``corrupt_admission`` — NaN-poison the inputs of a fraction of
         uids at admission (only attempt 0 when ``nan_transient``), so
@@ -53,7 +52,11 @@ class FaultInjector:
         so every request still terminates for ``p < 1``;
       * ``inflate_segment_cost`` — multiply a fraction of dispatched
         segments' virtual cost by ``straggle_factor``, keyed on the
-        scheduler's dispatch sequence (identical in both loops).
+        scheduler's dispatch sequence (identical in both loops);
+      * ``corrupt_flow_eval`` — NaN-poison the K=0 flow-tier output row
+        of a fraction ``flow_nan_frac`` of uids (only attempt 0 when
+        ``nan_transient``), so the loops escalate them into the K-bucket
+        ladder (terminal ``escalated``).
     """
 
     seed: int = 0
@@ -62,6 +65,7 @@ class FaultInjector:
     drop_flag_p: float = 0.0
     straggle_tick_frac: float = 0.0
     straggle_factor: float = 4.0
+    flow_nan_frac: float = 0.0
 
     def corrupt_admission(self, uid: int, attempts: int,
                           x: np.ndarray) -> np.ndarray:
@@ -73,6 +77,17 @@ class FaultInjector:
             x = np.array(x, copy=True)
             x.reshape(-1)[0] = np.nan
         return x
+
+    def corrupt_flow_eval(self, uid: int, attempts: int,
+                          out_row: np.ndarray) -> np.ndarray:
+        if self.flow_nan_frac <= 0.0:
+            return out_row
+        if self.nan_transient and attempts > 0:
+            return out_row
+        if _hash01(self.seed, "flow", int(uid)) < self.flow_nan_frac:
+            out_row = np.array(out_row, copy=True)
+            out_row.reshape(-1)[0] = np.nan
+        return out_row
 
     def drop_retire_flags(self, uids: np.ndarray, segments: np.ndarray,
                           finished: np.ndarray) -> np.ndarray:

@@ -12,9 +12,17 @@
         -> Completed{outputs, K, nfe, err_probe} per request
 
 Deadlines, the bounded queue's shed/degrade/block policies, the retry
-ladder for non-finite outputs and the fault injector's admission hook
-are kept. The K=0 flow tier and the residual-ledger capture wait for
-their slices (ROADMAP.md queue 1): asking for them raises.
+ladder for non-finite outputs and the fault injector's admission and
+flow-eval hooks are kept. With ``EngineConfig.flow_threshold > 0`` a
+model carrying a flow head (``DepthModel.flow_apply``) serves its
+probe-easy requests on the K=0 tier (core/flowhead.py): one flow-head
+eval over the probe's ``(z0, dz0)`` and a readout, zero solver steps; a
+non-finite flow row escalates into the K-bucket ladder (status
+``escalated``). A ``ResidualLedger`` (launch/refinery.py) passed as
+``ledger=`` captures residual rows from each drain's probe states,
+reading them only. ``hot_swap_g``/``hot_swap_flow`` replace the
+correction's or the flow head's params between drains: the next call
+reads them, nothing is rebuilt, and the old tensors are never written.
 
 The discrete path, ``greedy_generate``, is the standard cached decode
 (the CLI's default): a prefill, then one greedy token a step.
@@ -34,16 +42,16 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.manager import flatten_sorted, treedef_str
 from repro_torch.configs import ArchConfig
 from repro_torch.core.controllers import (EmbeddedErrorController,
                                           FixedController,
-                                          HypersolverResidualController)
+                                          HypersolverResidualController,
+                                          TierRouter)
 from repro_torch.core.integrate import Integrator, OneTimeWarning
-from repro_torch.models.cdepth import lm_g_init, lm_integrator
+from repro_torch.models.cdepth import lm_flow_init, lm_g_init, lm_integrator
 from repro_torch.models.lm import (dtype_of, init_lm_cache, lm_decode_step,
                                   lm_prefill, readout_weight)
-
-_FLOW_TIER = "ROADMAP.md queue 1 item 4 (the K=0 flow tier)"
 
 
 # ----------------------------------------------------------- discrete path ----
@@ -71,16 +79,27 @@ def greedy_generate(params, cfg: ArchConfig, prompt, gen_len: int):
 
 # -------------------------------------------------------------- g loading ----
 
-def load_g_params(path: str, cfg: ArchConfig, rank: int = 32, device=None):
-    """Restore a trained LM hypersolver correction from a checkpoint
-    directory the JAX package's CheckpointManager wrote (--g-ckpt)."""
+def _load_rank_r(path: str, init, cfg: ArchConfig, rank: int, device):
     cm = CheckpointManager(path)
     step = cm.latest_step()
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path!r}")
-    template = lm_g_init(torch.Generator().manual_seed(0), cfg, rank=rank,
-                         param_dtype=torch.float32)
+    template = init(torch.Generator().manual_seed(0), cfg, rank=rank,
+                    param_dtype=torch.float32)
     return cm.restore(step, template, device=device)
+
+
+def load_g_params(path: str, cfg: ArchConfig, rank: int = 32, device=None):
+    """Restore a trained LM hypersolver correction from a checkpoint
+    directory either package's CheckpointManager wrote (--g-ckpt)."""
+    return _load_rank_r(path, lm_g_init, cfg, rank, device)
+
+
+def load_flow_params(path: str, cfg: ArchConfig, rank: int = 64,
+                     device=None):
+    """Restore a trained LM flow head (core/flowhead.py) from a
+    checkpoint directory (--flow-ckpt)."""
+    return _load_rank_r(path, lm_flow_init, cfg, rank, device)
 
 
 # ---------------------------------------------------------- model adapters ----
@@ -92,7 +111,10 @@ class DepthModel:
     vector field over it, ``readout(x, zT)`` maps the terminal state to
     outputs, ``integ`` is the serving Integrator. A correction rides
     either in ``integ.g`` (closure) or as ``g_apply(gp, eps, s, z, dz)``
-    plus ``g_params`` (parametric)."""
+    plus ``g_params`` (parametric: the serving loops pass the params at
+    call time, so ``hot_swap_g`` replaces them between calls).
+    ``flow_apply(fp, eps, s, z, dz) -> z(s + eps)`` with ``flow_params``
+    is the optional K=0 flow tier, swappable the same way."""
 
     embed: Callable[[Any], Any]
     field_of: Callable[[Any], Callable]
@@ -101,6 +123,8 @@ class DepthModel:
     span: Tuple[float, float] = (0.0, 1.0)
     g_apply: Optional[Callable] = None   # g_apply(gp, eps, s, z, dz)
     g_params: Any = None
+    flow_apply: Optional[Callable] = None  # flow_apply(fp, eps, s, z, dz)
+    flow_params: Any = None
 
 
 def bound_integrator(model: DepthModel, gp=None) -> Integrator:
@@ -115,6 +139,37 @@ def bound_integrator(model: DepthModel, gp=None) -> Integrator:
         model.integ, g=lambda e, s, z, dz: ga(gp, e, s, z, dz))
 
 
+def validate_g_swap(current, new, label: str = "hot_swap_g") -> None:
+    """Refuse a swap whose params do not match the resident ones leaf for
+    leaf (tree structure, shapes, dtypes) — the reference's no-retrace
+    contract, kept so a swapped tree always fits every call that took
+    the old one. Shared by both loops' ``hot_swap_g`` and
+    ``hot_swap_flow`` (``label`` names the caller)."""
+    t_cur, d_cur = flatten_sorted(current)[0], treedef_str(current)
+    t_new, d_new = flatten_sorted(new)[0], treedef_str(new)
+    if d_cur != d_new:
+        raise ValueError(
+            f"{label}: params treedef mismatch ({d_new} vs resident "
+            f"{d_cur}) — a swap must preserve the tree structure")
+    for i, (c, n) in enumerate(zip(t_cur, t_new)):
+        c, n = torch.as_tensor(c), torch.as_tensor(n)
+        if tuple(c.shape) != tuple(n.shape) or c.dtype != n.dtype:
+            raise ValueError(
+                f"{label}: leaf {i} is {tuple(n.shape)}/{n.dtype}, "
+                f"resident is {tuple(c.shape)}/{c.dtype} — shapes and "
+                "dtypes must match exactly")
+
+
+def swap_params(current, new, label: str):
+    """``new`` validated against ``current`` and placed leaf by leaf on
+    the resident leaves' devices: a new tree, the old one untouched."""
+    validate_g_swap(current, new, label)
+    t_cur = flatten_sorted(current)[0]
+    t_new, build = flatten_sorted(new)
+    return build([torch.as_tensor(n, device=torch.as_tensor(c).device)
+                  for c, n in zip(t_cur, t_new)])
+
+
 def lm_depth_model(params, cfg: ArchConfig, solver: str = "euler",
                    g_params: Any = None, fused: bool = False, *,
                    refinable: bool = False, rank: int = 32,
@@ -123,12 +178,12 @@ def lm_depth_model(params, cfg: ArchConfig, solver: str = "euler",
     are token rows (numpy or tensors); ``device`` is where they are moved
     (default: the device of the weights). ``refinable=True`` carries the
     correction on the parametric path (a zero-readout init when no
-    ``g_params`` is given)."""
-    from repro_torch.models.cdepth import apply_tail, depth_field, lm_g_apply
+    ``g_params`` is given). ``flow_params`` (an ``lm_flow_init``-shaped
+    tree, e.g. from ``load_flow_params``) attaches the K=0 flow tier."""
+    from repro_torch.models.cdepth import (apply_tail, depth_field,
+                                           lm_flow_apply, lm_g_apply)
     from repro_torch.models.lm import _embed
 
-    if flow_params is not None:
-        raise NotImplementedError(f"flow_params: {_FLOW_TIER}")
     dev = params["embed"]["table"].device if device is None else device
     f = depth_field(params, cfg)
     kw = {}
@@ -146,6 +201,12 @@ def lm_depth_model(params, cfg: ArchConfig, solver: str = "euler",
             g_params=g_params)
     else:
         integ = lm_integrator(solver, g_params, fused=fused)
+    if flow_params is not None:
+        order = integ.order
+        kw.update(
+            flow_apply=lambda fp, eps, s, z, dz:
+                lm_flow_apply(fp, eps, s, z, dz, order=order),
+            flow_params=flow_params)
     return DepthModel(
         embed=lambda toks: _embed(params, cfg, torch.as_tensor(toks,
                                                                device=dev)),
@@ -222,13 +283,19 @@ class EngineConfig:
     controller: str = "auto"      # auto | residual | embedded | fixed
     fixed_K: int = 0              # mesh length when controller == "fixed"
     fused: bool = False           # route batch solves through the kernel
-    flow_threshold: float = 0.0   # K=0 flow tier (not ported: must be 0)
+    flow_threshold: float = 0.0   # K=0 flow tier confidence fraction:
+    #                               route iff probe err <= this * tol
+    #                               (0 disables the tier)
 
     def __post_init__(self):
         if self.buckets != tuple(sorted(self.buckets)):
             raise ValueError(f"buckets must be sorted, got {self.buckets}")
-        if self.flow_threshold != 0.0:
-            raise NotImplementedError(f"flow_threshold: {_FLOW_TIER}")
+        if not (0.0 <= self.flow_threshold <= 1.0):
+            raise ValueError(
+                f"flow_threshold={self.flow_threshold}: expected a "
+                "confidence fraction in [0, 1] (core/controllers.py::"
+                "TierRouter) — the flow tier only serves requests whose "
+                "probe error is confidently below tol")
 
 
 def prepare_model(model: DepthModel, ecfg: EngineConfig) -> DepthModel:
@@ -246,6 +313,18 @@ def prepare_model(model: DepthModel, ecfg: EngineConfig) -> DepthModel:
         raise ValueError(
             f"solver {ecfg.solver!r} needs a correction: build the "
             "DepthModel with g_params (serve CLI: --g-ckpt)")
+    if ecfg.flow_threshold > 0:
+        if model.flow_apply is None:
+            raise ValueError(
+                f"flow_threshold={ecfg.flow_threshold} routes easy "
+                "requests to the K=0 flow tier, but the DepthModel "
+                "carries no flow head: build it with flow_apply/"
+                "flow_params (serve CLI: --flow-ckpt)")
+        if ecfg.controller == "fixed":
+            raise ValueError(
+                "flow_threshold > 0 needs a probing controller — the "
+                "flow tier routes off the admission probe's difficulty "
+                "estimate, which controller='fixed' never computes")
     return model
 
 
@@ -288,6 +367,8 @@ class StepReport:
     batches: int = 0
     probe_nonfinite: int = 0          # non-finite probe errors this drain
     finish_offset: Dict[int, float] = dataclasses.field(default_factory=dict)
+    flow_served: int = 0              # requests completed on the K=0 tier
+    escalated: int = 0                # flow failures requeued to the ladder
 
     @property
     def waste_steps(self) -> int:
@@ -295,8 +376,9 @@ class StepReport:
         return self.total_steps - self.useful_steps
 
 
-# terminal request statuses (the reference's tuple; ``escalated`` only
-# arises on the flow tier, which is not ported)
+# terminal request statuses (the reference's tuple): ok, retried (after
+# a quarantine retry), diverged, deadline, shed, escalated (completed on
+# the K-bucket ladder after its K=0 flow eval came back non-finite)
 STATUSES = ("ok", "retried", "diverged", "deadline", "shed", "escalated")
 
 
@@ -311,6 +393,7 @@ class Request:
     deadline: Optional[float] = None  # replay-clock deadline (None = none)
     attempts: int = 0             # completed (failed) serve attempts so far
     K_floor: int = 0              # retry ladder: minimum bucket on re-probe
+    escalated: bool = False       # a failed K=0 flow eval sent it here
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,7 +407,8 @@ class Completed:
     status: str = "ok"            # terminal status (STATUSES)
 
 
-def _take(tree, sel: np.ndarray):
+def take_rows(tree, sel: np.ndarray):
+    """Rows ``sel`` of every leaf (a gather: a new tensor), or None."""
     if tree is None:
         return None
     return pytree.tree_map(
@@ -342,9 +426,6 @@ class MultiRateEngine:
                  fault_injector=None, ledger=None):
         from repro_torch.distributed.fault import RetryPolicy
         from repro_torch.launch.oracle import SequentialEvalOracle
-        if ledger is not None:
-            raise NotImplementedError(
-                "ledger: ROADMAP.md queue 1 item 5 (the online refinery)")
         if overload_policy not in ("shed", "degrade", "block"):
             raise ValueError(f"unknown overload_policy {overload_policy!r} "
                              "(shed | degrade | block)")
@@ -356,6 +437,13 @@ class MultiRateEngine:
             bound_integrator(self.model), self.ecfg)
         self.g_params = self.model.g_params \
             if self.model.g_apply is not None else None
+        # the K=0 tier's swappable params and router; None when the tier
+        # is off (flow_threshold == 0), and then no flow code runs
+        self.flow_params = self.model.flow_params \
+            if self.model.flow_apply is not None else None
+        self.router = TierRouter(flow_threshold=engine_cfg.flow_threshold) \
+            if engine_cfg.flow_threshold > 0 else None
+        self.ledger = ledger   # optional ResidualLedger (launch/refinery)
         self.oracle = oracle or SequentialEvalOracle()
         self.queue_cap = queue_cap
         self.overload_policy = overload_policy
@@ -380,8 +468,49 @@ class MultiRateEngine:
         """Per-request NFE for a bucket-K solve, probe included."""
         return self.probe_nfe + self.model.integ.tableau.stages * K
 
+    @property
+    def nfe_flow(self) -> int:
+        """Per-request NFE on the K=0 tier: the probe's raw field evals
+        (the stage ``probe_nfe`` nets out is consumed by the flow
+        combine's ``eps*dz`` term, so it is billed back), zero steps."""
+        return self.probe_nfe + 1
+
     def _integ(self) -> Integrator:
         return bound_integrator(self.model, self.g_params)
+
+    def _flow(self, xs, z0, dz0):
+        """The K=0 tier: one flow-head eval over the probe's (z0, dz0)
+        rows and a readout, with the params read at call time."""
+        m = self.model
+        return m.readout(xs, m.flow_apply(self.flow_params,
+                                          m.span[1] - m.span[0], m.span[0],
+                                          z0, dz0))
+
+    # --------------------------------------------------------- hot swap ----
+    def hot_swap_g(self, gp):
+        """Install new correction params between drains; the next probe
+        and solve read them. Returns the previous params (the refinery's
+        rollback handle). Raises ValueError on a structural mismatch."""
+        if self.model.g_apply is None:
+            raise ValueError(
+                "hot_swap_g on a non-parametric model: build the "
+                "DepthModel with g_apply/g_params (params-are-inputs) "
+                "to make the correction swappable")
+        old, self.g_params = self.g_params, swap_params(self.g_params, gp,
+                                                        "hot_swap_g")
+        return old
+
+    def hot_swap_flow(self, fp):
+        """Install new flow-head params between drains — the flow twin of
+        ``hot_swap_g``. Returns the previous params."""
+        if self.model.flow_apply is None:
+            raise ValueError(
+                "hot_swap_flow on a model with no flow head: build the "
+                "DepthModel with flow_apply/flow_params (core/flowhead."
+                "py) to make the K=0 tier swappable")
+        old, self.flow_params = self.flow_params, swap_params(
+            self.flow_params, fp, "hot_swap_flow")
+        return old
 
     def _probe(self, xs):
         m = self.model
@@ -448,6 +577,7 @@ class MultiRateEngine:
         stages = self.model.integ.tableau.stages
         cost = probe_cost = 0.0
         useful = total = batches = probe_nonfinite = 0
+        flow_served = escalated = 0
         finish_offset: Dict[int, float] = {c.uid: 0.0 for c in done}
         degrade = (self.queue_cap is not None
                    and self.overload_policy == "degrade"
@@ -497,15 +627,77 @@ class MultiRateEngine:
             floors = np.asarray([r.K_floor for r in reqs], np.int32)
             Ks = np.maximum(Ks, floors)
 
+            if self.ledger is not None:
+                # residual capture from the probe states at the eps each
+                # request will integrate at (the fixed path embeds its own
+                # copy); rows with a non-finite probe are left out. A read
+                # only, never priced: completions stay bit for bit equal
+                span = self.model.span
+                z_cap = z0 if z0 is not None else self.model.embed(xs)
+                self.ledger.capture(
+                    xs, z_cap, np.full(len(reqs), span[0], np.float32),
+                    ((span[1] - span[0])
+                     / Ks.astype(np.float64)).astype(np.float32),
+                    keep=np.isfinite(errs))
+
             z_like = z0 if z0 is not None else self.model.embed(xs[:1])
             fused = self.fused_in_play(z_like)
 
+            # K=0 flow tier: probe-easy rows skip the ladder (a packing
+            # decision like the buckets); with the router off this block
+            # never runs and the drain is the flow-free one bit for bit
+            flow_sel = np.zeros(len(reqs), bool)
+            if self.router is not None and z0 is not None:
+                flow_sel = self.router.flow_mask(errs, self.ecfg.tol, floors)
+            fidx = np.flatnonzero(flow_sel)
+            if len(fidx):
+                f_out = self._flow(xs[fidx], take_rows(z0, fidx),
+                                   take_rows(dz0, fidx)).cpu().numpy()
+                cost += self.oracle.flow_cost(shape, len(fidx))
+                for j, i in enumerate(fidx):
+                    r = reqs[i]
+                    row = f_out[j]
+                    if self.fault_injector is not None:
+                        row = self.fault_injector.corrupt_flow_eval(
+                            r.uid, r.attempts, row)
+                    if not np.isfinite(row).all():
+                        # escalation: bill the flow attempt, requeue into
+                        # the ladder at the coarsest bucket (K_floor > 0
+                        # also bars flow on the next probe)
+                        if self.retry.should_retry("diverged", r.attempts):
+                            self._nfe_extra[r.uid] = (
+                                self._nfe_extra.get(r.uid, 0)
+                                + self.nfe_flow)
+                            self._queue.append(dataclasses.replace(
+                                r, attempts=r.attempts + 1,
+                                K_floor=min(self.ecfg.buckets),
+                                escalated=True))
+                            escalated += 1
+                            continue
+                        finish_offset[r.uid] = cost
+                        done.append(Completed(
+                            uid=r.uid, outputs=row, K=0,
+                            nfe=self.nfe_flow
+                            + self._nfe_extra.pop(r.uid, 0),
+                            err_probe=float(errs[i]),
+                            fused_kernel=False, status="diverged"))
+                        continue
+                    # flow_mask bars K_floor > 0, so attempts == 0 here
+                    finish_offset[r.uid] = cost
+                    flow_served += 1
+                    done.append(Completed(
+                        uid=r.uid, outputs=row, K=0,
+                        nfe=self.nfe_flow + self._nfe_extra.pop(r.uid, 0),
+                        err_probe=float(errs[i]), fused_kernel=False,
+                        status="ok"))
+
             order = np.argsort(Ks, kind="stable")
+            order = order[~flow_sel[order]]
             for lo in range(0, len(order), self.ecfg.max_batch):
                 sel = order[lo:lo + self.ecfg.max_batch]
                 k_max = int(Ks[sel].max())
                 outputs = self._solve(
-                    xs[sel], _take(z0, sel), _take(dz0, sel),
+                    xs[sel], take_rows(z0, sel), take_rows(dz0, sel),
                     Ks[sel], k_max).cpu().numpy()
                 cost += self.oracle.solve_cost(shape, k_max, len(sel),
                                                stages)
@@ -527,7 +719,8 @@ class MultiRateEngine:
                             continue     # served by the next drain
                         status = "diverged"
                     else:
-                        status = "ok" if r.attempts == 0 else "retried"
+                        status = "ok" if r.attempts == 0 else (
+                            "escalated" if r.escalated else "retried")
                     finish_offset[r.uid] = cost
                     done.append(Completed(
                         uid=r.uid, outputs=outputs[j], K=K,
@@ -537,7 +730,8 @@ class MultiRateEngine:
         self.last_report = StepReport(
             cost=cost, probe_cost=probe_cost, useful_steps=useful,
             total_steps=total, batches=batches,
-            probe_nonfinite=probe_nonfinite, finish_offset=finish_offset)
+            probe_nonfinite=probe_nonfinite, finish_offset=finish_offset,
+            flow_served=flow_served, escalated=escalated)
         return done
 
     def run(self, xs) -> List[Completed]:

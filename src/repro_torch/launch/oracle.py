@@ -1,9 +1,9 @@
 """Serving cost oracle — the ``SequentialEvalOracle`` of
 ``repro/launch/oracle.py``: one cost unit per SEQUENTIAL vector-field
 evaluation (a K-step loop of an s-stage tableau costs ``s*K``, a probe its
-``probe_nfe``, a ``seg``-step segment of a slot pool ``s*seg``), batch
-width free. The roofline oracle waits for the cost model slice (ROADMAP.md
-queue 1 item 9); the K=0 flow tier's ``flow_cost`` waits for item 4."""
+``probe_nfe``, a ``seg``-step segment of a slot pool ``s*seg``, a K=0
+flow-tier eval 1), batch width free. The roofline oracle waits for the
+cost model slice (ROADMAP.md queue 1 item 9)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +23,11 @@ class SequentialEvalOracle:
     def solve_cost(self, shape, k_max: int, width: int,
                    stages: int) -> float:
         return float(stages * k_max)
+
+    def flow_cost(self, shape, width: int) -> float:
+        # one correction-net eval ~ one field eval on this clock: the
+        # flow tier's whole solve
+        return 1.0
 
 
 def make_oracle(name: str, cfg=None, *, ctx: int = 4096):

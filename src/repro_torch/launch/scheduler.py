@@ -31,10 +31,22 @@ PyTorch terms for the reference's JAX mechanisms:
     evaluation of a mixed pool, so on the card the overlap loop is
     correct but overlaps little.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: the slot pool over several GPUs (``mesh=``, item 10), the residual
-ledger and ``hot_swap_g`` (item 5), the K=0 flow tier and
-``hot_swap_flow`` (item 4).
+The K=0 flow tier (``EngineConfig.flow_threshold > 0`` on a model with
+a flow head): probe-easy rows never take a slot; their flow eval and
+readout are staged at admission like a retiring batch and materialise in
+``finalize_retired``, where a non-finite row escalates to the front of
+the queue with ``K_floor`` at the coarsest bucket. A ``ResidualLedger``
+(``ledger=``, launch/refinery.py) captures interior healthy rows at each
+retire, from the pool's ``z`` after the segment and before the next one
+is launched (stream order keeps the capture's reads ahead of the next
+in-place write, and the rows reach the host through a blocking copy of
+a gathered snapshot). ``hot_swap_g``/``hot_swap_flow`` replace the params
+dict between segments; the next launch reads the new one, a segment
+already queued keeps the tensors it was launched with (one stream), and
+no resident tensor is written in place.
+
+The slot pool over several GPUs (``mesh=``) waits for ROADMAP.md queue 1
+item 10 and raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -47,12 +59,12 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.controllers import FixedController
+from repro_torch.core.controllers import FixedController, TierRouter
 from repro_torch.distributed.fault import FaultInjector, RetryPolicy
 from repro_torch.launch.engine import (
     STATUSES, DepthModel, EngineConfig, QueueFull, Request, bound_integrator,
     make_controller, next_bucket_above, prepare_model, probe_net_nfe,
-    screen_probe_errors, snap_to_buckets,
+    screen_probe_errors, snap_to_buckets, swap_params, take_rows,
 )
 from repro_torch.launch.oracle import SequentialEvalOracle
 
@@ -60,8 +72,6 @@ __all__ = ["InflightScheduler", "InflightCompleted", "TickReport",
            "STATUSES", "QueueFull", "RetryPolicy", "FaultInjector"]
 
 _MESH = "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)"
-_REFINERY = "ROADMAP.md queue 1 item 5 (the online refinery)"
-_FLOW = "ROADMAP.md queue 1 item 4 (the K=0 flow tier)"
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -143,6 +153,8 @@ class TickReport:
     requeued: int = 0             # failed slots re-queued by the retry ladder
     shed: int = 0                 # admission refusals surfaced this tick
     probe_nonfinite: int = 0      # non-finite probe errors seen at admission
+    flow_served: int = 0          # requests completed on the K=0 flow tier
+    escalated: int = 0            # flow failures requeued to the K ladder
 
     @property
     def waste_steps(self) -> int:
@@ -159,6 +171,26 @@ class _PendingSegment:
     k_old: np.ndarray             # k rows at launch
     occ: np.ndarray               # occupancy at launch (bool row)
     t_done: float                 # virtual completion stamp for retires
+
+
+@dataclasses.dataclass
+class _FlowBatch:
+    """K=0 flow-tier rows staged at admission: ``outs`` on its way to the
+    host until ``finalize_retired``; the host rows snapshot the admitted
+    requests (flow rows hold no slot). ``xs`` keeps the original inputs,
+    never the fault injector's poisoned copies, so an escalation
+    requeues clean data."""
+
+    n: int                        # real rows (outs may be pow2-padded)
+    outs: _Readback
+    t_done: float                 # admission probe + flow eval, this pool
+    uid: np.ndarray
+    err: np.ndarray
+    t_submit: np.ndarray
+    t_admit: float
+    deadline: np.ndarray          # np.inf = none
+    attempts: np.ndarray
+    xs: np.ndarray
 
 
 @dataclasses.dataclass
@@ -217,6 +249,7 @@ class _SlotPool:
         self.segments = np.zeros((n,), np.int32)
         self.deadline = np.full((n,), np.inf, np.float64)
         self.attempts = np.zeros((n,), np.int32)
+        self.escalated = np.zeros((n,), bool)   # flow-escalation provenance
         self.xs = np.zeros((n,) + shape, dtype)
         self.device: Optional[torch.device] = None    # set on first admit
         self._xs_dev = None     # device mirror of xs, refreshed on admit
@@ -224,6 +257,8 @@ class _SlotPool:
         self.fs: Any = None                           # probe dz rows or None
         self._pending: Optional[_PendingSegment] = None
         self._staged: List[_RetireBatch] = []
+        self._staged_flow: List[_FlowBatch] = []
+        self.flow_retired_last = 0   # flow terminals in the last finalize
         self._readout_widths: set = set()   # pow2 readout widths used
         self._segment_fn = None
 
@@ -307,6 +342,33 @@ class _SlotPool:
         floors = np.asarray([r.K_floor for r in reqs], np.int32)
         Ks = np.maximum(Ks, floors)
 
+        # K=0 flow tier: probe-easy rows never take a slot. The kept rows
+        # (and the padded probe outputs) are subset so everything below
+        # runs as if only they had been admitted; with the router off
+        # this block never runs
+        if sched.router is not None and not fixed:
+            flow_sel = sched.router.flow_mask(errs, sched.ecfg.tol, floors)
+            if flow_sel.any():
+                flow_cost = sched.oracle.flow_cost(
+                    self.shape, int(flow_sel.sum()))
+                sched._flow_cost_tick += flow_cost
+                self._stage_flow(reqs, flow_sel, xs_new, z0, dz0, errs,
+                                 submit_t, now,
+                                 t_done=now + probe_cost + flow_cost)
+                keep = np.flatnonzero(~flow_sel)
+                reqs = [reqs[i] for i in keep]
+                xs_new = xs_new[keep]
+                Ks, errs = Ks[keep], errs[keep]
+                idx = idx[:len(reqs)]
+                if not len(reqs):
+                    return probe_cost, probe_nonfinite
+                # rows 0..len(reqs)-1 of the padded probe outputs become
+                # the kept rows (the scatter below reads that layout)
+                pad_pos = np.concatenate(
+                    [keep, np.full(sched.slots - len(keep), keep[0])])
+                z0 = take_rows(z0, pad_pos)
+                dz0 = take_rows(dz0, pad_pos)
+
         # scatter: host rows directly, device leaves in place. On the
         # pool's first admission the padded probe output becomes the
         # pool's own buffers.
@@ -340,6 +402,7 @@ class _SlotPool:
             self.segments[i] = 0
             self.deadline[i] = np.inf if r.deadline is None else r.deadline
             self.attempts[i] = r.attempts
+            self.escalated[i] = r.escalated
             self.xs[i] = r.x
         # device mirror of xs: only the refilled rows go up after the
         # first admission
@@ -348,6 +411,38 @@ class _SlotPool:
         else:
             self._xs_dev[jidx] = _upload(xs_new, self.device)
         return probe_cost, probe_nonfinite
+
+    def _stage_flow(self, reqs: List[Request], flow_sel: np.ndarray,
+                    xs_new: np.ndarray, z0, dz0, errs: np.ndarray,
+                    submit_t: Dict[int, float], now: float,
+                    t_done: float) -> None:
+        """Launch the flow rows' K=0 eval (a gather of the padded probe
+        outputs, pow2-padded like ``_readout_finished``), start its rows
+        on their way to the host, and stage the batch for
+        ``finalize_retired``: no extra probe, no slot."""
+        sched = self.sched
+        m = sched.model
+        fidx = np.flatnonzero(flow_sel)
+        w = min(1 << (len(fidx) - 1).bit_length(), sched.slots)
+        pad = fidx if w == len(fidx) else np.concatenate(
+            [fidx, np.repeat(fidx[:1], w - len(fidx))])
+        dev = pytree.tree_leaves(z0)[0].device
+        outs = m.readout(_upload(xs_new[pad], dev), m.flow_apply(
+            sched.flow_params, m.span[1] - m.span[0], m.span[0],
+            take_rows(z0, pad), take_rows(dz0, pad)))
+        rs = [reqs[i] for i in fidx]
+        self._staged_flow.append(_FlowBatch(
+            n=len(fidx), outs=_Readback(outs), t_done=t_done,
+            uid=np.asarray([r.uid for r in rs], np.int64),
+            err=errs[fidx].copy(),
+            t_submit=np.asarray([submit_t.pop(r.uid) for r in rs],
+                                np.float64),
+            t_admit=now,
+            deadline=np.asarray(
+                [np.inf if r.deadline is None else r.deadline
+                 for r in rs], np.float64),
+            attempts=np.asarray([r.attempts for r in rs], np.int32),
+            xs=np.stack([r.x for r in rs])))
 
     # --------------------------------------------------------- segment ----
     def launch_segment(self, t_done: float) -> None:
@@ -396,8 +491,18 @@ class _SlotPool:
         finished = occ & fin_row & ~nonfin
         expired = occ & ~nonfin & ~finished & (self.deadline < p.t_done)
 
+        if sched.ledger is not None:
+            # residual capture of interior healthy rows (quarantined,
+            # evicted and finished rows excluded): a read of the pool's
+            # state after this segment, before the next launch
+            live = occ & ~nonfin & ~fin_row & ~expired \
+                & (self.k < self.Ks)
+            sched.ledger.capture_pool(self, np.flatnonzero(live))
+
         idx: List[int] = [int(i) for i in np.flatnonzero(finished)]
-        status = ["ok" if self.attempts[i] == 0 else "retried" for i in idx]
+        status = ["ok" if self.attempts[i] == 0 else
+                  ("escalated" if self.escalated[i] else "retried")
+                  for i in idx]
         requeued = 0
         for i in np.flatnonzero(nonfin | expired):
             st = "diverged" if nonfin[i] else "deadline"
@@ -433,7 +538,8 @@ class _SlotPool:
         sched._queue.appendleft(Request(
             uid=uid, x=self.xs[i].copy(),
             deadline=deadline if np.isfinite(deadline) else None,
-            attempts=int(self.attempts[i]) + 1, K_floor=K_floor))
+            attempts=int(self.attempts[i]) + 1, K_floor=K_floor,
+            escalated=bool(self.escalated[i])))
         self.uid[i] = -1
         self.Ks[i] = 0
         self.eps[i] = 1.0
@@ -480,6 +586,53 @@ class _SlotPool:
         next segments; the sync loop at once."""
         sched = self.sched
         done: List[InflightCompleted] = []
+        self.flow_retired_last = 0
+        for fb in self._staged_flow:
+            outs = fb.outs.numpy()
+            for j in range(fb.n):
+                uid = int(fb.uid[j])
+                attempts = int(fb.attempts[j])
+                row = outs[j]
+                if sched.fault_injector is not None:
+                    row = sched.fault_injector.corrupt_flow_eval(
+                        uid, attempts, row)
+                if np.isfinite(row).all():
+                    # flow_mask bars K_floor > 0, so attempts == 0 here
+                    self.flow_retired_last += 1
+                    sched._flow_tick += 1
+                    sched.total_flow_served += 1
+                    done.append(InflightCompleted(
+                        uid=uid, outputs=row, K=0,
+                        nfe=sched.nfe_flow + sched._nfe_extra.pop(uid, 0),
+                        err_probe=float(fb.err[j]), fused_kernel=False,
+                        t_submit=float(fb.t_submit[j]),
+                        t_admit=fb.t_admit, t_done=fb.t_done,
+                        segments=0, status="ok"))
+                    continue
+                if sched.retry.should_retry("diverged", attempts):
+                    # escalation: bill the flow attempt, requeue at the
+                    # FRONT of the queue (both loops admit it next) at the
+                    # coarsest bucket
+                    sched._nfe_extra[uid] = \
+                        sched._nfe_extra.get(uid, 0) + sched.nfe_flow
+                    sched._submit_t[uid] = float(fb.t_submit[j])
+                    dl = float(fb.deadline[j])
+                    sched._queue.appendleft(Request(
+                        uid=uid, x=fb.xs[j].copy(),
+                        deadline=dl if np.isfinite(dl) else None,
+                        attempts=attempts + 1,
+                        K_floor=min(sched.ecfg.buckets), escalated=True))
+                    sched._esc_tick += 1
+                    sched.total_escalated += 1
+                    continue
+                self.flow_retired_last += 1
+                done.append(InflightCompleted(
+                    uid=uid, outputs=row, K=0,
+                    nfe=sched.nfe_flow + sched._nfe_extra.pop(uid, 0),
+                    err_probe=float(fb.err[j]), fused_kernel=False,
+                    t_submit=float(fb.t_submit[j]), t_admit=fb.t_admit,
+                    t_done=fb.t_done, segments=0, status="diverged"))
+        self._staged_flow = []
         for b in self._staged:
             outs = b.outs.numpy()
             for j in range(len(b.idx)):
@@ -527,8 +680,6 @@ class InflightScheduler:
                  ledger=None):
         if mesh is not None:
             raise NotImplementedError(f"mesh: {_MESH}")
-        if ledger is not None:
-            raise NotImplementedError(f"ledger: {_REFINERY}")
         engine_cfg = engine_cfg or EngineConfig()
         if overload_policy not in ("shed", "degrade", "block"):
             raise ValueError(
@@ -551,6 +702,12 @@ class InflightScheduler:
         self.controller = make_controller(bound_integrator(model),
                                           engine_cfg)
         self.g_params = None if model.g_apply is None else model.g_params
+        # the K=0 tier's swappable params and router (None when off)
+        self.flow_params = None if model.flow_apply is None \
+            else model.flow_params
+        self.router = TierRouter(flow_threshold=engine_cfg.flow_threshold) \
+            if engine_cfg.flow_threshold > 0 else None
+        self.ledger = ledger   # optional ResidualLedger (launch/refinery)
         self.overlap = bool(overlap)
         self.oracle = oracle or SequentialEvalOracle()
         self.stages = model.integ.tableau.stages
@@ -566,6 +723,12 @@ class InflightScheduler:
         self.total_deadline_evicted = 0
         self.total_requeued = 0
         self.total_shed = 0
+        self.total_flow_served = 0
+        self.total_escalated = 0
+        # per-tick flow accounting, accrued inside pool.admit / finalize
+        self._flow_tick = 0
+        self._esc_tick = 0
+        self._flow_cost_tick = 0.0
         self.last_report = TickReport()
         self.queue_cap = None if queue_cap is None else int(queue_cap)
         self.overload_policy = overload_policy
@@ -585,15 +748,44 @@ class InflightScheduler:
         """Per-request probe cost net of the reused first stage."""
         return probe_net_nfe(self.controller)
 
+    @property
+    def nfe_flow(self) -> int:
+        """NFE billed to a flow-tier completion: the probe's raw evals
+        (the reused stage feeds the flow combine), zero solver steps."""
+        return self.probe_nfe + 1
+
     def _g_args(self) -> Tuple:
-        """Trailing segment-call operand of a parametric correction."""
+        """Trailing segment-call operand of a parametric correction, read
+        at launch time."""
         return () if self.model.g_apply is None else (self.g_params,)
 
     def hot_swap_g(self, gp):
-        raise NotImplementedError(f"hot_swap_g: {_REFINERY}")
+        """Install new correction params between segments: every segment
+        launched after this call (refills of old admissions included)
+        runs the new g; under ``overlap`` the one segment in flight
+        finishes on the params it was launched with. Returns the previous
+        params, the refinery's rollback handle."""
+        if self.model.g_apply is None:
+            raise ValueError(
+                "hot_swap_g on a non-parametric model: build the "
+                "DepthModel with g_apply/g_params (params-are-inputs) "
+                "to make the correction swappable")
+        old, self.g_params = self.g_params, swap_params(self.g_params, gp,
+                                                        "hot_swap_g")
+        return old
 
     def hot_swap_flow(self, fp):
-        raise NotImplementedError(f"hot_swap_flow: {_FLOW}")
+        """Install new flow-head params between ticks (``hot_swap_g``'s
+        contract); the next admission's flow eval reads them. Returns the
+        previous params."""
+        if self.model.flow_apply is None:
+            raise ValueError(
+                "hot_swap_flow on a model without a flow head: build "
+                "the DepthModel with flow_apply/flow_params to make the "
+                "K=0 tier swappable")
+        old, self.flow_params = self.flow_params, swap_params(
+            self.flow_params, fp, "hot_swap_flow")
+        return old
 
     def can_submit(self) -> bool:
         """False exactly when the next ``submit`` would raise QueueFull."""
@@ -735,7 +927,8 @@ class InflightScheduler:
     def _finish_tick(self, *, cost, probe_cost, admitted, retired,
                      useful, total, occupied, quarantined=0,
                      deadline_evicted=0, requeued=0, shed=0,
-                     probe_nonfinite=0) -> None:
+                     probe_nonfinite=0, flow_served=0,
+                     escalated=0) -> None:
         """Advance the virtual clock and the totals (both ticks)."""
         self.now += cost
         self.ticks += 1
@@ -753,7 +946,8 @@ class InflightScheduler:
             retired=retired, useful_steps=useful, total_steps=total,
             occupied_steps=occupied, quarantined=quarantined,
             deadline_evicted=deadline_evicted, requeued=requeued,
-            shed=shed, probe_nonfinite=probe_nonfinite)
+            shed=shed, probe_nonfinite=probe_nonfinite,
+            flow_served=flow_served, escalated=escalated)
 
     def _step_sync(self) -> List[InflightCompleted]:
         """Admit, advance every busy pool one segment, retire. The clock
@@ -762,10 +956,12 @@ class InflightScheduler:
         done: List[InflightCompleted] = list(self._shed)
         shed = len(done)
         self._shed = []
+        self._flow_tick = self._esc_tick = 0
+        self._flow_cost_tick = 0.0
         probe_cost, admitted, pool_probe, dropped, probe_nonfinite = \
             self._admit_tick()
         done.extend(dropped)
-        cost = probe_cost
+        cost = probe_cost + self._flow_cost_tick
         useful = total = occupied = retired = 0
         quarantined = evicted = requeued = 0
         for key, pool in self._pools.items():
@@ -783,6 +979,13 @@ class InflightScheduler:
             quarantined += st.quarantined
             evicted += st.deadline_evicted
             requeued += st.requeued
+        # flow-only admissions leave their pool idle (flow rows hold no
+        # slot), so no segment finalized them: drain them here
+        for pool in self._pools.values():
+            if pool._staged_flow:
+                d = pool.finalize_retired()
+                done.extend(d)
+                retired += len(d)
         self._finish_tick(cost=cost, probe_cost=probe_cost,
                           admitted=admitted,
                           retired=retired + shed + len(dropped),
@@ -790,7 +993,9 @@ class InflightScheduler:
                           quarantined=quarantined,
                           deadline_evicted=evicted + len(dropped),
                           requeued=requeued, shed=shed,
-                          probe_nonfinite=probe_nonfinite)
+                          probe_nonfinite=probe_nonfinite,
+                          flow_served=self._flow_tick,
+                          escalated=self._esc_tick)
         return done
 
     def _step_overlap(self) -> List[InflightCompleted]:
@@ -803,6 +1008,8 @@ class InflightScheduler:
         done: List[InflightCompleted] = list(self._shed)
         shed = len(done)
         self._shed = []
+        self._flow_tick = self._esc_tick = 0
+        self._flow_cost_tick = 0.0
         useful = total = occupied = retired = 0
         quarantined = evicted = requeued = 0
         for pool in self._pools.values():
@@ -818,7 +1025,7 @@ class InflightScheduler:
         probe_cost, admitted, pool_probe, dropped, probe_nonfinite = \
             self._admit_tick()
         done.extend(dropped)
-        cost = probe_cost
+        cost = probe_cost + self._flow_cost_tick
         for key, pool in self._pools.items():
             if not pool.busy():
                 continue
@@ -828,6 +1035,8 @@ class InflightScheduler:
                                 + seg_cost)
         for pool in self._pools.values():
             done.extend(pool.finalize_retired())
+            # flow rows retire straight out of finalize
+            retired += pool.flow_retired_last
         self._finish_tick(cost=cost, probe_cost=probe_cost,
                           admitted=admitted,
                           retired=retired + shed + len(dropped),
@@ -835,7 +1044,9 @@ class InflightScheduler:
                           quarantined=quarantined,
                           deadline_evicted=evicted + len(dropped),
                           requeued=requeued, shed=shed,
-                          probe_nonfinite=probe_nonfinite)
+                          probe_nonfinite=probe_nonfinite,
+                          flow_served=self._flow_tick,
+                          escalated=self._esc_tick)
         return done
 
     # ----------------------------------------------------- convenience ----

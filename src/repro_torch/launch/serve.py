@@ -39,12 +39,31 @@ submits the whole batch at once. ``--overlap`` runs the pipelined loop
 every N ticks. A first SIGTERM/SIGINT stops admission and lets the
 in-flight slots drain; a second one gives up the drain.
 
+``--flow-ckpt`` (a flow head the port or the JAX package saved, e.g.
+through ``core/train.py::train_flowhead`` and ``CheckpointManager``) with
+``--flow-threshold`` adds the K=0 flow tier on top of ``--multirate``:
+requests whose probe error is at most threshold × tol are served by the
+learned solution operator in one net eval (``core/flowhead.py``); a
+non-finite flow eval escalates into the K-bucket ladder
+(``status=escalated``).
+
+``--refine`` (with ``--inflight``) attaches the online refinery
+(``launch/refinery.py``): serving captures residual rows into a bounded
+ledger (``--capture-rate``, ``--ledger-cap``), a candidate correction
+fits between scheduler ticks (``--refine-steps`` a tick, checkpointed
+to ``--refine-dir``, which ``--g-ckpt`` restores on a later run), and
+every ``--shadow-every`` candidate steps a shadow scorer replays
+held-out prompts and hot-swaps the candidate in only on
+non-regression. The progress line then carries the ledger fill, the
+candidate step and the promotions; a graceful drain flushes the ledger
+(``--ledger-out``) and waits for a pending candidate checkpoint.
+
 ``--profile-dir DIR`` wraps the serving loop of every mode (decode,
 drain, in-flight) in ``torch.profiler`` (CPU activity, and CUDA on a
 card) and writes a Chrome trace, ``DIR/serve.pt.trace.json``.
 
 Flags of slices not ported yet exit non-zero naming their ROADMAP.md item:
-``--mesh``, ``--refine*``, ``--flow-*`` and ``--cost-oracle roofline``.
+``--mesh`` and ``--cost-oracle roofline``.
 """
 from __future__ import annotations
 
@@ -63,13 +82,11 @@ from repro_torch import resolve_device
 from repro_torch.configs import get
 from repro_torch.launch.engine import (EngineConfig, MultiRateEngine,
                                        greedy_generate, lm_depth_model,
-                                       load_g_params)
+                                       load_flow_params, load_g_params)
 from repro_torch.models.lm import (discrete_nfe, group_layout, init_lm,
                                    lm_forward)
 
 _ITEM = {
-    "flow": "ROADMAP.md queue 1 item 4 (the K=0 flow tier)",
-    "refine": "ROADMAP.md queue 1 item 5 (the online refinery)",
     "roofline": "ROADMAP.md queue 1 item 9 (cost model on H100 terms)",
     "mesh": "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)",
 }
@@ -95,10 +112,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "(enables hyper_* solvers)")
     ap.add_argument("--g-rank", type=int, default=32,
                     help="rank of the g_omega checkpoint being restored")
-    ap.add_argument("--flow-ckpt", default=None, help=_ITEM["flow"])
-    ap.add_argument("--flow-rank", type=int, default=64, help=_ITEM["flow"])
+    ap.add_argument("--flow-ckpt", default=None,
+                    help="checkpoint dir of a trained K=0 flow head "
+                         "(core/flowhead.py); requires --flow-threshold")
+    ap.add_argument("--flow-rank", type=int, default=64,
+                    help="rank of the flow-head checkpoint being restored")
     ap.add_argument("--flow-threshold", type=float, default=0.0,
-                    help=_ITEM["flow"])
+                    help="route requests whose probe error is below this "
+                         "fraction of --tol to the K=0 flow tier (one net "
+                         "eval, no solver; --multirate only). 0 disables "
+                         "the tier; flow evals that come back non-finite "
+                         "escalate into the K-bucket ladder "
+                         "(status='escalated')")
     ap.add_argument("--multirate", action="store_true",
                     help="error-controlled per-request step sizes "
                          "(launch/engine.py) instead of one fixed K")
@@ -152,20 +177,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", default=None,
                     help="wrap the serving loop in torch.profiler and write "
                          "a Chrome trace (serve.pt.trace.json) here")
-    ap.add_argument("--refine", action="store_true", help=_ITEM["refine"])
-    ap.add_argument("--refine-dir", default=None, help=_ITEM["refine"])
+    ap.add_argument("--refine", action="store_true",
+                    help="attach the online refinery (--inflight only): "
+                         "capture serving-time residuals into a ledger, "
+                         "fit a candidate correction between scheduler "
+                         "ticks, shadow-score it on held-out prompts and "
+                         "hot-swap it in only on non-regression "
+                         "(launch/refinery.py). The shadow prompts are "
+                         "drawn by numpy's RandomState(seed + 1000), not "
+                         "the reference's jax.random draw")
+    ap.add_argument("--refine-dir", default=None,
+                    help="checkpoint directory for async candidate "
+                         "checkpoints (--refine); restorable via --g-ckpt "
+                         "on a later run")
     ap.add_argument("--capture-rate", type=float, default=1.0,
-                    help=_ITEM["refine"])
+                    help="fraction of capture events the residual ledger "
+                         "keeps (--refine); 0 disables capture entirely")
     ap.add_argument("--ledger-cap", type=int, default=512,
-                    help=_ITEM["refine"])
+                    help="residual-ledger reservoir capacity in samples "
+                         "(--refine)")
     ap.add_argument("--refine-steps", type=int, default=2,
-                    help=_ITEM["refine"])
+                    help="candidate fit steps per scheduler tick "
+                         "(--refine)")
     ap.add_argument("--shadow-every", type=int, default=50,
-                    help=_ITEM["refine"])
-    ap.add_argument("--ledger-out", default=None, help=_ITEM["refine"])
+                    help="candidate steps between shadow-gate evaluations "
+                         "(--refine)")
+    ap.add_argument("--ledger-out", default=None,
+                    help="flush the residual ledger to this .npz on exit "
+                         "or graceful drain (--refine)")
     ap.add_argument("--progress-every", type=int, default=0,
                     help="print a progress line every N scheduler ticks "
-                         "(--inflight): the hardening counters; 0 = off")
+                         "(--inflight): hardening counters, plus the flow "
+                         "tier's and the refinery's state; 0 = off")
     return ap
 
 
@@ -175,12 +218,6 @@ def _refuse_unported(args) -> None:
     waits = []
     if args.mesh:
         waits.append(("--mesh", "mesh"))
-    if args.refine or args.refine_dir or args.ledger_out \
-            or args.capture_rate != 1.0 or args.ledger_cap != 512 \
-            or args.refine_steps != 2 or args.shadow_every != 50:
-        waits.append(("--refine and its knobs", "refine"))
-    if args.flow_ckpt or args.flow_threshold or args.flow_rank != 64:
-        waits.append(("--flow-ckpt/--flow-threshold/--flow-rank", "flow"))
     if args.cost_oracle == "roofline":
         waits.append(("--cost-oracle roofline", "roofline"))
     if waits:
@@ -189,8 +226,9 @@ def _refuse_unported(args) -> None:
 
 
 def _check_flags(args) -> None:
-    """The reference CLI's checks of the in-flight flags: a knob of the
-    scheduler without ``--inflight`` exits with the reference's message."""
+    """The reference CLI's flag checks: a knob of the scheduler, the
+    refinery or the flow tier without what it needs exits with the
+    reference's message."""
     if args.overlap and not args.inflight:
         raise SystemExit("--overlap pipelines the in-flight segment loop; "
                          "pass --inflight with it (the drain engine has "
@@ -203,10 +241,37 @@ def _check_flags(args) -> None:
         raise SystemExit(f"--overload-policy {args.overload_policy} is "
                          "meaningless without --queue-cap (an unbounded "
                          "queue never overloads)")
+    if args.refine and not args.inflight:
+        raise SystemExit("--refine interleaves with the in-flight "
+                         "scheduler's ticks; pass --inflight with it")
+    if args.refine and args.solver == "discrete":
+        raise SystemExit("--refine fits a hypersolver correction; pass a "
+                         "continuous --solver (e.g. euler/hyper_euler)")
+    if not args.refine and (
+            args.refine_dir or args.ledger_out
+            or args.capture_rate != 1.0 or args.ledger_cap != 512
+            or args.refine_steps != 2 or args.shadow_every != 50):
+        raise SystemExit("--refine-dir/--capture-rate/--ledger-cap/"
+                         "--refine-steps/--shadow-every/--ledger-out "
+                         "tune the online refinery; pass --refine with "
+                         "them (a silently ignored knob would mislabel "
+                         "the run)")
     if args.progress_every and not args.inflight:
         raise SystemExit("--progress-every reports the in-flight "
                          "scheduler's tick counters; pass --inflight "
                          "with it")
+    if args.flow_threshold and not args.multirate:
+        raise SystemExit("--flow-threshold routes off the multi-rate "
+                         "admission probe; pass --multirate with it "
+                         "(fixed-K serving has no probe to route from)")
+    if args.flow_threshold and not args.flow_ckpt:
+        raise SystemExit("--flow-threshold needs --flow-ckpt (a trained "
+                         "flow head): a fresh zero-init head is exactly "
+                         "one full-span Euler step, which would mislabel "
+                         "the K=0 tier's numbers")
+    if args.flow_ckpt and not args.flow_threshold:
+        raise SystemExit("--flow-ckpt is only read by the flow tier; "
+                         "pass --flow-threshold > 0 with it")
 
 
 @contextlib.contextmanager
@@ -259,30 +324,43 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _serve_inflight(args, sched, prompt, device):
+def _serve_inflight(args, sched, prompt, device, refinery=None):
     """Drive the scheduler over the prompt rows: all at once, or replayed
-    on a seeded arrival trace (and tick by tick when a progress line is
-    asked for). Returns (records in uid order, the trace report or None,
-    wall seconds, whether a signal drained the run)."""
+    on a seeded arrival trace (and tick by tick when a progress line or
+    the refinery asks for it). Returns (records in uid order, the trace
+    report or None, wall seconds, whether a signal drained the run)."""
     from repro_torch.launch.workload import (
         Arrival, bursty_trace, latency_stats, poisson_trace,
         replay_scheduler)
 
     def on_tick(s):
+        if refinery is not None:
+            refinery.tick([s])
         if args.progress_every and s.ticks % args.progress_every == 0:
-            print("[progress] " + " ".join([
-                f"t={s.now:.1f}", f"ticks={s.ticks}", f"inflight={len(s)}",
-                f"quarantined={s.total_quarantined}",
-                f"deadline_evicted={s.total_deadline_evicted}",
-                f"requeued={s.total_requeued}", f"shed={s.total_shed}"]),
-                flush=True)
+            parts = [f"t={s.now:.1f}", f"ticks={s.ticks}",
+                     f"inflight={len(s)}",
+                     f"quarantined={s.total_quarantined}",
+                     f"deadline_evicted={s.total_deadline_evicted}",
+                     f"requeued={s.total_requeued}", f"shed={s.total_shed}"]
+            if args.flow_threshold:
+                parts += [f"flow={s.total_flow_served}",
+                          f"escalated={s.total_escalated}"]
+            if refinery is not None:
+                st = refinery.status()
+                parts += [f"ledger={st['ledger_fill']}/"
+                          f"{refinery.ledger.capacity}",
+                          f"cand_step={st['candidate_step']}",
+                          f"promotions={st['promotions']}",
+                          f"last_promotion={st['last_promotion']}"]
+            print("[progress] " + " ".join(parts), flush=True)
 
     report = None
     with _graceful_drain() as draining, \
             _profiled(args.profile_dir, device):
         _synchronize(device)
         t0 = time.perf_counter()
-        if args.arrival_trace == "none" and not args.progress_every:
+        if args.arrival_trace == "none" and refinery is None \
+                and not args.progress_every:
             results = sched.run(prompt)
         else:
             if args.arrival_trace == "none":
@@ -344,9 +422,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.g_ckpt:
         g_params = load_g_params(args.g_ckpt, cfg, rank=args.g_rank,
                                  device=device)
-    if args.solver.startswith("hyper_") and g_params is None:
+    if args.solver.startswith("hyper_") and g_params is None \
+            and not args.refine:
         raise SystemExit(f"--solver {args.solver} needs --g-ckpt "
-                         "(a trained correction checkpoint)")
+                         "(a trained correction checkpoint) — or "
+                         "--refine to fit one from live traffic, "
+                         "starting at a zero correction")
+    flow_params = None
+    if args.flow_ckpt:
+        flow_params = load_flow_params(args.flow_ckpt, cfg,
+                                       rank=args.flow_rank, device=device)
     if args.inflight and args.arrival_trace != "none" \
             and args.arrival_rate <= 0:
         raise SystemExit("--arrival-rate must be > 0 for "
@@ -362,9 +447,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         controller="auto" if args.multirate else "fixed",
         fixed_K=K_fixed,
         fused=args.fused,
+        flow_threshold=args.flow_threshold,
     )
     model = lm_depth_model(params, cfg, solver=args.solver,
-                           g_params=g_params, fused=args.fused)
+                           g_params=g_params, fused=args.fused,
+                           refinable=args.refine, rank=args.g_rank,
+                           flow_params=flow_params)
     mode = "multirate" if args.multirate else f"K={K_fixed}"
 
     with torch.no_grad():
@@ -375,16 +463,47 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     if args.inflight:
         from repro_torch.launch.scheduler import InflightScheduler
+        ledger = refinery = None
+        if args.refine:
+            from repro_torch.launch.refinery import (Refinery,
+                                                     RefineryConfig,
+                                                     ResidualLedger)
+            ledger = ResidualLedger(model, capacity=args.ledger_cap,
+                                    capture_rate=args.capture_rate,
+                                    seed=args.seed)
         sched = InflightScheduler(model, ecfg, slots=args.slots,
                                   seg=args.seg, overlap=args.overlap,
                                   deadline=args.deadline or None,
                                   queue_cap=args.queue_cap or None,
-                                  overload_policy=args.overload_policy)
+                                  overload_policy=args.overload_policy,
+                                  ledger=ledger)
+        if args.refine:
+            # held-out seeded prompts the live trace never serves: the
+            # shadow gate's replay set
+            shadow = np.random.RandomState(args.seed + 1000).randint(
+                0, cfg.vocab, size=(max(2, min(args.max_batch, 4)),
+                                    args.prompt_len)).astype(np.int32)
+            with torch.no_grad():
+                refinery = Refinery(
+                    model, ledger,
+                    RefineryConfig(steps_per_tick=args.refine_steps,
+                                   shadow_every=args.shadow_every,
+                                   min_fill=min(32, args.ledger_cap),
+                                   ref_K=max(n_groups, max(buckets)),
+                                   seed=args.seed),
+                    ecfg=ecfg, shadow_xs=shadow, ckpt_dir=args.refine_dir)
         results, report, dt, drained = _serve_inflight(args, sched, prompt,
-                                                       device)
+                                                       device, refinery)
         if drained:
             print(f"[serve] drained: {len(results)} completions flushed, "
                   f"{len(prompt) - len(results)} arrivals never admitted")
+        if refinery is not None:
+            refinery.flush()   # a pending async candidate checkpoint
+            print(f"[refinery] {refinery.status()}")
+        if ledger is not None and args.ledger_out:
+            n_rows = ledger.flush(args.ledger_out)
+            print(f"[ledger] flushed {n_rows} residual rows -> "
+                  f"{args.ledger_out}")
         # shed and expired requests carry no outputs: agreement is over
         # the requests actually served (their status says why)
         agree = {r.uid: float(np.mean(np.argmax(r.outputs, -1)
@@ -404,7 +523,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                   f"status={r.status}")
         return dict(cfg=cfg, params=params, prompt=prompt, sched=sched,
                     results=results, report=report, agree=agree,
-                    full_top=full_top, seconds=dt, device=device)
+                    full_top=full_top, seconds=dt, device=device,
+                    refinery=refinery, ledger=ledger)
 
     engine = MultiRateEngine(model, ecfg)
     with torch.no_grad(), _profiled(args.profile_dir, device):

@@ -12,9 +12,9 @@ comparable per-request records:
     waste       = slot/sample depth-steps computed for frozen or empty rows
 
 Traces are drawn with numpy's ``RandomState`` exactly as the reference
-draws them, so the same seed gives the same trace in both packages.
-``drifting_requests`` and the refinery's and flow tier's toy models wait
-for ROADMAP.md queue 1 items 5 and 4.
+draws them, so the same seed gives the same trace in both packages. The
+toy servables take the seeded weights the reference draws from
+``jax.random`` as arguments (the tests carry the reference's across).
 """
 from __future__ import annotations
 
@@ -55,6 +55,30 @@ def heterogeneous_requests(n: int, d: int, *, easy_frac: float = 0.5,
     if interleave:
         rng.shuffle(xs)
     return xs
+
+
+def drifting_requests(n: int, d: int, *, phases: int = 3, seed: int = 0,
+                      easy_frac0: float = 0.8, easy_frac1: float = 0.2,
+                      hard_loc0: float = 2.0, hard_loc1: float = 3.5,
+                      scale: float = 0.05) -> np.ndarray:
+    """A non-stationary difficulty mix: ``phases`` contiguous blocks whose
+    easy fraction slides from ``easy_frac0`` to ``easy_frac1`` and whose
+    hard-class location from ``hard_loc0`` to ``hard_loc1`` — the drift
+    the online refinery exists for."""
+    rng = np.random.RandomState(seed)
+    blocks = []
+    edges = np.linspace(0, n, phases + 1).astype(int)
+    for p in range(phases):
+        m = int(edges[p + 1] - edges[p])
+        if m == 0:
+            continue
+        u = p / max(phases - 1, 1)
+        blocks.append(heterogeneous_requests(
+            m, d,
+            easy_frac=float(easy_frac0 + (easy_frac1 - easy_frac0) * u),
+            hard_loc=float(hard_loc0 + (hard_loc1 - hard_loc0) * u),
+            scale=scale, seed=int(rng.randint(1 << 30)), interleave=True))
+    return np.concatenate(blocks).astype(np.float32)
 
 
 def poisson_trace(xs: np.ndarray, rate: float, *, seed: int = 0,
@@ -368,4 +392,81 @@ def toy_classifier(W: np.ndarray, solver: str = "euler", fused: bool = True):
         field_of=field_of,
         readout=lambda x, zT: zT @ W_t.to(zT.dtype),
         integ=Integrator(tableau=get_tableau(base), g=g, fused=fused),
+    )
+
+
+def _toy_mlp(z, dz, s, eps, p):
+    """The toy nets' element-wise MLP over ``[z, dz, s, eps]``: ``s`` and
+    ``eps`` (scalars or per-row ``(B,)``) broadcast up to ``z``."""
+    import torch
+
+    def up(a):
+        a = torch.as_tensor(a, dtype=z.dtype, device=z.device)
+        return a.reshape(tuple(a.shape) + (1,) * (z.ndim - a.ndim)) \
+            .expand(z.shape)
+
+    feats = torch.stack([z, dz, up(s), up(eps)], dim=-1)
+    h = torch.tanh(feats @ p["w1"] + p["b1"])
+    return (h @ p["w2"])[..., 0] + p["b2"][0]
+
+
+def _mlp_params(w1: np.ndarray):
+    """Zero-readout MLP params around a seeded first layer ``w1`` (4, H)."""
+    import torch
+    hidden = w1.shape[1]
+    return {"w1": torch.from_numpy(np.array(w1, np.float32, copy=True)),
+            "b1": torch.zeros((hidden,)),
+            "w2": torch.zeros((hidden, 1)),
+            "b2": torch.zeros((1,))}
+
+
+def toy_refinable_classifier(W: np.ndarray, w1: np.ndarray,
+                             base: str = "euler", fused: bool = True):
+    """``toy_classifier``'s parametric twin, the model the refinery tests
+    train, score and swap: an anisotropic stiff decay (a per-feature
+    profile ``linspace(0.4, 1.6, d)`` scales each row's softplus rate, so
+    integration error moves the argmax), the linear head ``W`` (d,
+    n_classes), and an element-wise MLP correction ``g_apply(gp, eps, s,
+    z, dz)`` over ``[z, dz, s, eps]`` whose zero readout makes g vanish
+    exactly. The reference draws ``W`` from ``PRNGKey(7)`` and ``w1``
+    (4, hidden) from ``PRNGKey(11)``; the caller passes both."""
+    import torch
+
+    from repro_torch.core import Integrator, get_tableau
+    from repro_torch.launch.engine import DepthModel
+
+    W_t = torch.from_numpy(np.array(W, copy=True))
+    d = W_t.shape[0]
+    w_feat = torch.from_numpy(np.linspace(0.4, 1.6, d).astype(np.float32))
+
+    def field_of(x):
+        k = torch.nn.functional.softplus(
+            torch.as_tensor(x).mean(dim=-1, keepdim=True))
+        return lambda s, z: -z * (k * w_feat)
+
+    return DepthModel(
+        embed=lambda x: torch.as_tensor(x) + 0.0,
+        field_of=field_of,
+        readout=lambda x, zT: zT @ W_t.to(zT.dtype),
+        integ=Integrator(tableau=get_tableau(base), fused=fused),
+        g_apply=lambda gp, eps, s, z, dz: _toy_mlp(z, dz, s, eps, gp),
+        g_params=_mlp_params(w1),
+    )
+
+
+def toy_flow_classifier(W: np.ndarray, w1: np.ndarray, flow_w1: np.ndarray,
+                        base: str = "euler", fused: bool = True):
+    """``toy_refinable_classifier`` plus a K=0 flow head: a second
+    zero-readout MLP wrapped by ``core.flowhead.make_flow_apply`` (so a
+    cold flow is exactly one full-span Euler step). The reference draws
+    ``flow_w1`` from ``PRNGKey(23)``; the caller passes it."""
+    from repro_torch.core.flowhead import make_flow_apply
+
+    model = toy_refinable_classifier(W, w1, base, fused)
+    return dataclasses.replace(
+        model,
+        flow_apply=make_flow_apply(
+            lambda fp, eps, s, z, dz: _toy_mlp(z, dz, s, eps, fp),
+            order=model.integ.order),
+        flow_params=_mlp_params(flow_w1),
     )

@@ -113,6 +113,26 @@ def lm_g_apply(gp, eps, s, x, h, dh):
     return (torch.tanh(pre) @ gp["w_out"].to(h.dtype)).to(h.dtype)
 
 
+# ----------------------------------------------- flow head for the LM ----
+
+def lm_flow_init(gen, cfg: ArchConfig, rank: int = 64, n_fourier: int = 8,
+                 param_dtype=None, device=None):
+    """Flow-net params for the K=0 tier (core/flowhead.py): the same
+    rank-r net as g_omega, its zero-initialised readout making the flow
+    exactly one full-span Euler step."""
+    return lm_g_init(gen, cfg, rank=rank, n_fourier=n_fourier,
+                     param_dtype=param_dtype, device=device)
+
+
+def lm_flow_apply(fp, eps, s, z, dz, order: int = 1):
+    """LM solution operator F(z(s)) -> z(s+eps): ``make_flow_apply``
+    over the ``lm_g_apply`` net (DepthModel.flow_apply signature)."""
+    from repro_torch.core.flowhead import flow_combine
+
+    return flow_combine(eps, z, dz, lm_g_apply(fp, eps, s, None, z, dz),
+                        order=order)
+
+
 # ----------------------------------------------------------- inference ----
 
 def bind_lm_g(g_params):

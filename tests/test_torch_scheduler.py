@@ -548,13 +548,32 @@ def test_unported_options_name_their_roadmap_item():
     ecfg = teng.EngineConfig(buckets=(2,), controller="fixed", fixed_K=2)
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         tsch.InflightScheduler(_toy(), ecfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tsch.InflightScheduler(_toy(), ecfg, ledger=object())
-    sched = tsch.InflightScheduler(_toy(), ecfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+
+
+def test_ledger_and_hot_swaps_are_ported():
+    """The options that waited for the refinery and the flow tier now
+    work: a ledger captures interior rows (without moving a completion),
+    ``hot_swap_g`` replaces a parametric correction (refusing a closure
+    model, as the reference does) and ``hot_swap_flow`` a flow head
+    (refusing a model without one)."""
+    from repro_torch.launch.refinery import ResidualLedger
+    ecfg = teng.EngineConfig(buckets=(2,), controller="fixed", fixed_K=2)
+    xs = np.full((3, 4), -2.0, np.float32)
+    plain = tsch.InflightScheduler(_toy(), ecfg, seg=1).run(xs)
+    led = ResidualLedger(_toy(), capacity=8)
+    sched = tsch.InflightScheduler(_toy(), ecfg, seg=1, ledger=led)
+    assert_loops_equal(sched.run(xs), plain)
+    assert led.fill > 0 and led.captures > 0
+    with pytest.raises(ValueError, match="parametric"):
         sched.hot_swap_g({})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="flow head"):
         sched.hot_swap_flow({})
+    gp = {"a": torch.tensor(0.25)}
+    model = dataclasses.replace(
+        _toy(), g_apply=lambda p, eps, s, z, dz: p["a"] * z, g_params=gp)
+    psched = tsch.InflightScheduler(model, ecfg)
+    assert psched.hot_swap_g({"a": torch.tensor(0.5)}) is gp
+    assert float(psched.g_params["a"]) == 0.5
 
 
 # ------------------------------------------------------------ LM cases ----

@@ -4,10 +4,14 @@ sync and ``--overlap``, on a Poisson trace) of ``qwen3_4b``,
 ``recurrentgemma_2b`` and ``rwkv6_1p6b`` on the CPU when asked (the
 default discrete decode path is tested in tests/test_torch_decode.py),
 its flag set is the reference parser's plus ``--device``, the in-flight
-flags are checked with the reference's own messages, ``--profile-dir``
-writes a trace in every mode, it never falls back to the CPU silently
-(no CUDA and no ``--device cpu`` exits non-zero), and flags of slices not
-ported yet exit non-zero naming their ROADMAP.md item."""
+flags, the refinery's and the flow tier's are checked with the
+reference's own messages, ``--inflight --refine`` fits, gates and
+checkpoints a correction that ``--g-ckpt`` then serves, ``--flow-ckpt``
+with ``--flow-threshold`` serves part of the traffic at K=0 from a head
+the port fitted and saved itself, ``--profile-dir`` writes a trace in
+every mode, it never falls back to the CPU silently (no CUDA and no
+``--device cpu`` exits non-zero), and flags of slices not ported yet
+exit non-zero naming their ROADMAP.md item."""
 import ast
 import json
 import os
@@ -17,6 +21,7 @@ import subprocess
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,8 +78,6 @@ def test_serves_fixed_k_on_cpu(capsys, arch):
 
 @pytest.mark.parametrize("extra", [
     ["--solver", "euler", "--mesh", "2"],
-    ["--solver", "euler", "--refine"],
-    ["--solver", "euler", "--flow-threshold", "0.2"],
     ["--solver", "euler", "--cost-oracle", "roofline"],
 ])
 def test_unported_flags_exit_naming_roadmap_item(extra):
@@ -88,11 +91,15 @@ def test_unported_flags_exit_naming_roadmap_item(extra):
     ["--deadline", "5"],
     ["--inflight", "--overload-policy", "block"],
     ["--progress-every", "2"],
+    ["--refine"],
+    ["--flow-threshold", "0.2"],
+    ["--inflight", "--ledger-cap", "16"],
+    ["--flow-ckpt", "ckpt"],
 ])
 def test_inflight_flag_checks_match_reference(monkeypatch, extra):
-    """A knob of the in-flight scheduler without what it needs exits
-    non-zero before any weight is drawn, with the reference CLI's own
-    message."""
+    """A knob of the in-flight scheduler, the refinery or the flow tier
+    without what it needs exits non-zero before any weight is drawn,
+    with the reference CLI's own message."""
     argv = ["--solver", "euler", "--multirate"] + extra
     with pytest.raises(SystemExit) as e:
         serve.main(CPU_RUN + argv)
@@ -184,3 +191,103 @@ def test_no_cpu_fallback(arch):
         assert "torch.cuda.is_available() is False" in proc.stderr
         assert "scored" not in proc.stdout
         assert "[discrete]" not in proc.stdout
+
+
+def _progress(lines):
+    return [dict(kv.split("=", 1) for kv in l.split()[1:])
+            for l in lines if l.startswith("[progress] ")]
+
+
+def test_inflight_refine_fits_gates_and_checkpoints(tmp_path, capsys):
+    """``--inflight --refine`` on a reduced qwen3_4b: the ledger fills
+    from live traffic, the candidate trains, the shadow gate runs, the
+    progress lines carry the refinery's fields, the ledger flushes to an
+    .npz, a candidate checkpoint lands under ``--refine-dir`` — and a
+    second run serves it through ``--g-ckpt`` as hyper_euler."""
+    ckpt, ledger = tmp_path / "refine", tmp_path / "ledger.npz"
+    out = serve.main(
+        ["--arch", "qwen3_4b", "--device", "cpu", "--reduced", "--batch",
+         "16", "--prompt-len", "8", "--solver", "euler", "--multirate",
+         "--fused", "--buckets", "4,8", "--seg", "1", "--inflight",
+         "--arrival-trace", "poisson", "--refine", "--refine-dir",
+         str(ckpt), "--refine-steps", "8", "--shadow-every", "32",
+         "--max-batch", "2", "--ledger-cap", "64", "--ledger-out",
+         str(ledger), "--progress-every", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    prog = _progress(lines)
+    assert prog and all({"ledger", "cand_step", "promotions",
+                         "last_promotion"} <= set(p) for p in prog)
+    assert prog[-1]["ledger"].endswith("/64")
+    st = out["refinery"].status()
+    assert st["candidate_step"] >= 50 and st["ledger_fill"] >= 32
+    assert st["promotions"] + st["rejections"] >= 1
+    assert any(l.startswith("[refinery] {") for l in lines)
+    assert any(l.startswith("[ledger] flushed ") for l in lines)
+    data = np.load(ledger)
+    assert data["z_0"].shape[0] == st["ledger_fill"] \
+        + out["ledger"].holdout_fill
+    reqs = [l for l in lines if l.strip().startswith("req ")]
+    assert len(reqs) == 16 and all("status=ok" in l for l in reqs)
+    assert os.path.isdir(ckpt / "step_50")
+    again = serve.main(CPU_RUN + ["--solver", "hyper_euler", "--g-ckpt",
+                                  str(ckpt), "--multirate", "--fused"])
+    assert all(r.status == "ok" for r in again["results"])
+    assert "[hyper_euler multirate cpu] scored 3x8" in \
+        capsys.readouterr().out
+
+
+@pytest.mark.parametrize("inflight", [False, True], ids=["drain", "inflight"])
+def test_flow_ckpt_serves_k0_tier(tmp_path, capsys, inflight):
+    """A flow head fitted by the port (``train_flowhead`` on residual rows
+    the port's ledger captured from the CLI's own model and prompts) and
+    saved by the port's ``CheckpointManager`` serves through
+    ``--flow-ckpt``/``--flow-threshold``: part of the traffic at K=0
+    (nfe = probe + 1, ``status=ok``), the rest on the ladder; in flight
+    the progress line counts the flow tier."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import FlowTrainConfig, train_flowhead
+    from repro_torch.launch.engine import (EngineConfig, MultiRateEngine,
+                                           lm_depth_model)
+    from repro_torch.launch.refinery import ResidualLedger
+    from repro_torch.models.cdepth import lm_flow_init
+
+    base = serve.main(CPU_RUN + ["--batch", "8", "--solver", "euler",
+                                 "--multirate", "--fused"])
+    errs = np.sort([r.err_probe for r in base["results"]])
+    tol = float(errs[-1]) * 1.25            # every request at K=1 -> 2
+    thr = float(np.median(errs)) / tol      # half of them below thr*tol
+    cfg, params = base["cfg"], base["params"]
+    fp = lm_flow_init(torch.Generator().manual_seed(3), cfg, rank=8,
+                      param_dtype=torch.float32)
+    model = lm_depth_model(params, cfg, flow_params=fp, fused=True)
+    led = ResidualLedger(model, capacity=32)
+    MultiRateEngine(model, EngineConfig(buckets=(4,), controller="fixed",
+                                        fixed_K=4, fused=True),
+                    ledger=led).run(base["prompt"])
+    fp, losses = train_flowhead(model.flow_apply, fp, led,
+                                FlowTrainConfig(iters=10, batch_size=4))
+    assert all(np.isfinite(losses))
+    CheckpointManager(str(tmp_path)).save(10, fp, wait=True)
+    capsys.readouterr()
+    extra = ["--inflight", "--arrival-trace", "poisson",
+             "--progress-every", "1"] if inflight else []
+    out = serve.main(CPU_RUN + ["--batch", "8", "--solver", "euler",
+                                "--multirate", "--fused", "--tol",
+                                repr(tol), "--flow-ckpt", str(tmp_path),
+                                "--flow-rank", "8", "--flow-threshold",
+                                repr(thr)] + extra)
+    lines = capsys.readouterr().out.splitlines()
+    results = out["results"]
+    flow = [r for r in results if r.K == 0]
+    assert 0 < len(flow) < len(results)
+    assert all(r.status == "ok" for r in results)
+    probe = (out["sched"] if inflight else out["engine"]).probe_nfe
+    assert all(r.nfe == probe + 1 for r in flow)
+    reqs = [l for l in lines if l.strip().startswith("req ")]
+    assert len(reqs) == 8 and all("status=ok" in l for l in reqs)
+    assert sum(" K=0 " in l for l in reqs) == len(flow)
+    if inflight:
+        last = _progress(lines)[-1]
+        assert int(last["flow"]) == len(flow) == \
+            out["sched"].total_flow_served
+        assert last["escalated"] == "0"
