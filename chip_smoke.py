@@ -50,6 +50,14 @@ a planted flow fault escalating its uids); for qwen3_4b both through
 the CLI too (``--refine`` with its candidate served back through
 ``--g-ckpt``, and ``--flow-ckpt``/``--flow-threshold``); and the fit's
 convergence in float32 at 4 layers (Griffin 6).
+Before the serving phases, the paper's image-classification pipeline
+(``phase_image``: the reference's ``benchmarks/common.py`` protocol) for
+the MNIST-family and CIFAR-family conv Neural ODEs in float32 at the
+paper's widths: train through RK4, fit HyperEuler at K 10 by residual
+fitting on dopri5 trajectories, take a dopri5 reference, and sweep the
+solvers over K unfused and fused, with the losses falling, fused equal to
+unfused, hyper_step launched exactly K times a fused solve and
+HyperEuler beating Euler at K 10 on MNIST checked.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -85,7 +93,10 @@ from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.core import FlowTrainConfig, train_flowhead  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    FixedGrid, FlowTrainConfig, HypersolverTrainConfig, make_fit_step,
+    train_flowhead, train_hypersolver)
+from repro_torch.data import synthetic_images  # noqa: E402
 from repro_torch.distributed.fault import FaultInjector, _hash01  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
@@ -99,8 +110,10 @@ from repro_torch.launch.workload import (  # noqa: E402
 from repro_torch.models import cdepth, lm  # noqa: E402
 from repro_torch.models.cdepth import (  # noqa: E402
     lm_flow_apply, lm_flow_init, lm_g_init)
+from repro_torch.models import conv_node  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
 from repro_torch.nn.module import truncated_normal_init  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 B, S, D = 8, 128, 2560          # the serving phases' batch of prompts
 GEN = 32                        # tokens each decode phase generates
@@ -221,7 +234,9 @@ def hs_cases():
     """The serving shape in bf16 and fp32 for euler + g, heun and the live
     stages of dopri5, then the kernel's edges: a bf16 state with a float32
     later stage (heun under per-sample eps, the reference's promotion),
-    rows of N % 8 != 0, every row frozen, and one row under a scalar eps."""
+    rows of N % 8 != 0, every row frozen, and one row under a scalar eps;
+    and the image path's float32 euler + g step under a scalar eps (one
+    row of 64 or 1,024 x 9,408 elements)."""
     bf, f32 = torch.bfloat16, torch.float32
     dopri = tuple(bj for bj in get_tableau("dopri5").b if bj != 0.0)
     cases = [HsCase(name, (B, S, D), (dt,) * (1 + len(b)), dt if g else None,
@@ -237,6 +252,12 @@ def hs_cases():
                active="frozen"),
         HsCase("b1-scalar-eps", (B, S, D), (bf, bf), bf, (1.0,), 1, eps=0.25,
                active=None),
+        # phase_image's fused hyper_euler step on MNIST states: its sweep's
+        # 64 test images and its timed batch of 1,024
+        HsCase("image-euler+g-64", (64, 12, 28, 28), (f32, f32), f32, (1.0,),
+               1, eps=0.1, active=None),
+        HsCase("image-euler+g", (1024, 12, 28, 28), (f32, f32), f32, (1.0,),
+               1, eps=0.1, active=None),
     ]
 
 
@@ -1744,6 +1765,271 @@ def phase_decode_fp32(dev):
     emit(phase="decode_fp32", batch=B, prompt_len=S, gen=GEN, **report)
 
 
+# ------------------------------------------------------ image classifiers ----
+# The paper's Sec. 4.1 experiment (benchmarks/common.py and
+# bench_pareto.py in the reference) on the port, float32 at the paper's
+# widths on synthetic images: train the Neural ODE (AdamW 2e-3, batch 8,
+# RK4 at K 8, clip 1.0, 256 images of seed 1), fit HyperEuler at K 10 by
+# residual fitting on dopri5 trajectories (atol = rtol = 1e-4, batches of
+# 16 from 256 images of seed 4), take the dopri5 reference at 1e-5 on 64
+# test images (seed 9), and sweep the solvers over K, each solve unfused
+# and fused. MNIST at the bench's "small" budget; CIFAR at a smaller one.
+IMAGE_BUDGETS = {
+    "mnist": dict(train_steps=60, fit_iters=120, Ks=(2, 4, 8, 10, 20),
+                  solvers=("euler", "hyper_euler", "midpoint", "rk4")),
+    "cifar": dict(train_steps=20, fit_iters=60, Ks=(2, 10),
+                  solvers=("euler", "hyper_euler")),
+}
+IMAGE_FIT_K, IMAGE_TEST, IMAGE_TIMED = 10, 64, (64, 1024)
+# fused against unfused, a share of max |zT|: the kernel combines the
+# stages as z + (eps*b_j)*r_j in turn and rounds eps^{p+1} in float32,
+# the unfused step as z + eps*(sum_j b_j*r_j); a step differs by a few
+# float32 ulps of |z| (~2^-22 relative), so 20 steps through a field of
+# Lipschitz constant ~1 on s in [0, 1] stay well inside 1e-5
+FUSED_TOL = 1e-5
+
+
+def image_family(name: str) -> dict:
+    """The port's model functions of one family, with the MACs of f and g
+    per field evaluation (CIFAR's from the App. C.2 layer list, which the
+    reference gives no formula for)."""
+    cm = conv_node.conv_macs
+    if name == "mnist":
+        return dict(kind="mnist28", node=conv_node.mnist_node,
+                    g_init=conv_node.init_mnist_hyper,
+                    g_apply=conv_node.mnist_g_apply,
+                    integrator=conv_node.mnist_integrator,
+                    f_macs=conv_node.mnist_f_macs(),
+                    g_macs=conv_node.mnist_g_macs())
+    return dict(kind="cifar32", node=conv_node.cifar_node,
+                g_init=conv_node.init_cifar_hyper,
+                g_apply=conv_node.cifar_g_apply,
+                integrator=conv_node.cifar_integrator,
+                f_macs=cm(32, 32, 9, 64, 3) + cm(32, 32, 65, 64, 3)
+                + cm(32, 32, 64, 8, 3),
+                g_macs=cm(32, 32, 17, 64, 5) + cm(32, 32, 64, 32, 5)
+                + cm(32, 32, 32, 8, 3))
+
+
+def train_image_node(node, params, xs, ys, steps, batch=8, seed=2):
+    """The bench's ``train_image_node``: AdamW(2e-3) steps on random
+    batches through RK4 at K 8, gradients clipped to global norm 1.0.
+    Returns (params, losses, ms a step)."""
+    rk4 = get_tableau("rk4")
+
+    def loss_fn(p, xb, yb):
+        return torch.nn.functional.cross_entropy(
+            node.forward_fixed(p, xb, rk4, 8), yb)
+
+    opt = adamw(2e-3)
+    step, st = make_fit_step(loss_fn, opt, 1.0), opt.init(params)
+    rng = np.random.RandomState(seed)
+
+    def run(params, st):
+        losses = []
+        for i in range(steps):
+            idx = torch.from_numpy(rng.randint(0, xs.shape[0], batch)).to(
+                xs.device)
+            params, st, loss = step(params, st, i, xs[idx], ys[idx])
+            losses.append(loss)
+        return params, losses
+
+    (params, losses), ms = synced_ms(lambda: run(params, st))
+    return params, [float(l) for l in losses], ms / steps
+
+
+def fit_image_hypersolver(fam, node, params, xs, iters, seed=5):
+    """The bench's ``fit_image_hypersolver``: ``train_hypersolver`` at K
+    10 from a zero-readout g, batches of 16 drawn from ``xs``. Returns (g
+    params, losses, ms an iteration, the first batch)."""
+    gp = fam["g_init"](torch.Generator(device=xs.device).manual_seed(3),
+                       xs.device)
+    rng = np.random.RandomState(seed)
+    drawn = []
+
+    def batches():
+        while True:
+            drawn.append(xs[torch.from_numpy(
+                rng.randint(0, xs.shape[0], 16)).to(xs.device)])
+            yield drawn[-1]
+
+    cfg = HypersolverTrainConfig(
+        base_solver="euler", K=IMAGE_FIT_K, iters=iters, pretrain_iters=10,
+        swap_every=20, lr=1e-2, lr_min=5e-4, weight_decay=1e-6, atol=1e-4,
+        rtol=1e-4)
+    (gp, losses), ms = synced_ms(lambda: train_hypersolver(
+        node, params, fam["g_apply"], gp, batches(), cfg))
+    return gp, losses, ms / iters, drawn[0]
+
+
+def reference_state(node, params, x, tol=1e-5):
+    """The bench's ``reference_state``: dopri5's terminal state over the
+    whole span (K 1) at atol = rtol = ``tol``, and its NFE."""
+    traj, _, nfe = node.reference_trajectory(params, x, K=1, atol=tol,
+                                             rtol=tol)
+    return traj[-1], nfe
+
+
+def image_integrator(fam, name, gp, x, fused):
+    if name.startswith("hyper_"):
+        return fam["integrator"](gp, x, base=name.split("_", 1)[1],
+                                 fused=fused)
+    return fam["integrator"](base=get_tableau(name), fused=fused)
+
+
+def eval_solver(fam, node, params, name, K, x, z_ref, gp=None, fused=False):
+    """The bench's ``eval_solver`` (with the fused path as an option):
+    (terminal state, MAPE % against ``z_ref``, NFE)."""
+    integ = image_integrator(fam, name, gp, x, fused)
+    zT = integ.solve(node.field(params, x), node.hx_apply(params, x),
+                     FixedGrid.over(0.0, 1.0, K), return_traj=False)
+    mape = float(torch.mean(torch.abs(zT - z_ref)
+                            / (torch.abs(z_ref) + 1e-3))) * 100
+    return zT, mape, integ.nfe(K)
+
+
+def accuracy_drop(node, params, zT, z_ref):
+    """The bench's task metric: disagreement (%) with the prediction of
+    the dopri5 state."""
+    agree = float(torch.mean((torch.argmax(node.hy_apply(params, zT), -1)
+                              == torch.argmax(node.hy_apply(params, z_ref),
+                                              -1)).float()))
+    return (1.0 - agree) * 100
+
+
+def pareto_rows(fam, node, params, gp, x, z_ref, Ks, solvers):
+    """The pareto sweep: every (K, solver) solved unfused and fused, with
+    MAPE, accuracy drop, NFE, GMAC by the bench's formula, the fused
+    solve's largest difference from the unfused one and the hyper_step
+    launches it made."""
+    rows = []
+    for K in Ks:
+        for name in solvers:
+            row = dict(solver=name, K=K)
+            for fused in (False, True):
+                before = LAUNCHES["hyper_step"]
+                zT, mape, nfe = eval_solver(fam, node, params, name, K, x,
+                                            z_ref, gp, fused)
+                tag = "fused" if fused else "unfused"
+                row[f"mape_{tag}"] = mape
+                row[f"acc_drop_{tag}"] = accuracy_drop(node, params, zT,
+                                                       z_ref)
+                if fused:
+                    row["launches"] = LAUNCHES["hyper_step"] - before
+                    row["fused_diff"] = float((zT - z_plain).abs().max())
+                    row["max_abs_z"] = float(z_plain.abs().max())
+                z_plain = zT
+            row["nfe"] = nfe
+            row["gmac"] = (nfe * fam["f_macs"] + (
+                K * fam["g_macs"] if name.startswith("hyper_") else 0)) / 1e9
+            rows.append(row)
+    return rows
+
+
+def check_image(name, train_losses, fit_losses, rows):
+    """Raises unless training's loss fell (the mean of the last 10 steps
+    below the first 10's) and the fit's last loss is below its first,
+    and every solve had finite MAPEs, a fused state within FUSED_TOL of
+    max |zT| of the unfused one and exactly K hyper_step launches; on
+    MNIST also unless HyperEuler's MAPE at K 10, the mesh it was fitted
+    on, is below Euler's there (paper Fig. 3)."""
+    if not np.mean(train_losses[-10:]) < np.mean(train_losses[:10]):
+        raise AssertionError(f"{name}: training loss did not fall "
+                             f"{train_losses[:10]} .. {train_losses[-10:]}")
+    if not fit_losses[-1] < fit_losses[0]:
+        raise AssertionError(f"{name}: fit loss {fit_losses[0]} -> "
+                             f"{fit_losses[-1]}")
+    for r in rows:
+        if not np.isfinite([r["mape_fused"], r["mape_unfused"]]).all():
+            raise AssertionError(f"{name}: non-finite MAPE {r}")
+        if r["fused_diff"] > FUSED_TOL * r["max_abs_z"]:
+            raise AssertionError(f"{name}: fused differs from unfused {r}")
+        if r["launches"] != r["K"]:
+            raise AssertionError(f"{name}: {r['launches']} hyper_step "
+                                 f"launches for K {r['K']} ({r['solver']})")
+    if name == "mnist":
+        at = {r["solver"]: r for r in rows if r["K"] == IMAGE_FIT_K}
+        for tag in ("unfused", "fused"):
+            if not (at["hyper_euler"][f"mape_{tag}"]
+                    < at["euler"][f"mape_{tag}"]):
+                raise AssertionError(f"mnist: HyperEuler does not beat "
+                                     f"Euler at K {IMAGE_FIT_K} ({tag})")
+
+
+def image_pipeline(dev, name, budget):
+    """One family through train, fit, reference and sweep (the main
+    path, launches counted from 0), then the timings. Returns (report,
+    launches)."""
+    fam = image_family(name)
+    LAUNCHES.clear()
+    node, params = fam["node"](torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    xs, ys = synthetic_images(fam["kind"], 256, seed=1, device=dev)
+    params, train_losses, train_ms = train_image_node(
+        node, params, xs, ys, budget["train_steps"])
+    x_fit, _ = synthetic_images(fam["kind"], 256, seed=4, device=dev)
+    gp, fit_losses, fit_ms, first = fit_image_hypersolver(
+        fam, node, params, x_fit, budget["fit_iters"])
+    xt, _ = synthetic_images(fam["kind"], IMAGE_TEST, seed=9, device=dev)
+    with torch.no_grad():
+        with count_syncs() as where:
+            z_ref, ref_nfe = reference_state(node, params, xt)
+        ref = dict(tol=1e-5, K=1, nfe=ref_nfe, host_syncs=sum(where.values()),
+                   by_line=dict(where.most_common(4)))
+        with count_syncs() as where:
+            _, _, fit_nfe = node.reference_trajectory(
+                params, first, IMAGE_FIT_K, atol=1e-4, rtol=1e-4)
+        fit_ref = dict(tol=1e-4, K=IMAGE_FIT_K, batch=16, nfe=fit_nfe,
+                       host_syncs=sum(where.values()),
+                       by_line=dict(where.most_common(4)))
+        rows = pareto_rows(fam, node, params, gp, xt, z_ref, budget["Ks"],
+                           budget["solvers"])
+        launches = dict(LAUNCHES)
+        check_image(name, train_losses, fit_losses, rows)
+        timed, solve_syncs = {}, {}
+        for n in IMAGE_TIMED:
+            x = xt.repeat((n // IMAGE_TEST, 1, 1, 1))
+            f, z0 = node.field(params, x), node.hx_apply(params, x)
+            grid = FixedGrid.over(0.0, 1.0, IMAGE_FIT_K)
+            for fused in (False, True):
+                integ = image_integrator(fam, "hyper_euler", gp, x, fused)
+                tag = f"{'fused' if fused else 'unfused'}_{n}"
+                with count_syncs() as where:       # also the warm-up
+                    integ.solve(f, z0, grid, return_traj=False)
+                solve_syncs[tag] = sum(where.values())
+                timed[tag] = float(np.median([synced_ms(
+                    lambda: integ.solve(f, z0, grid, return_traj=False))[1]
+                    for _ in range(5)]))
+    report = dict(train=dict(steps=budget["train_steps"], ms_per_step=train_ms,
+                             loss_first10=float(np.mean(train_losses[:10])),
+                             loss_last10=float(np.mean(train_losses[-10:]))),
+                  fit=dict(iters=budget["fit_iters"], K=IMAGE_FIT_K,
+                           ms_per_iter=fit_ms, loss_first=fit_losses[0],
+                           loss_last=fit_losses[-1]),
+                  dopri5_test=ref, dopri5_fit=fit_ref, pareto=rows,
+                  hyper_euler_K10_solve_ms=timed,
+                  hyper_euler_K10_solve_host_syncs=solve_syncs,
+                  launches=launches)
+    return report, launches
+
+
+def phase_image(dev):
+    """A main path: the paper's image-classification pipeline for both
+    families (``image_pipeline``), every fused solve step through
+    hyper_step. Returns the launches of the two sweeps."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = collections.Counter()
+    report = {}
+    for name, budget in IMAGE_BUDGETS.items():
+        report[name], counted = image_pipeline(dev, name, budget)
+        launches.update(counted)
+    emit(phase="image", dtype="float32", test_images=IMAGE_TEST,
+         fused_tol=FUSED_TOL, **report,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1773,8 +2059,9 @@ def main() -> int:
     flash_rows = phase_flash(dev, bandwidth)
     rglru_rows = phase_rglru(dev, bandwidth)
     rwkv6_rows = phase_rwkv6(dev, bandwidth)
+    launches = phase_image(dev)
     served, params, prompt, tol = phase_serve(dev)
-    launches = collections.Counter(served)
+    launches.update(served)
     launches.update(phase_inflight(dev, get("qwen3_4b"), params, prompt, tol,
                                    via_cli=True))
     refined, ledger = phase_refinery(dev, get("qwen3_4b"), params, prompt,

@@ -5,7 +5,14 @@ arrays — ``np.asarray`` of each JAX leaf — and returns the same tree of
 tensors with the same leaf names, layouts and dtypes. bfloat16 leaves
 (numpy's ``ml_dtypes`` bfloat16) travel through their raw 16-bit pattern,
 so no value is rounded on the way. Works for LM params, g params and
-optimizer states (NamedTuples such as the reference's ``AdamState``) alike.
+optimizer states (NamedTuples such as the reference's ``AdamState``) alike;
+conv params keep the reference's HWIO layout (``nn/conv_blocks.py``), so
+they carry unchanged too.
+
+Image states differ in layout: the reference's are NHWC, the port's
+NCHW. ``nchw_from_nhwc`` and ``nhwc_from_nchw`` carry a state, a batch of
+images or a trajectory (a leading mesh axis) across, moving the channel
+axis between last and third from last.
 """
 from __future__ import annotations
 
@@ -36,3 +43,16 @@ def params_from_jax(tree: Any, device=None) -> Any:
     if tree is None:
         return None
     return tensor_from_numpy(tree, device)
+
+
+def nchw_from_nhwc(a: np.ndarray, device=None) -> torch.Tensor:
+    """A reference image state ``(..., H, W, C)`` as the port's
+    ``(..., C, H, W)`` tensor."""
+    return tensor_from_numpy(np.ascontiguousarray(np.moveaxis(
+        np.asarray(a), -1, -3)), device)
+
+
+def nhwc_from_nchw(t: torch.Tensor) -> np.ndarray:
+    """A port image state ``(..., C, H, W)`` as the reference's
+    ``(..., H, W, C)`` numpy array."""
+    return np.ascontiguousarray(np.moveaxis(t.detach().cpu().numpy(), -3, -1))

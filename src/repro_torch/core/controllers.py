@@ -12,6 +12,8 @@ smallest mesh meeting ``tol`` is
 embedded-pair probe step) and ``HypersolverResidualController`` (the
 correction magnitude ||g|| * h^{p+1}, one field evaluation) pick K;
 ``TierRouter`` layers the K=0 flow tier on top of a probing controller.
+``embedded_step`` / ``error_ratio`` / ``step_factor`` are the embedded
+estimator ``odeint_dopri5`` (core/adaptive.py) shares.
 """
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ class Probe(NamedTuple):
     dz0: Optional[Pytree]   # f(s0, z0), reusable as the solve's first stage
 
 
+# Classical step-size controller constants (shared with core/adaptive.py).
+SAFETY = 0.9
+MIN_FACTOR = 0.2
+MAX_FACTOR = 5.0
+
+
 def embedded_step(f, tab: Tableau, s, eps, z: Pytree):
     """One step of an embedded RK pair: ``(z_hi, err, stages)`` with
     ``err = eps * sum_j (b_j - b_err_j) r_j`` leaf-wise."""
@@ -52,6 +60,29 @@ def embedded_step(f, tab: Tableau, s, eps, z: Pytree):
     err = pytree.tree_map(lambda l: _scale(eps, l),
                           tree_lincomb(err_w, stages))
     return z_hi, err, stages
+
+
+def error_ratio(z: Pytree, z_new: Pytree, err: Pytree, atol, rtol
+                ) -> torch.Tensor:
+    """RMS of err / (atol + rtol * max(|z|, |z_new|)); accept iff <= 1.
+    A 0-d float32 tensor on the state's device."""
+
+    def leafwise(zl, znl, el):
+        tol = atol + rtol * torch.maximum(zl.abs(), znl.abs())
+        return torch.mean((el.float() / tol.float()) ** 2)
+
+    parts = [leafwise(*ls) for ls in zip(pytree.tree_leaves(z),
+                                         pytree.tree_leaves(z_new),
+                                         pytree.tree_leaves(err))]
+    return torch.sqrt(sum(parts) / len(parts))
+
+
+def step_factor(ratio, order: int) -> torch.Tensor:
+    """Classical safety-clamped step-size multiplier ratio^{-1/order}."""
+    ratio = torch.as_tensor(ratio, dtype=torch.float32)
+    return torch.clamp(
+        SAFETY * torch.clamp(ratio, min=1e-10) ** (-1.0 / order),
+        MIN_FACTOR, MAX_FACTOR)
 
 
 def per_sample_norm(tree: Pytree) -> torch.Tensor:

@@ -24,12 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.utils.checkpoint
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.tableaus import Tableau
+from repro_torch.core.tableaus import Tableau, get as get_tableau
 
 Pytree = Any
 VectorField = Callable[[Any, Pytree], Pytree]
@@ -76,6 +77,19 @@ def tree_lincomb(coeffs: Sequence[float], trees: Sequence[Pytree]) -> Pytree:
     return out
 
 
+def depth_like(s, z: torch.Tensor) -> torch.Tensor:
+    """Broadcast a depth coordinate ``s`` — scalar, or per-sample (B,) when
+    integrating with batched step sizes — to ``z[..., :1]``'s shape, the
+    layout dense fields use to concatenate depth as an extra feature. A
+    Python number is filled on z's device (no host-to-device copy)."""
+    if not isinstance(s, torch.Tensor):
+        return torch.full(z[..., :1].shape, s, dtype=z.dtype, device=z.device)
+    s = s.to(device=z.device, dtype=z.dtype)
+    if s.ndim:
+        s = s.reshape(tuple(s.shape) + (1,) * (z.ndim - s.ndim))
+    return torch.broadcast_to(s, z[..., :1].shape)
+
+
 def with_initial(z0: Pytree, traj: Pytree) -> Pytree:
     """Prepend the initial state to a stacked trajectory, leaf-wise."""
     return pytree.tree_map(lambda a, b: torch.cat([a[None], b], dim=0),
@@ -88,9 +102,10 @@ def _stack(trees: Sequence[Pytree]) -> Pytree:
 
 def _step_index(k: int, like) -> torch.Tensor:
     """The scan counter k as the reference traces it: an int32 scalar, so
-    ``s0 + k * eps`` rounds in float32 exactly as the JAX mesh does."""
+    ``s0 + k * eps`` rounds in float32 exactly as the JAX mesh does.
+    Filled on the device, so a step costs no host-to-device copy."""
     dev = like.device if isinstance(like, torch.Tensor) else None
-    return torch.tensor(k, dtype=torch.int32, device=dev)
+    return torch.full((), k, dtype=torch.int32, device=dev)
 
 
 def _check_carry(z: Pytree, z_next: Pytree) -> None:
@@ -120,6 +135,12 @@ def rk_stages(f: VectorField, tab: Tableau, s, eps, z: Pytree,
             zi = tree_axpy(eps, tree_lincomb(tab.a[i], stages), z)
         stages.append(f(s + tab.c[i] * eps, zi))
     return stages
+
+
+def rk_psi(f: VectorField, tab: Tableau, s, eps, z: Pytree):
+    """(psi, stages) where psi = sum_j b_j r_j is the RK update map."""
+    stages = rk_stages(f, tab, s, eps, z)
+    return tree_lincomb(tab.b, stages), stages
 
 
 # Storage dtypes the CUDA kernel takes. A CPU state of another dtype takes
@@ -255,6 +276,22 @@ class Integrator:
     def order(self) -> int:
         return self.tableau.order
 
+    @property
+    def name(self) -> str:
+        base = self.tableau.name
+        return f"hyper_{base}" if self.g is not None else base
+
+    def with_tableau(self, tab: Union[str, Tableau]) -> "Integrator":
+        """Swap the base tableau, keeping g (paper Sec. 4.1: an alpha-family
+        hypersolver evaluated under sibling tableaus without finetuning)."""
+        tab = get_tableau(tab) if isinstance(tab, str) else tab
+        return dataclasses.replace(self, tableau=tab)
+
+    def nfe(self, K: int) -> int:
+        """Vector-field evaluations over K steps (g counted separately as
+        overhead, paper Sec. 6)."""
+        return self.tableau.stages * K
+
     def fused_available(self, eps=None, z: Optional[Pytree] = None) -> bool:
         """True iff the fused kernel path will run (``eps`` gates nothing;
         pass the state as ``z=`` to vet its dtypes)."""
@@ -313,12 +350,16 @@ class Integrator:
 
     # ------------------------------------------------------------ solve ----
     def solve(self, f: VectorField, z0: Pytree, grid, *,
-              return_traj: bool = True, controller=None,
-              first_stage: Optional[Pytree] = None):
+              return_traj: bool = True, checkpoint: bool = False,
+              controller=None, first_stage: Optional[Pytree] = None):
         """Integrate z' = f(s, z) over ``grid`` (a FixedGrid; ``grid.eps``
-        may carry a leading batch axis). Returns the trajectory stacked on
-        a leading axis of length K+1 (z0 included) when ``return_traj``,
-        else the terminal state.
+        may carry a leading batch axis, and then ``f`` receives a batched
+        ``s``: lift it with ``depth_like``). Returns the trajectory
+        stacked on a leading axis of length K+1 (z0 included) when
+        ``return_traj``, else the terminal state. ``checkpoint=True``
+        recomputes each step in the backward pass
+        (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+        stages, the reference's per-step ``jax.checkpoint``.
 
         With a ``controller`` (core/controllers.py) ``grid`` supplies only
         the span; the controller probes z0 and picks per-sample mesh
@@ -330,6 +371,10 @@ class Integrator:
                                           return_traj)
         eps = grid.eps
         ref = pytree.tree_leaves(z0)[0]
+
+        def body(s, z):
+            return self.step(f, s, eps, z)[0]
+
         z, traj = z0, []
         for k in range(grid.K):
             if k == 0 and first_stage is not None:
@@ -337,7 +382,9 @@ class Integrator:
                                          first_stage=first_stage)
             else:
                 s = grid.s0 + _step_index(k, ref) * eps
-                z_next, _, _ = self.step(f, s, eps, z)
+                z_next = torch.utils.checkpoint.checkpoint(
+                    body, s, z, use_reentrant=False) if checkpoint \
+                    else body(s, z)
             _check_carry(z, z_next)
             z = z_next
             if return_traj:
@@ -484,3 +531,20 @@ class Integrator:
             return z, out.first_stage, meta
 
         return run
+
+
+def as_integrator(solver, g: Optional[Correction] = None,
+                  fused: bool = False) -> Integrator:
+    """Coerce a tableau name / Tableau / Integrator / HyperSolver-like
+    object (anything with .tableau/.g/.fused) into an Integrator."""
+    if isinstance(solver, Integrator):
+        return solver
+    if isinstance(solver, str):
+        return Integrator(tableau=get_tableau(solver), g=g, fused=fused)
+    if isinstance(solver, Tableau):
+        return Integrator(tableau=solver, g=g, fused=fused)
+    if hasattr(solver, "tableau"):
+        return Integrator(tableau=solver.tableau,
+                          g=getattr(solver, "g", g),
+                          fused=getattr(solver, "fused", fused))
+    raise TypeError(f"cannot build an Integrator from {solver!r}")

@@ -47,13 +47,21 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _eps_tensor(eps, dev) -> torch.Tensor:
+    """eps as float32 on ``dev``. A Python number is filled there: a
+    blocking host-to-device copy of it would cost a host sync per step."""
+    if isinstance(eps, (int, float)):
+        return torch.full((), float(eps), dtype=torch.float32, device=dev)
+    return torch.as_tensor(eps, dtype=torch.float32, device=dev)
+
+
 def row_operands(z: torch.Tensor, eps, order: int, active=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's per-row operands on z's device: float32 eps and
     eps**(order+1) rows and an int32 active row (all ones without a
     mask), one entry per batch row of ``_rows``."""
     dev = z.device
-    eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    eps_t = _eps_tensor(eps, dev)
     B, _ = _rows(z, eps_t, active)
     eps_row = eps_t.reshape(-1).expand(B).contiguous()
     act_row = (torch.ones(B, dtype=torch.int32, device=dev) if active is None
@@ -98,7 +106,7 @@ def fused_rk_update(z: torch.Tensor, stages: Sequence[torch.Tensor],
     if z.device.type != "cuda":
         raise ValueError(f"fused_rk_update: no kernel for device {z.device}")
     dev = z.device
-    eps_t = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    eps_t = _eps_tensor(eps, dev)
     B, n = _rows(z, eps_t, active)
     operands = [z, *stages] + ([g] if g is not None else [])
     for t in operands:

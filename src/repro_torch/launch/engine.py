@@ -217,6 +217,44 @@ def lm_depth_model(params, cfg: ArchConfig, solver: str = "euler",
     )
 
 
+def node_depth_model(node, params, solver: str = "euler",
+                     g_apply: Any = None, g_params: Any = None,
+                     fused: bool = False) -> DepthModel:
+    """Any ``NeuralODE`` (core/neural_ode.py) as a servable model — e.g.
+    the paper's image classifiers (models/conv_node.py). ``solver`` may
+    carry a ``hyper_`` prefix (requires g_apply/g_params). ``g_apply`` gets
+    x=None: conditioning-dependent corrections need a custom adapter.
+    Requests (numpy rows) are moved to the device of the params.
+
+    The engine solves at a per-sample ``(B,)`` depth, so the node's field
+    and g must lift ``s`` with ``core/integrate.py::depth_like``; the
+    conv fields of models/conv_node.py, like the reference's, take a
+    scalar depth only and raise there."""
+    from repro_torch.core.train import make_integrator
+
+    if solver.startswith("hyper_"):
+        if g_apply is None:
+            raise ValueError(
+                f"solver {solver!r} needs a correction: pass g_apply/"
+                "g_params (a hyper solver silently downgraded to its base "
+                "would misreport benchmark numbers)")
+        base = solver[len("hyper_"):]
+    else:
+        base = solver
+    dev = pytree.tree_leaves(params)[0].device
+
+    def lift(x):
+        return torch.as_tensor(x, device=dev)
+
+    return DepthModel(
+        embed=lambda x: node.hx_apply(params, lift(x)),
+        field_of=lambda x: node.field(params, lift(x)),
+        readout=lambda x, zT: node.hy_apply(params, zT),
+        integ=make_integrator(base, g_apply, g_params, None, fused=fused),
+        span=tuple(node.s_span),
+    )
+
+
 # ------------------------------------------------------------ bucket policy ----
 
 _snap_overflow = OneTimeWarning()

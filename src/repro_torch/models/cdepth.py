@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.integrate import Integrator, SolveStats
+from repro_torch.core.residual import combined_loss
 from repro_torch.core.solvers import FixedGrid
 from repro_torch.core.tableaus import get as get_tableau
 from repro_torch.models.lm import (_embed, _readout, block_apply, dtype_of,
@@ -72,6 +73,40 @@ def depth_field(params, cfg: ArchConfig):
         return out
 
     return f
+
+
+def discrete_depth_trajectory(params, cfg: ArchConfig,
+                              tokens: torch.Tensor) -> torch.Tensor:
+    """Residual-stream states at every group boundary, the 'exact'
+    solution checkpoints for hypersolver fitting (paper Sec. 3.2; ground
+    truth here is the deployed full-depth network itself). Not an
+    Integrator solve: the group outputs are emitted bit for bit.
+    Returns (n_groups+1, B, S, d). The reference's ``frontend`` input
+    waits for ROADMAP.md queue 1 item 6."""
+    _, n_groups, _ = group_layout(cfg)
+    h = _embed(params, cfg, tokens)
+    traj = [h]
+    for g in range(n_groups):
+        h = _group_apply(params, cfg, group_params(params, g), h)
+        traj.append(h)
+    return torch.stack(traj)
+
+
+def cdepth_residual_loss(params, g_params, cfg: ArchConfig,
+                         tokens: torch.Tensor, K: int,
+                         base_solver: str = "euler") -> torch.Tensor:
+    """Residual-fitting loss for the LM hypersolver at mesh length K:
+    ground truth is the full-depth discrete trajectory subsampled at the
+    K-mesh (requires n_groups % K == 0)."""
+    _, n_groups, _ = group_layout(cfg)
+    if n_groups % K:
+        raise ValueError(f"n_groups={n_groups} is not a multiple of K={K}")
+    traj = discrete_depth_trajectory(params, cfg, tokens)[::n_groups // K]
+    integ = Integrator(
+        tableau=get_tableau(base_solver),
+        g=lambda eps, s, z, dz: lm_g_apply(g_params, eps, s, None, z, dz))
+    return combined_loss(integ, depth_field(params, cfg), traj,
+                         FixedGrid.over(0.0, 1.0, K), residual_weight=1.0)
 
 
 # --------------------------------------------------- g_omega for the LM ----
