@@ -57,7 +57,18 @@ paper's widths: train through RK4, fit HyperEuler at K 10 by residual
 fitting on dopri5 trajectories, take a dopri5 reference, and sweep the
 solvers over K unfused and fused, with the losses falling, fused equal to
 unfused, hyper_step launched exactly K times a fused solve and
-HyperEuler beating Euler at K 10 on MNIST checked.
+HyperEuler beating Euler at K 10 on MNIST checked. Then the paper's CNF
+density sampling (``phase_cnf``: ``benchmarks/bench_cnf.py``'s protocol)
+on pinwheel and rings, float32 at the paper's widths: train the CNF by
+NLL through RK4, fit HyperHeun at K 1 on dopri5 trajectories, and sample
+1,024 base draws with dopri5 (lock-step and per-sample batched) and with
+HyperHeun, Heun and Euler at 2 NFE, unfused and fused, with the losses
+falling, fused equal to unfused, hyper_step launched exactly 2 x K times
+a fused sample, HyperHeun's displacement below Heun's and Euler's, and
+the batched dopri5 agreeing with the lock-step one checked; and the
+trajectory-fitting tracker (``phase_tracking``:
+``benchmarks/bench_trajectory.py``'s protocol), with HyperEuler beating
+Euler at K 16 and fused equal to unfused with K launches checked.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -94,9 +105,11 @@ from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    FixedGrid, FlowTrainConfig, HypersolverTrainConfig, make_fit_step,
-    train_flowhead, train_hypersolver)
-from repro_torch.data import synthetic_images  # noqa: E402
+    FixedGrid, FlowTrainConfig, HypersolverTrainConfig, Integrator,
+    NeuralODE, depth_like, make_fit_step, make_integrator, odeint_dopri5,
+    odeint_dopri5_batched, residual_fitting_loss, train_flowhead,
+    train_hypersolver)
+from repro_torch.data import density_sampler, synthetic_images  # noqa: E402
 from repro_torch.distributed.fault import FaultInjector, _hash01  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
@@ -112,7 +125,10 @@ from repro_torch.models.cdepth import (  # noqa: E402
     lm_flow_apply, lm_flow_init, lm_g_init)
 from repro_torch.models import conv_node  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
-from repro_torch.nn.module import truncated_normal_init  # noqa: E402
+from repro_torch.nn.cnf import (  # noqa: E402
+    cnf_log_prob, cnf_mlp_init, cnf_sample, exact_trace_dynamics)
+from repro_torch.nn.module import (  # noqa: E402
+    mlp_apply, mlp_init, truncated_normal_init)
 from repro_torch.optim import adamw  # noqa: E402
 
 B, S, D = 8, 128, 2560          # the serving phases' batch of prompts
@@ -235,8 +251,9 @@ def hs_cases():
     stages of dopri5, then the kernel's edges: a bf16 state with a float32
     later stage (heun under per-sample eps, the reference's promotion),
     rows of N % 8 != 0, every row frozen, and one row under a scalar eps;
-    and the image path's float32 euler + g step under a scalar eps (one
-    row of 64 or 1,024 x 9,408 elements)."""
+    the image path's float32 euler + g step under a scalar eps (one
+    row of 64 or 1,024 x 9,408 elements); and the CNF path's float32
+    heun + g step under a scalar eps (one row of 2 x 65,536 elements)."""
     bf, f32 = torch.bfloat16, torch.float32
     dopri = tuple(bj for bj in get_tableau("dopri5").b if bj != 0.0)
     cases = [HsCase(name, (B, S, D), (dt,) * (1 + len(b)), dt if g else None,
@@ -258,6 +275,10 @@ def hs_cases():
                1, eps=0.1, active=None),
         HsCase("image-euler+g", (1024, 12, 28, 28), (f32, f32), f32, (1.0,),
                1, eps=0.1, active=None),
+        # phase_cnf's fused HyperHeun step (K 1, eps 1) on the z leaf of
+        # its timed batch of 65,536 base draws
+        HsCase("cnf-heun+g", (65536, 2), (f32, f32, f32), f32, (0.5, 0.5), 2,
+               eps=1.0, active=None),
     ]
 
 
@@ -2030,6 +2051,482 @@ def phase_image(dev):
     return launches
 
 
+# The paper's CNF density sampling (Sec. 4.2, Figs. 1 and 7;
+# ``benchmarks/bench_cnf.py`` in the reference) on the port, float32 at
+# its "small" budget: train an FFJORD CNF (paper C.3: [z, s] -> 128 ->
+# 128 -> 128 -> 2, exact trace) by NLL through RK4 at K 8 (AdamW 1e-3,
+# batch 128, clip 10), fit a HyperHeun at K 1 by residual fitting on
+# lock-step dopri5 (1e-5) trajectories of 256 fresh base draws every 100
+# iterations (AdamW 5e-3, weight decay 1e-6, clip 10), then sample 1,024
+# base draws with dopri5 and with three 2-NFE candidates, each unfused
+# and fused. Rings trains 200 steps, not the bench's 400: a step takes
+# ~160 ms on the H100 (host-bound, PERF.md section 6), and the script's
+# time limit is shared with every other phase.
+CNF_TRAIN_ITERS = {"pinwheel": 400, "rings": 200}
+CNF_FIT_ITERS, CNF_BATCH, CNF_FIT_BATCH = 300, 128, 256
+CNF_SAMPLES, CNF_TIMED, CNF_TOL = 1024, (1024, 65536), 1e-5
+# the batched dopri5's endpoints against the lock-step one's, a share of
+# max(1, max |x_ref|): both hold every step's error to 1e-5, the lock-step
+# solve as an RMS over the whole batch, the batched one per sample
+CNF_BATCHED_TOL = 1e-3
+
+
+def cnf_g_init(gen, device=None):
+    """The bench's ``_g_init``: a two-layer net over [z, dz, dlogp, s] ->
+    (dz_corr, dlogp_corr), its last layer zero."""
+    return mlp_init(gen, (2 + 2 + 1 + 1, 64, 3), final_zero=True,
+                    device=device)
+
+
+def cnf_g_apply(gp, eps, s, x, state, dstate):
+    """The bench's ``_g_apply``."""
+    z, _ = state
+    dz, dlogp = dstate
+    h = torch.cat([z, dz, dlogp[..., None], depth_like(s, z)], dim=-1)
+    out = mlp_apply(gp, h, act=torch.tanh)
+    return (out[..., :2], out[..., 2])
+
+
+def hyper_heun(gp, fused=False):
+    return Integrator(tableau=get_tableau("heun"), fused=fused,
+                      g=lambda e, s, z, dz: cnf_g_apply(gp, e, s, None, z, dz))
+
+
+def cnf_nll(params, x):
+    return -torch.mean(cnf_log_prob(params, x, K=8, solver="rk4"))
+
+
+def cnf_train_step():
+    """The bench's ``train_cnf`` step: (step, optimizer)."""
+    opt = adamw(1e-3)
+    return make_fit_step(cnf_nll, opt, 10.0), opt
+
+
+def cnf_fit_step(aug, K=1):
+    """The bench's ``fit_hyperheun`` step over dopri5 trajectories of the
+    sampling field ``aug``: (step, optimizer)."""
+    grid = FixedGrid.over(0.0, 1.0, K)
+    opt = adamw(5e-3, weight_decay=1e-6)
+    return make_fit_step(lambda g, traj: residual_fitting_loss(
+        hyper_heun(g), aug, traj, grid), opt, 10.0), opt
+
+
+def cnf_state0(z0):
+    return (z0, torch.zeros(z0.shape[:-1], dtype=z0.dtype, device=z0.device))
+
+
+def train_cnf(density, dev, iters, batch=CNF_BATCH, seed=0):
+    """The bench's ``train_cnf``: (params, losses, ms a step)."""
+    params = cnf_mlp_init(torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    step, opt = cnf_train_step()
+    st = opt.init(params)
+    sampler = density_sampler(density, batch, seed=seed + 1, device=dev)
+
+    def run(params, st):
+        losses = []
+        for i in range(iters):
+            params, st, loss = step(params, st, i, next(sampler))
+            losses.append(loss)
+        return params, losses
+
+    (params, losses), ms = synced_ms(lambda: run(params, st))
+    return params, [float(l) for l in losses], ms / iters
+
+
+def fit_hyperheun(params, dev, iters, K=1, seed=7):
+    """The bench's ``fit_hyperheun``: (g params, losses, ms an iteration,
+    the dopri5 NFE of each target)."""
+    aug = exact_trace_dynamics(params)
+    gp = cnf_g_init(torch.Generator(device=dev).manual_seed(seed), dev)
+    step, opt = cnf_fit_step(aug, K)
+    st = opt.init(gp)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    grid = FixedGrid.over(0.0, 1.0, K)
+
+    def run(gp, st):
+        losses, nfes, traj = [], [], None
+        for i in range(iters):
+            if i % 100 == 0:          # paper: swap every 100 iterations
+                z0 = torch.randn((CNF_FIT_BATCH, 2), generator=gen, device=dev)
+                traj, nfe = odeint_dopri5(aug, cnf_state0(z0), grid,
+                                          atol=CNF_TOL, rtol=CNF_TOL)
+                nfes.append(nfe)
+            gp, st, loss = step(gp, st, i, traj)
+            losses.append(loss)
+        return gp, losses, nfes
+
+    (gp, losses, nfes), ms = synced_ms(lambda: run(gp, st))
+    return gp, [float(l) for l in losses], ms / iters, nfes
+
+
+def hist_l1(a, b, bins=24, lo=-4.5, hi=4.5):
+    """The bench's ``_hist_l1``: mean |difference| of two 2-D histogram
+    densities."""
+    ha, _, _ = np.histogram2d(a[:, 0], a[:, 1], bins=bins,
+                              range=[[lo, hi], [lo, hi]], density=True)
+    hb, _, _ = np.histogram2d(b[:, 0], b[:, 1], bins=bins,
+                              range=[[lo, hi], [lo, hi]], density=True)
+    return float(np.abs(ha - hb).mean())
+
+
+def cnf_candidates(gp, fused):
+    """The bench's 2-NFE candidates: (integrator, K) by name."""
+    return {"hyper_heun@2nfe": (hyper_heun(gp, fused), 1),
+            "heun@2nfe": (Integrator(get_tableau("heun"), fused=fused), 1),
+            "euler@2nfe": (Integrator(get_tableau("euler"), fused=fused), 2)}
+
+
+def cnf_rows(params, gp, z0, x_ref, data, ref_nfe):
+    """The bench's ``main`` rows for one density: every candidate sampled
+    unfused and fused, its displacement from the dopri5 samples and hist-L1
+    to the data, with the fused sample's largest difference from the
+    unfused one and the hyper_step launches it made."""
+    rows = []
+    for name in cnf_candidates(gp, False):
+        row = dict(method=name, nfe=2)
+        for fused in (False, True):
+            integ, K = cnf_candidates(gp, fused)[name]
+            before = LAUNCHES["hyper_step"]
+            x, _ = cnf_sample(params, z0, K=K, solver=integ)
+            tag = "fused" if fused else "unfused"
+            row[f"disp_vs_dopri5_{tag}"] = float(torch.mean(
+                torch.linalg.norm(x - x_ref, dim=-1)))
+            row[f"hist_l1_vs_data_{tag}"] = hist_l1(x.cpu().numpy(), data)
+            if fused:
+                row.update(K=K, launches=LAUNCHES["hyper_step"] - before,
+                           fused_diff=float((x - x_plain).abs().max()),
+                           max_abs_x=float(x_plain.abs().max()))
+            x_plain = x
+        row.update(hist_l1_dopri5_vs_data=hist_l1(x_ref.cpu().numpy(), data),
+                   dopri5_nfe=ref_nfe)
+        rows.append(row)
+    return rows
+
+
+def check_cnf(density, train_losses, fit_losses, rows, batched, nll):
+    """Raises unless the training NLL and the fit loss fell (the mean of
+    the last 10 below the first 10's), every fused sample is within
+    FUSED_TOL of max |x| of its unfused twin with exactly 2 x K hyper_step
+    launches (two state leaves), HyperHeun's displacement at 2 NFE is
+    below Heun's and Euler's there (paper Fig. 1), the batched dopri5's
+    endpoints are within CNF_BATCHED_TOL of the lock-step one's, and every
+    number (the data's NLL too) is finite."""
+    for tag, losses in (("training NLL", train_losses),
+                        ("fit loss", fit_losses)):
+        if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+            raise AssertionError(f"{density}: {tag} did not fall "
+                                 f"{losses[:10]} .. {losses[-10:]}")
+    for r in rows:
+        nums = [v for v in r.values() if isinstance(v, (int, float))]
+        if not np.isfinite(nums).all():
+            raise AssertionError(f"{density}: non-finite number {r}")
+        if r["fused_diff"] > FUSED_TOL * r["max_abs_x"]:
+            raise AssertionError(f"{density}: fused differs from unfused {r}")
+        if r["launches"] != 2 * r["K"]:
+            raise AssertionError(f"{density}: {r['launches']} hyper_step "
+                                 f"launches for K {r['K']} ({r['method']})")
+    disp = {r["method"]: r for r in rows}
+    for tag in ("unfused", "fused"):
+        key = f"disp_vs_dopri5_{tag}"
+        hyper = disp["hyper_heun@2nfe"][key]
+        if not (hyper < disp["heun@2nfe"][key]
+                and hyper < disp["euler@2nfe"][key]):
+            raise AssertionError(f"{density}: HyperHeun@2 displacement "
+                                 f"{hyper} not below Heun's and Euler's "
+                                 f"({tag})")
+    if not np.isfinite(nll):
+        raise AssertionError(f"{density}: the data's NLL is {nll}")
+    nums = [v for v in batched.values() if isinstance(v, (int, float))]
+    if not np.isfinite(nums).all() or batched["max_diff"] > \
+            CNF_BATCHED_TOL * max(1.0, batched["max_abs_x"]):
+        raise AssertionError(f"{density}: batched dopri5 disagrees with the "
+                             f"lock-step solve {batched}")
+
+
+def cnf_timings(params, gp, dev):
+    """Wall ms (median of 5, between device syncs) and host syncs of a
+    2-NFE HyperHeun sample, fused and unfused, and of both dopri5 solves,
+    at each size of CNF_TIMED (base draws of seed 43)."""
+    aug = exact_trace_dynamics(params)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    grid = FixedGrid.over(0.0, 1.0, 1)
+    out = {}
+    for n in CNF_TIMED:
+        z0 = torch.randn((n, 2), generator=gen, device=dev)
+        runs = {
+            "hyper_heun@2nfe_unfused": lambda: cnf_sample(
+                params, z0, K=1, solver=hyper_heun(gp)),
+            "hyper_heun@2nfe_fused": lambda: cnf_sample(
+                params, z0, K=1, solver=hyper_heun(gp, fused=True)),
+            "dopri5_lockstep": lambda: odeint_dopri5(
+                aug, cnf_state0(z0), grid, atol=CNF_TOL, rtol=CNF_TOL),
+            "dopri5_batched": lambda: odeint_dopri5_batched(
+                aug, cnf_state0(z0), grid, atol=CNF_TOL, rtol=CNF_TOL),
+        }
+        for tag, fn in runs.items():
+            with count_syncs() as where:         # also the warm-up
+                fn()
+            out[f"{tag}_{n}"] = dict(
+                host_syncs=sum(where.values()),
+                ms=float(np.median([synced_ms(fn)[1] for _ in range(5)])))
+    return out
+
+
+def cnf_pipeline(dev, density, train_iters, fit_iters=CNF_FIT_ITERS):
+    """One density through train, fit, the dopri5 references and the
+    candidates (the main path, launches counted from 0), then the
+    timings. Returns (report, launches)."""
+    t0 = time.perf_counter()
+    LAUNCHES.clear()
+    params, train_losses, train_ms = train_cnf(density, dev, train_iters)
+    gp, fit_losses, fit_ms, fit_nfes = fit_hyperheun(params, dev, fit_iters)
+    aug = exact_trace_dynamics(params)
+    z0 = torch.randn((CNF_SAMPLES, 2),
+                     generator=torch.Generator(device=dev).manual_seed(42),
+                     device=dev)
+    data_t = next(density_sampler(density, CNF_SAMPLES, seed=77, device=dev))
+    data = data_t.cpu().numpy()
+    with torch.no_grad():
+        grid = FixedGrid.over(0.0, 1.0, 1)
+        ref, ref_nfe = odeint_dopri5(aug, cnf_state0(z0), grid,
+                                     atol=CNF_TOL, rtol=CNF_TOL)
+        x_ref = ref[0][-1]
+        rows = cnf_rows(params, gp, z0, x_ref, data, ref_nfe)
+        traj_b, nfe_b = odeint_dopri5_batched(aug, cnf_state0(z0), grid,
+                                              atol=CNF_TOL, rtol=CNF_TOL)
+        nfe_b = nfe_b.cpu().numpy()
+        batched = dict(nfe_min=int(nfe_b.min()),
+                       nfe_median=float(np.median(nfe_b)),
+                       nfe_max=int(nfe_b.max()), lockstep_nfe=ref_nfe,
+                       max_diff=float((traj_b[0][:, -1] - x_ref).abs().max()),
+                       max_abs_x=float(x_ref.abs().max()))
+        nll = float(cnf_nll(params, data_t))
+    launches = dict(LAUNCHES)
+    check_cnf(density, train_losses, fit_losses, rows, batched, nll)
+    with torch.no_grad():
+        timed = cnf_timings(params, gp, dev)
+    report = dict(
+        train=dict(iters=train_iters, batch=CNF_BATCH, ms_per_step=train_ms,
+                   nll_first10=float(np.mean(train_losses[:10])),
+                   nll_last10=float(np.mean(train_losses[-10:]))),
+        fit=dict(iters=fit_iters, K=1, ms_per_iter=fit_ms,
+                 loss_first10=float(np.mean(fit_losses[:10])),
+                 loss_last10=float(np.mean(fit_losses[-10:])),
+                 dopri5_nfe=fit_nfes),
+        data_nll=nll, rows=rows, dopri5_batched=batched, timed=timed,
+        launches=launches, seconds=time.perf_counter() - t0)
+    return report, launches
+
+
+def phase_cnf(dev):
+    """A main path: the paper's CNF sampling for both densities
+    (``cnf_pipeline``), every fused step through hyper_step. Returns the
+    launches of their main paths."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = collections.Counter()
+    report = {}
+    for density, iters in CNF_TRAIN_ITERS.items():
+        report[density], counted = cnf_pipeline(dev, density, iters)
+        launches.update(counted)
+    emit(phase="cnf", dtype="float32", samples=CNF_SAMPLES,
+         fused_tol=FUSED_TOL, **report,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The paper's trajectory-fitting tracker (App. C.1, Fig. 8;
+# ``benchmarks/bench_trajectory.py`` in the reference) at its "small"
+# budget: a Neural ODE f [z, s] -> 64 -> 64 -> 2 (tanh) trained through
+# RK4 at K 32 to track beta(s) = [sin 2 pi s, cos 2 pi s] (AdamW 3e-3,
+# batch 8, clip 1.0), a HyperEuler g [z, dz, s] -> 64 -> 64 -> 64 -> 2 fit
+# by trajectory fitting at K 16 (``train_hypersolver``, lr 3e-3 -> 1e-4,
+# dopri5 targets at 1e-7), and the global error of each solver at K 4, 8,
+# 16 and 25 against dopri5 at 1e-8 on 64 initial points.
+TRACK_DIM, TRACK_TRAIN_ITERS, TRACK_FIT_ITERS, TRACK_FIT_K = 2, 400, 400, 16
+TRACK_KS, TRACK_POINTS = (4, 8, 16, 25), 64
+TRACK_SOLVERS = ("euler", "hyper_euler", "midpoint", "rk4")
+
+
+def beta(s):
+    """The bench's ``_beta``: the tracked curve [sin 2 pi s, cos 2 pi s]."""
+    return torch.stack([torch.sin(2 * np.pi * s), torch.cos(2 * np.pi * s)],
+                       -1)
+
+
+def tracker_node():
+    """The bench's ``_make_node``: f(s, z) = MLP([z, s]), tanh."""
+    def f_apply(p, s, x, z):
+        return mlp_apply(p, torch.cat([z, depth_like(s, z)], -1),
+                         act=torch.tanh)
+
+    return NeuralODE(f_apply=f_apply, hx_apply=lambda p, x: x,
+                     hy_apply=lambda p, z: z)
+
+
+def tracker_z0(gen, n, dev):
+    """n initial points beta(0) + 0.05 N(0, I), drawn from ``gen``."""
+    return beta(torch.zeros(n, device=dev)) + 0.05 * torch.randn(
+        (n, TRACK_DIM), generator=gen, device=dev)
+
+
+def tracker_train_step(node, K=32):
+    """The bench's ``train_tracker`` step: the mean squared distance of
+    the RK4 trajectory from beta at the K + 1 knots. (step, optimizer)."""
+    grid = FixedGrid.over(0, 1, K)
+
+    def loss_fn(p, z0):
+        traj = make_integrator("rk4").solve(node.field(p, None), z0, grid)
+        target = beta(grid.s_span.to(z0.device))[:, None, :]
+        return torch.mean((traj - target) ** 2)
+
+    opt = adamw(3e-3)
+    return make_fit_step(loss_fn, opt, 1.0), opt
+
+
+def train_tracker(dev, iters, seed=0):
+    """The bench's ``train_tracker``: (node, params, losses, ms a step)."""
+    node = tracker_node()
+    params = mlp_init(torch.Generator(device=dev).manual_seed(seed),
+                      (TRACK_DIM + 1, 64, 64, TRACK_DIM), device=dev)
+    step, opt = tracker_train_step(node)
+    st = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def run(params, st):
+        losses = []
+        for i in range(iters):
+            params, st, loss = step(params, st, i, tracker_z0(gen, 8, dev))
+            losses.append(loss)
+        return params, losses
+
+    (params, losses), ms = synced_ms(lambda: run(params, st))
+    return node, params, [float(l) for l in losses], ms / iters
+
+
+def tracker_g_apply(gp, eps, s, x, z, dz):
+    """The bench's ``_g_apply``: g([z, dz, s]), tanh."""
+    return mlp_apply(gp, torch.cat([z, dz, depth_like(s, z)], -1),
+                     act=torch.tanh)
+
+
+def tracker_fit_config(iters, K=TRACK_FIT_K):
+    return HypersolverTrainConfig(
+        base_solver="euler", K=K, iters=iters, lr=3e-3, lr_min=1e-4,
+        atol=1e-7, rtol=1e-7, residual_weight=0.0, trajectory_weight=1.0)
+
+
+def fit_tracker_hypersolver(node, params, dev, iters, K=TRACK_FIT_K):
+    """The bench's ``fit_tracker_hypersolver``: trajectory fitting through
+    ``train_hypersolver`` on batches of 16 initial points. (g params,
+    losses, ms an iteration)."""
+    gp = mlp_init(torch.Generator(device=dev).manual_seed(5),
+                  (2 * TRACK_DIM + 1, 64, 64, 64, TRACK_DIM),
+                  final_zero=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def batches():
+        while True:
+            yield tracker_z0(gen, 16, dev)
+
+    (gp, losses), ms = synced_ms(lambda: train_hypersolver(
+        node, params, tracker_g_apply, gp, batches(),
+        tracker_fit_config(iters, K)))
+    return gp, losses, ms / iters
+
+
+def tracker_rows(node, params, gp, z0, z_ref, Ks=TRACK_KS):
+    """The bench's ``main`` rows: the global error of each solver at each
+    K against ``z_ref``, hyper_euler also fused (its largest difference
+    from the unfused solve and the hyper_step launches it made)."""
+    f = node.field(params, z0)
+    rows = []
+    for K in Ks:
+        grid = FixedGrid.over(0.0, 1.0, K)
+        for name in TRACK_SOLVERS:
+            hyper = name == "hyper_euler"
+            row = dict(solver=name, K=K)
+            for fused in ((False, True) if hyper else (False,)):
+                integ = (make_integrator("euler", tracker_g_apply, gp, z0,
+                                         fused=fused) if hyper
+                         else make_integrator(name))
+                before = LAUNCHES["hyper_step"]
+                zT = integ.solve(f, z0, grid, return_traj=False)
+                err = float(torch.mean(torch.linalg.norm(zT - z_ref, dim=-1)))
+                if fused:
+                    row.update(global_err_fused=err,
+                               launches=LAUNCHES["hyper_step"] - before,
+                               fused_diff=float((zT - z_plain).abs().max()),
+                               max_abs_z=float(z_plain.abs().max()))
+                else:
+                    row["global_err"], z_plain = err, zT
+            row["nfe"] = integ.nfe(K)
+            rows.append(row)
+    return rows
+
+
+def check_tracking(train_losses, fit_losses, rows):
+    """Raises unless both losses fell (the mean of the last 10 below the
+    first 10's), HyperEuler's global error at K 16 (its fitted mesh) is
+    below Euler's (paper Fig. 8), and every fused solve is within
+    FUSED_TOL of max |zT| of the unfused one with exactly K hyper_step
+    launches."""
+    for tag, losses in (("training loss", train_losses),
+                        ("fit loss", fit_losses)):
+        if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+            raise AssertionError(f"tracker: {tag} did not fall "
+                                 f"{losses[:10]} .. {losses[-10:]}")
+    for r in rows:
+        if not np.isfinite(r["global_err"]):
+            raise AssertionError(f"tracker: non-finite error {r}")
+        if r["solver"] != "hyper_euler":
+            continue
+        if r["fused_diff"] > FUSED_TOL * r["max_abs_z"]:
+            raise AssertionError(f"tracker: fused differs from unfused {r}")
+        if r["launches"] != r["K"]:
+            raise AssertionError(f"tracker: {r['launches']} hyper_step "
+                                 f"launches for K {r['K']}")
+    at = {r["solver"]: r for r in rows if r["K"] == TRACK_FIT_K}
+    for key in ("global_err", "global_err_fused"):
+        if not at["hyper_euler"][key] < at["euler"]["global_err"]:
+            raise AssertionError(f"tracker: HyperEuler ({key}) does not "
+                                 f"beat Euler at K {TRACK_FIT_K}")
+
+
+def phase_tracking(dev, train_iters=TRACK_TRAIN_ITERS,
+                   fit_iters=TRACK_FIT_ITERS):
+    """A main path: the trajectory-fitting tracker, train, fit, the dopri5
+    reference and the solver rows (launches counted from 0), every fused
+    step through hyper_step. Returns the launches."""
+    t0 = time.perf_counter()
+    LAUNCHES.clear()
+    node, params, train_losses, train_ms = train_tracker(dev, train_iters)
+    gp, fit_losses, fit_ms = fit_tracker_hypersolver(node, params, dev,
+                                                     fit_iters)
+    z0 = tracker_z0(torch.Generator(device=dev).manual_seed(9), TRACK_POINTS,
+                    dev)
+    with torch.no_grad():
+        with count_syncs() as where:
+            ref, _, ref_nfe = node.reference_trajectory(
+                params, z0, K=TRACK_FIT_K, atol=1e-8, rtol=1e-8)
+        rows = tracker_rows(node, params, gp, z0, ref[-1])
+    launches = dict(LAUNCHES)
+    check_tracking(train_losses, fit_losses, rows)
+    emit(phase="tracking", dtype="float32", points=TRACK_POINTS,
+         fused_tol=FUSED_TOL,
+         train=dict(iters=train_iters, K=32, ms_per_step=train_ms,
+                    loss_first10=float(np.mean(train_losses[:10])),
+                    loss_last10=float(np.mean(train_losses[-10:]))),
+         fit=dict(iters=fit_iters, K=TRACK_FIT_K, ms_per_iter=fit_ms,
+                  loss_first10=float(np.mean(fit_losses[:10])),
+                  loss_last10=float(np.mean(fit_losses[-10:]))),
+         dopri5=dict(tol=1e-8, K=TRACK_FIT_K, nfe=ref_nfe,
+                     host_syncs=sum(where.values())),
+         rows=rows, launches=launches, seconds=time.perf_counter() - t0)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2060,6 +2557,8 @@ def main() -> int:
     rglru_rows = phase_rglru(dev, bandwidth)
     rwkv6_rows = phase_rwkv6(dev, bandwidth)
     launches = phase_image(dev)
+    launches.update(phase_cnf(dev))
+    launches.update(phase_tracking(dev))
     served, params, prompt, tol = phase_serve(dev)
     launches.update(served)
     launches.update(phase_inflight(dev, get("qwen3_4b"), params, prompt, tol,

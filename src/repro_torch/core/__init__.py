@@ -16,7 +16,9 @@ from repro_torch.core.controllers import (  # noqa: F401
     per_sample_norm, step_factor,
 )
 from repro_torch.core.flowhead import flow_combine, make_flow_apply  # noqa: F401
-from repro_torch.core.adaptive import odeint_dopri5  # noqa: F401
+from repro_torch.core.adaptive import (  # noqa: F401
+    odeint_dopri5, odeint_dopri5_batched,
+)
 from repro_torch.core.hypersolver import (  # noqa: F401
     HyperSolver, make as make_solver,
 )

@@ -1,1 +1,3 @@
-from repro_torch.data.synthetic import synthetic_images  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    DENSITIES, density_sampler, synthetic_images,
+)

@@ -1,12 +1,17 @@
-"""Deterministic synthetic data — the port of ``synthetic_images`` of
-``repro/data/synthetic.py`` (the container is offline).
+"""Deterministic synthetic data — the port of the 2-D densities and
+``synthetic_images`` of ``repro/data/synthetic.py`` (the container is
+offline).
 
-Class-conditional stroke/blob renders in MNIST-like (28x28x1) and
-CIFAR-like (32x32x3) formats stand in for the unavailable natural-image
-sets. The numpy renderer is a copy of the reference's, so a seed gives
-the same images and labels in both packages; the port hands them out
-NCHW, its state layout (``nn/conv_blocks.py``). Token streams and 2-D
-densities wait for ROADMAP.md queue 1 items 12 and 8.
+* 2-D densities for CNFs: pinwheel / rings / checkerboard / circles (the
+  paper's own procedural densities, Sec. 4.2 + Grathwohl et al.);
+* class-conditional stroke/blob renders in MNIST-like (28x28x1) and
+  CIFAR-like (32x32x3) formats stand in for the unavailable
+  natural-image sets.
+
+The numpy code is a copy of the reference's, so a seed gives the same
+points, images and labels in both packages; the port hands images out
+NCHW, its state layout (``nn/conv_blocks.py``). Token streams wait for
+ROADMAP.md queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -14,6 +19,79 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+# ----------------------------------------------------------- densities ----
+
+def _pinwheel(rng, n):
+    radial_std, tangential_std, num_classes, rate = 0.3, 0.1, 5, 0.25
+    rads = np.linspace(0, 2 * np.pi, num_classes, endpoint=False)
+    feats = rng.standard_normal((n, 2)) * np.array([radial_std,
+                                                    tangential_std])
+    feats[:, 0] += 1.0
+    labels = rng.integers(0, num_classes, n)
+    angles = rads[labels] + rate * np.exp(feats[:, 0])
+    rot = np.stack([np.cos(angles), -np.sin(angles),
+                    np.sin(angles), np.cos(angles)], -1).reshape(n, 2, 2)
+    return 2.0 * np.einsum("ni,nij->nj", feats, rot)
+
+
+def _rings(rng, n):
+    n_per = n // 3 + 1
+    pts = []
+    for r in (1.0, 2.0, 3.0):
+        t = rng.random(n_per) * 2 * np.pi
+        pts.append(np.stack([r * np.cos(t), r * np.sin(t)], -1))
+    x = np.concatenate(pts)[:n]
+    return x + 0.08 * rng.standard_normal((n, 2))
+
+
+def _checkerboard(rng, n):
+    x1 = rng.random(n) * 4 - 2
+    x2_ = rng.random(n) - rng.integers(0, 2, n) * 2
+    x2 = x2_ + np.floor(x1) % 2
+    return np.stack([x1, x2], -1) * 2
+
+
+def _circles(rng, n):
+    """Paper's 'modified, more challenging circles': two annuli connected
+    by three curves."""
+    n_ring = int(n * 0.8)
+    n_arm = n - n_ring
+    pts = []
+    for r in (1.0, 2.5):
+        t = rng.random(n_ring // 2 + 1) * 2 * np.pi
+        pts.append(np.stack([r * np.cos(t), r * np.sin(t)], -1))
+    ring = np.concatenate(pts)[:n_ring]
+    a = rng.integers(0, 3, n_arm)
+    base = a * 2 * np.pi / 3
+    rr = 1.0 + 1.5 * rng.random(n_arm)
+    curve = base + 0.4 * (rr - 1.0)
+    arm = np.stack([rr * np.cos(curve), rr * np.sin(curve)], -1)
+    x = np.concatenate([ring, arm])
+    return x + 0.05 * rng.standard_normal(x.shape)
+
+
+DENSITIES = {
+    "pinwheel": _pinwheel,
+    "rings": _rings,
+    "checkerboard": _checkerboard,
+    "circles": _circles,
+}
+
+
+def density_sampler(name: str, batch: int, seed: int = 0, device=None):
+    """Endless batches of ``batch`` points of density ``name``: the
+    reference's points for the same seed, float32 on
+    ``resolve_device(device)``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    fn = DENSITIES[name]
+    while True:
+        yield torch.from_numpy(fn(rng, batch).astype(np.float32)).to(dev)
+
+
+# -------------------------------------------------------------- images ----
 
 
 def synthetic_images(kind: str, n: int, seed: int = 0, device=None):

@@ -1,4 +1,5 @@
-"""Primitive layers: truncated-normal init, dense, RMSNorm, embeddings.
+"""Primitive layers: truncated-normal init, dense, RMSNorm, embeddings,
+small MLPs.
 
 Conventions (as in ``repro/nn/module.py``): params are nested dicts of
 tensors with the reference's key names and layouts — a dense kernel is
@@ -63,3 +64,29 @@ def embedding_init(gen, vocab: int, dim: int, param_dtype=torch.float32,
                    device=None):
     return {"table": truncated_normal_init(gen, (vocab, dim), 1.0,
                                            param_dtype, device)}
+
+
+def mlp_init(gen, dims: Sequence[int], param_dtype=torch.float32,
+             final_zero: bool = False, device=None):
+    """Small bias-free MLP (hypersolver g nets, CNF and tracker fields):
+    one ``dense`` layer per consecutive pair of ``dims``, drawn from
+    ``gen`` in order. ``final_zero`` zeroes the last kernel, so a
+    correction starts at exactly g == 0."""
+    layers = []
+    for i in range(len(dims) - 1):
+        p = dense_init(gen, dims[i], dims[i + 1], param_dtype, device=device)
+        if final_zero and i == len(dims) - 2:
+            p = {"kernel": torch.zeros_like(p["kernel"])}
+        layers.append(p)
+    return {"layers": layers}
+
+
+def mlp_apply(params, x: torch.Tensor, act=torch.tanh) -> torch.Tensor:
+    """``dense`` layers with ``act`` between them (none after the last)."""
+    layers = params["layers"]
+    h = x
+    for i, lp in enumerate(layers):
+        h = dense(lp, h)
+        if i < len(layers) - 1:
+            h = act(h)
+    return h

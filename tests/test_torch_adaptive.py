@@ -6,7 +6,13 @@ against the JAX package on the CPU (mirrors ``tests/test_adaptive.py``).
 trajectories within 1e-5 (float32; the port reduces the error ratio and
 the convs in another order than XLA). Every accept/reject ratio on both
 sides is recorded and asserted to lie more than 1e-3 from 1, so that
-rounding cannot flip a step decision."""
+rounding cannot flip a step decision.
+
+``odeint_dopri5_batched`` mirrors ``test_batched_matches_per_sample`` and
+``test_batched_nfe_tracks_stiffness`` (float64, as the reference tests
+run them): against the reference's batched function on the same inputs,
+per-row NFE exact and the trajectory within 1e-6; the CNF field
+(``nn/cnf.py``, a ``(z, logp)`` tuple state) runs through it too."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +26,10 @@ from repro.core import controllers as JC
 from repro.data import synthetic_images as jax_images
 from repro.models import conv_node as J
 from repro_torch.convert import nchw_from_nhwc, nhwc_from_nchw, params_from_jax
-from repro_torch.core import FixedGrid, controllers as TC, odeint_dopri5
+from repro.nn import cnf as JCNF
+from repro_torch.core import (FixedGrid, controllers as TC, odeint_dopri5,
+                              odeint_dopri5_batched)
+from repro_torch.nn import cnf as TCNF
 from repro_torch.models import conv_node as T
 
 TRAJ = dict(rtol=1e-5, atol=1e-5)
@@ -158,3 +167,90 @@ def test_dopri5_runs_without_autograd():
                             FixedGrid.over(0.0, 1.0, 2))
     assert not traj[1:].requires_grad
     np.testing.assert_allclose(traj[-1].numpy(), np.exp(-0.5), rtol=1e-5)
+
+
+# ------------------------------------------------------------- batched ----
+
+def _smooth(tanh):
+    return lambda s, z: -z * (1.0 + 0.5 * tanh(z))
+
+
+def test_batched_matches_per_sample():
+    """odeint_dopri5_batched == a loop of per-sample solves, with a
+    per-sample NFE vector, and == the reference's batched solve."""
+    z0 = np.random.RandomState(0).randn(3, 4)
+    grid = FixedGrid.over(0.0, 1.0, 3)
+    traj_b, nfe_b = odeint_dopri5_batched(_smooth(torch.tanh),
+                                          torch.from_numpy(z0), grid,
+                                          atol=1e-6, rtol=1e-6)
+    assert traj_b.shape == (3, 4, 4) and traj_b.dtype == torch.float64
+    assert nfe_b.shape == (3,) and nfe_b.dtype == torch.int32
+    for i in range(3):
+        traj_i, nfe_i = odeint_dopri5(_smooth(torch.tanh),
+                                      torch.from_numpy(z0[i]), grid,
+                                      atol=1e-6, rtol=1e-6)
+        assert int(nfe_b[i]) == nfe_i
+        np.testing.assert_allclose(traj_b[i].numpy(), traj_i.numpy(),
+                                   rtol=1e-6, atol=1e-9)
+    with jax.enable_x64(True):
+        traj_j, nfe_j = jax_adaptive.odeint_dopri5_batched(
+            _smooth(jnp.tanh), jnp.asarray(z0), JaxGrid.over(0.0, 1.0, 3),
+            atol=1e-6, rtol=1e-6)
+        np.testing.assert_array_equal(nfe_b.numpy(), np.asarray(nfe_j))
+        np.testing.assert_allclose(traj_b.numpy(), np.asarray(traj_j),
+                                   rtol=1e-6, atol=1e-9)
+
+
+def test_batched_nfe_tracks_stiffness():
+    """A stiffer sample spends more NFEs than an easy one, as many as the
+    reference's (the stiff row reaches the segment cap)."""
+    z0 = np.asarray([[0.1], [8.0]])                  # easy, stiff
+    traj, nfe = odeint_dopri5_batched(lambda s, z: -z ** 3,
+                                      torch.from_numpy(z0),
+                                      FixedGrid.over(0.0, 1.0, 2),
+                                      atol=1e-7, rtol=1e-7)
+    assert int(nfe[1]) > int(nfe[0]), nfe
+    with jax.enable_x64(True):
+        traj_j, nfe_j = jax_adaptive.odeint_dopri5_batched(
+            lambda s, z: -z ** 3, jnp.asarray(z0), JaxGrid.over(0.0, 1.0, 2),
+            atol=1e-7, rtol=1e-7)
+        np.testing.assert_array_equal(nfe.numpy(), np.asarray(nfe_j))
+        np.testing.assert_allclose(traj.numpy(), np.asarray(traj_j),
+                                   rtol=1e-6, atol=1e-9)
+
+
+def test_batched_cnf_field_matches_reference():
+    """The CNF's exact-trace field on its ``(z, logp)`` tuple (carried
+    params scaled 2.5x so rows differ in their step sequences), float64:
+    per-row NFE exact, trajectories within 1e-6; rows agree with the
+    lock-step solve's endpoints to the solver's tolerance."""
+    with jax.enable_x64(True):
+        jp = JCNF.cnf_mlp_init(jax.random.PRNGKey(0), hidden=(16, 16),
+                               param_dtype=jnp.float64)
+        jp = jax.tree_util.tree_map(lambda l: l * 2.5, jp)
+        z0 = 1.5 * np.random.RandomState(3).randn(12, 2)
+        state_j = (jnp.asarray(z0), jnp.zeros(12))
+        traj_j, nfe_j = jax_adaptive.odeint_dopri5_batched(
+            JCNF.exact_trace_dynamics(jp), state_j, JaxGrid.over(0.0, 1.0, 2),
+            atol=1e-5, rtol=1e-5)
+        traj_j = [np.asarray(l) for l in traj_j]
+        nfe_j = np.asarray(nfe_j)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    aug = TCNF.exact_trace_dynamics(tp)
+    state = (torch.from_numpy(z0), torch.zeros(12, dtype=torch.float64))
+    traj, nfe = odeint_dopri5_batched(aug, state, FixedGrid.over(0.0, 1.0, 2),
+                                      atol=1e-5, rtol=1e-5)
+    assert traj[0].shape == (12, 3, 2) and traj[1].shape == (12, 3)
+    assert len(set(nfe.tolist())) > 1, nfe
+    np.testing.assert_array_equal(nfe.numpy(), nfe_j)
+    for a, b in zip(traj_j, traj):
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=1e-9)
+    lock, _ = odeint_dopri5(aug, state, FixedGrid.over(0.0, 1.0, 2),
+                            atol=1e-5, rtol=1e-5)
+    assert float((traj[0][:, -1] - lock[0][-1]).abs().max()) < 1e-3
+
+
+def test_batched_refuses_batched_eps():
+    with pytest.raises(ValueError, match="scalar-eps"):
+        odeint_dopri5_batched(lambda s, z: z, torch.ones(2, 2),
+                              FixedGrid.over_batched(0.0, [1.0, 2.0], 2))
