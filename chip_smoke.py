@@ -69,6 +69,16 @@ the batched dopri5 agreeing with the lock-step one checked; and the
 trajectory-fitting tracker (``phase_tracking``:
 ``benchmarks/bench_trajectory.py``'s protocol), with HyperEuler beating
 Euler at K 16 and fused equal to unfused with K launches checked.
+After the three dense families, full-width ``olmoe_1b_7b`` (16 moe
+layers, 64 experts top-8, ~13.8 GB in bf16; ``phase_serve_olmoe``):
+served through the CLI and the engine with hyper_euler, in flight, and
+decoded through the CLI's default, its decode held to a chain of decode
+steps (expert routing is not row independent, so a forward is another
+function), each dispatch's dropped fraction printed; then
+``phase_cdepth_lm`` (``benchmarks/bench_cdepth_lm.py``'s protocol):
+a reduced LM trained by ``lm_loss``, a HyperEuler g fitted per K by
+``cdepth_residual_loss``, hyper_euler's KL below euler's checked, and
+the K 4 g saved, restored and served by the engine.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -77,8 +87,10 @@ when no CUDA device is available or the port's sources are missing.
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -106,15 +118,16 @@ from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     FixedGrid, FlowTrainConfig, HypersolverTrainConfig, Integrator,
-    NeuralODE, depth_like, make_fit_step, make_integrator, odeint_dopri5,
+    NeuralODE, make_fit_step, make_integrator, odeint_dopri5,
     odeint_dopri5_batched, residual_fitting_loss, train_flowhead,
     train_hypersolver)
-from repro_torch.data import density_sampler, synthetic_images  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    density_sampler, synthetic_images, token_batches)
 from repro_torch.distributed.fault import FaultInjector, _hash01  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
-    load_flow_params, snap_to_buckets)
+    load_flow_params, load_g_params, snap_to_buckets)
 from repro_torch.launch.refinery import (  # noqa: E402
     Refinery, RefineryConfig, ResidualLedger)
 from repro_torch.launch.scheduler import InflightScheduler  # noqa: E402
@@ -126,7 +139,8 @@ from repro_torch.models.cdepth import (  # noqa: E402
 from repro_torch.models import conv_node  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
 from repro_torch.nn.cnf import (  # noqa: E402
-    cnf_log_prob, cnf_mlp_init, cnf_sample, exact_trace_dynamics)
+    cnf_log_prob, cnf_mlp_init, cnf_sample, depth_column,
+    exact_trace_dynamics)
 from repro_torch.nn.module import (  # noqa: E402
     mlp_apply, mlp_init, truncated_normal_init)
 from repro_torch.optim import adamw  # noqa: E402
@@ -137,9 +151,10 @@ GEN = 32                        # tokens each decode phase generates
 # between the sound runs' largest reading and the planted fault's
 # (``lost_cache_writes``) smallest, read by tools/decode_limits.py on the
 # H100 (PERF.md section 6). bf16 readings differ by model, so each has
-# its own: sound 7.8e-3 / 4.0e-4 / 4.3e-2, fault 0.18 / 7.9e-3 / 1.09.
+# its own: sound 7.8e-3 / 4.0e-4 / 4.3e-2 / 8.7e-2, fault 0.18 / 7.9e-3 /
+# 1.09 / 0.249 (OLMoE against a chain of decode steps, five seeds).
 BF16_DECODE_TOL = {"qwen3_4b": 3e-2, "recurrentgemma_2b": 2e-3,
-                   "rwkv6_1p6b": 0.2}
+                   "rwkv6_1p6b": 0.2, "olmoe_1b_7b": 0.15}
 # float32 at these depths (Griffin: two groups of rec, rec, attn): sound
 # <= 4.0e-6, fault >= 3.6e-3
 FP32_DECODE_TOL = 1e-4
@@ -371,8 +386,9 @@ def attention_pairs(S_len, causal, window):
 # name, (B, S, H, KV, hd), dtype, window: the serving shapes of both
 # models (Griffin's local window does not bind at S 128), float16 and
 # float32 at the Qwen3 shape (the fused-vs-unfused phase runs float32),
-# a window that binds, and ragged S with windows whose first visited tile
-# is fully masked
+# a window that binds, ragged S with windows whose first visited tile
+# is fully masked, OLMoE's serving shape (MHA 16/16) and the training
+# shape of phase_cdepth_lm's reduced LM (float32, hd 16)
 FLASH_CASES = [
     ("griffin", (8, 128, 10, 1, 256), torch.bfloat16, 2048),
     ("qwen3", (8, 128, 32, 8, 128), torch.bfloat16, None),
@@ -381,6 +397,8 @@ FLASH_CASES = [
     ("window-binds", (1, 4096, 10, 1, 256), torch.bfloat16, 2048),
     ("ragged", (2, 200, 10, 1, 256), torch.bfloat16, 130),
     ("ragged-fp32", (2, 200, 32, 8, 128), torch.float32, 40),
+    ("olmoe", (8, 128, 16, 16, 128), torch.bfloat16, None),
+    ("cdepth-lm", (8, 64, 4, 2, 16), torch.float32, None),
 ]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
 
@@ -589,9 +607,9 @@ def count_blocks():
     counts = collections.Counter()
     orig = lm.block_apply
 
-    def counted(p, cfg, kind, h, cache=None):
+    def counted(p, cfg, kind, *args, **kwargs):
         counts[kind] += 1
-        return orig(p, cfg, kind, h, cache)
+        return orig(p, cfg, kind, *args, **kwargs)
 
     for mod in (lm, cdepth):
         mod.block_apply = counted
@@ -679,10 +697,10 @@ def serve_cli(arch, *extra):
 
 
 def check_block_launches(launches, blocks, tag):
-    """Every attention block application launched flash_attention once,
-    every Griffin recurrent block application rglru_scan once, every
-    RWKV6 block application rwkv6_scan once."""
-    for kernel, kinds in (("flash_attention", ("dense", "attn")),
+    """Every attention block application (dense, attn, moe) launched
+    flash_attention once, every Griffin recurrent block application
+    rglru_scan once, every RWKV6 block application rwkv6_scan once."""
+    for kernel, kinds in (("flash_attention", ("dense", "attn", "moe")),
                           ("rglru_scan", ("rec",)),
                           ("rwkv6_scan", ("rwkv",))):
         applied = sum(blocks.get(k, 0) for k in kinds)
@@ -1000,7 +1018,10 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
     the serve phase's). Every segment runs hyper_step once per step, every
     block application its kernel. Before the counted runs, the drain
     engine serves the same prompts (the reference for K, nfe and logits)
-    and both loops run once more with their host syncs counted."""
+    and both loops run once more with their host syncs counted. A MoE
+    model's counted runs also record the dropped fraction of every
+    dispatch (``moe_drops``)."""
+    torch.cuda.reset_peak_memory_stats(dev)
     prompts = inflight_prompts(cfg, prompt)
     ecfg = EngineConfig(buckets=tuple(int(b) for b in BUCKETS.split(",")),
                         tol=tol, max_batch=B, solver="euler", fused=True)
@@ -1019,7 +1040,8 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
         del counted
 
     LAUNCHES.clear()
-    with count_blocks() as blocks:
+    with count_blocks() as blocks, (moe_drops() if cfg.n_experts else
+                                    contextlib.nullcontext()) as drops:
         sync_sched, sync_rep, sync_s = run_inflight(model, ecfg, prompts,
                                                     False)
         # not timed: the overlap run then finds the pinned cache the sync
@@ -1072,7 +1094,9 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
          drain_K=[r.K for r in drain],
          drain_err_over_tol=[r.err_probe / tol for r in drain],
          launches=launches, expected_hyper_step_launches=dispatches * SEG,
-         block_applications=blocks, **checked)
+         block_applications=blocks, **checked,
+         moe_dropped=drop_summary(drops) if drops else None,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     del drain, sync_rep, over_rep
     torch.cuda.empty_cache()
     return launches
@@ -1569,7 +1593,7 @@ def expected_decode_launches(cfg, gen):
     each of the gen - 1 decode steps; no solver step."""
     pattern, n_groups, tail = lm.group_layout(cfg)
     kinds = collections.Counter(pattern * n_groups + pattern[:tail])
-    return {"flash_attention": kinds["dense"] + kinds["attn"],
+    return {"flash_attention": kinds["dense"] + kinds["attn"] + kinds["moe"],
             "rglru_scan": kinds["rec"], "rwkv6_scan": kinds["rwkv"] * gen,
             "hyper_step": 0}
 
@@ -1626,17 +1650,36 @@ def forward_logits(params, cfg, tokens, start, w):
     """The readout of ``lm_forward``'s hidden states from position
     ``start`` on (the same function as ``lm_forward(tokens)[0][:,
     start:]``, with the readout at the shape the decode path uses)."""
-    h = lm._blocks(params, cfg, lm._embed(params, cfg, tokens))
+    h, _ = lm._blocks(params, cfg, lm._embed(params, cfg, tokens))
     return lm._readout(params, cfg, h[:, start:], w)
+
+
+def decode_chain_logits(params, cfg, tokens, start, w):
+    """The logits from position ``start`` on of one ``lm_decode_step`` per
+    position from an empty cache: the reference's own prefill (a scan of
+    decode steps) and decode. For a MoE model this is the teacher-forced
+    yardstick: each step routes its B tokens with the decode rule, where
+    the forward routes all B·S tokens together at the training capacity
+    (a different function wherever either drops a slot)."""
+    caches = lm.init_lm_cache(cfg, tokens.shape[0], tokens.shape[1],
+                              device=tokens.device)
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, caches = lm.lm_decode_step(params, cfg, tokens[:, t], caches,
+                                           t, readout_w=w)
+        out.append(logits)
+    return torch.stack(out[start:], dim=1)
 
 
 def teacher_forced_err(params, cfg, prompt, logits, toks, w):
     """Largest |decode logit - teacher-forced logit| over the largest
-    |teacher-forced logit|: the forward runs the prompt and every
-    generated token but the last, and its positions P-1.. are the
-    logits the generate produced at each step."""
+    |teacher-forced logit|: the forward (a MoE model: the decode-step
+    chain, ``decode_chain_logits``) runs the prompt and every generated
+    token but the last, and its positions P-1.. are the logits the
+    generate produced at each step."""
     seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
-    full = forward_logits(params, cfg, seq, prompt.shape[1] - 1, w)
+    tf = decode_chain_logits if cfg.n_experts else forward_logits
+    full = tf(params, cfg, seq, prompt.shape[1] - 1, w)
     return float((logits - full).abs().max() / full.abs().max())
 
 
@@ -1661,17 +1704,37 @@ def decode_breakdown(params, cfg, prompt, gen, dev):
     """The generate's pieces, run again outside the counted window
     (``generate_logits``): prefill ms, raising unless its logits equal the
     readout of ``lm_forward``'s hidden states at the last position bit for
-    bit; decode ms per token, raising unless every logit is finite; the
-    bf16 decode logits held to a teacher-forced forward (``check_decode``,
-    the model's ``BF16_DECODE_TOL``); and one step's float32 readout
-    (median of CUDA-event timings)."""
+    bit (a MoE model's: of the full-sequence stack that fills the caches,
+    each position routed as a decode step); decode ms per token, raising
+    unless every logit is finite; the bf16 decode logits held to a
+    teacher-forced forward (``check_decode``, the model's
+    ``BF16_DECODE_TOL``); and one step's float32 readout (median of
+    CUDA-event timings). A MoE model's dropped fractions are read for
+    both dispatches: the decode steps' and prefill positions' (einsum,
+    C = ceil(k B 2 / E)) and a forward's over the same tokens (sorted,
+    C from all B·S tokens at the config's factor)."""
     dt = lm.dtype_of(cfg.dtype)
     toks = torch.as_tensor(prompt, device=dev)
+    drops = {}
     with torch.no_grad():
         w = lm.readout_weight(params, cfg, dt)
-        logits, gen_toks, prefill_ms, step_ms = generate_logits(
-            params, cfg, toks, gen, w)
-        last = forward_logits(params, cfg, toks, -1, w)[:, 0]
+        with (moe_drops() if cfg.n_experts else
+              contextlib.nullcontext()) as dec_drops:
+            logits, gen_toks, prefill_ms, step_ms = generate_logits(
+                params, cfg, toks, gen, w)
+        if cfg.n_experts:
+            caches = lm.init_lm_cache(cfg, toks.shape[0], toks.shape[1],
+                                      device=dev)
+            h, _ = lm._blocks(params, cfg, lm._embed(params, cfg, toks),
+                              caches)
+            last = lm._readout(params, cfg, h[:, -1:], w)[:, 0]
+            del caches, h
+            seq = torch.cat([toks, gen_toks[:, :-1].to(toks.dtype)], dim=1)
+            with moe_drops() as fwd_drops:
+                forward_logits(params, cfg, seq, -1, w)
+            drops = {**drop_summary(dec_drops), **drop_summary(fwd_drops)}
+        else:
+            last = forward_logits(params, cfg, toks, -1, w)[:, 0]
         if not torch.equal(logits[:, 0], last):
             diff = float((logits[:, 0] - last).abs().max())
             raise AssertionError(
@@ -1694,7 +1757,8 @@ def decode_breakdown(params, cfg, prompt, gen, dev):
             times.append(start.elapsed_time(end))
     del w
     return dict(prefill_ms=prefill_ms, decode_ms_per_token=step_ms,
-                readout_ms_per_step=float(np.median(times[5:])), **checked)
+                readout_ms_per_step=float(np.median(times[5:])), **checked,
+                moe_dropped=drops or None)
 
 
 def phase_decode(dev, bandwidth, cfg, run):
@@ -1704,8 +1768,9 @@ def phase_decode(dev, bandwidth, cfg, run):
     seconds, params, prompt); its kernel launches are counted and must be
     exactly ``expected_decode_launches``. Then ``decode_breakdown`` times
     the pieces and holds the prefill and the decode logits to the
-    forward. The bound per token is the weights' bytes (2 B a parameter,
-    each read once a step) over the card's memory rate."""
+    forward. The bound per token is the resident weights' bytes (each
+    read once a step; a MoE decode step reads every expert's) over the
+    card's memory rate."""
     torch.cuda.reset_peak_memory_stats(dev)
     LAUNCHES.clear()
     toks, seconds, params, prompt = run()
@@ -1721,25 +1786,27 @@ def phase_decode(dev, bandwidth, cfg, run):
                              f"of range [0, {cfg.vocab})")
     pieces = decode_breakdown(params, cfg, prompt, GEN, dev)
     n_params = lm.count_params(params)
+    weight_bytes = sum(l.numel() * l.element_size()
+                       for l in pytree.tree_leaves(params))
     emit(phase="decode", arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
          gen=GEN, seconds=seconds, tok_per_s=B * GEN / seconds,
          launches=launches, expected_launches=expected, **pieces,
-         params=n_params,
-         weight_bytes_bound_ms_per_token=2 * n_params / bandwidth * 1e3,
+         params=n_params, weight_bytes=weight_bytes,
+         weight_bytes_bound_ms_per_token=weight_bytes / bandwidth * 1e3,
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          sample=toks[0, :8].tolist())
     return launches
 
 
-def phase_decode_qwen(dev, bandwidth):
-    """Full-width qwen3_4b through the serving CLI with no --solver: the
+def phase_decode_cli(dev, bandwidth, arch):
+    """Full-width ``arch`` through the serving CLI with no --solver: the
     default, the cached decode path."""
     def run():
-        out = serve.main(["--arch", "qwen3_4b", "--batch", str(B),
+        out = serve.main(["--arch", arch, "--batch", str(B),
                           "--prompt-len", str(S), "--gen", str(GEN)])
         return out["tokens"], out["seconds"], out["params"], out["prompt"]
-    launches = phase_decode(dev, bandwidth, get("qwen3_4b"), run)
+    launches = phase_decode(dev, bandwidth, get(arch), run)
     torch.cuda.empty_cache()
     return launches
 
@@ -1784,6 +1851,331 @@ def phase_decode_fp32(dev):
         del params, w, logits
         torch.cuda.empty_cache()
     emit(phase="decode_fp32", batch=B, prompt_len=S, gen=GEN, **report)
+
+
+# ------------------------------------------------------------------ OLMoE ----
+# Full-width olmoe_1b_7b (arXiv:2409.02060: 16 moe layers, d 2048, MHA 16/16
+# of 128 with qk-norm, 64 experts top-8 of d_ff 1024; ~6.9 B parameters,
+# ~13.8 GB in bf16) on the 8 x 128 prompts the other families serve. Expert
+# routing is not row independent: a drain row routes its 128 tokens alone
+# (C = 20 slots an expert), a decode step its 8 tokens (C = 2), a full
+# forward all 1,024 (C = 160).
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Records, while open, the dropped fraction of every MoE dispatch the
+    model code makes, keyed by dispatch and grouping: ``einsum/position``
+    (``moe_apply``: decode steps and prefill positions), ``sorted/all``
+    (``moe_apply_sorted`` over a whole batch: forwards, probes) and
+    ``sorted/row`` (each row alone: multi-rate steps and segments). It
+    wraps the names models/lm.py calls; the package keeps no such
+    record."""
+    drops = collections.defaultdict(list)
+    orig = {"einsum": lm.moe_apply, "sorted": lm.moe_apply_sorted}
+
+    def recorded(kind):
+        def call(*args, **kwargs):
+            out = orig[kind](*args, **kwargs)
+            drops[f"{kind}/{kwargs.get('groups', 'all')}"].append(
+                out.fraction_dropped)
+            return out
+        return call
+
+    lm.moe_apply, lm.moe_apply_sorted = recorded("einsum"), recorded("sorted")
+    try:
+        yield drops
+    finally:
+        lm.moe_apply, lm.moe_apply_sorted = orig["einsum"], orig["sorted"]
+
+
+def drop_summary(drops):
+    """Dispatches, mean and largest dropped fraction, by ``moe_drops``
+    key."""
+    out = {}
+    for key, fracs in sorted(drops.items()):
+        f = torch.stack(fracs).float().cpu().numpy()
+        out[key] = dict(dispatches=len(fracs), mean=float(f.mean()),
+                        max=float(f.max()))
+    return out
+
+
+def phase_serve_olmoe(dev):
+    """A main path: full-width olmoe_1b_7b served through the CLI (euler,
+    multi-rate over buckets 2,4,8, fused; K mixed by a calibration drain
+    first) and the engine (hyper_euler with a seeded g, its tolerance
+    from this run's probe errors), each window counted: every moe block's
+    attention runs flash_attention, every solver step hyper_step, and
+    nothing else runs. Prints the drain walls and breakdown, mean NFE and
+    agreement with the full forward, the dropped fractions and peak
+    memory. Agreement falls short of 1.0 even where K reaches the depth:
+    a drain row routes alone (C 20) where the forward routes the batch
+    (C 160), as in the reference."""
+    arch = "olmoe_1b_7b"
+    cfg = get(arch)
+    with moe_drops() as drops:
+        report, launches, blocks, params, prompt = serve_counted(dev, arch)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gp = lm_g_init(gen, cfg, rank=32, device=dev)
+    gp["w_out"] = truncated_normal_init(gen, gp["w_out"].shape, 0.02,
+                                        gp["w_out"].dtype, dev)
+    with torch.no_grad():
+        tol = straddling_tol(hyper_engine(params, cfg, gp, 1e-2)
+                             .probe(prompt)[1])
+        full_top = lm.lm_forward(params, cfg, torch.as_tensor(
+            prompt, device=dev))[0].argmax(-1).cpu().numpy()
+    LAUNCHES.clear()
+    with count_blocks() as hyper_blocks, torch.no_grad():
+        engine = hyper_engine(params, cfg, gp, tol)
+        hyper, hyper_ms = synced_ms(lambda: engine.run(prompt))
+    hyper_launches, hyper_blocks = dict(LAUNCHES), dict(hyper_blocks)
+    check_served(hyper, f"{arch} engine hyper_euler")
+    expected = packed_k_max_sum(hyper, engine.ecfg.max_batch)
+    if hyper_launches.get("hyper_step", 0) != expected:
+        raise AssertionError(f"{arch} hyper_euler: hyper_step launched "
+                             f"{hyper_launches.get('hyper_step', 0)} times, "
+                             f"the solver steps were {expected}")
+    check_block_launches(hyper_launches, hyper_blocks, f"{arch} hyper_euler")
+    total = collections.Counter(launches) + collections.Counter(
+        hyper_launches)
+    if set(blocks) | set(hyper_blocks) != {"moe"} or total["rglru_scan"] \
+            or total["rwkv6_scan"] or not total["flash_attention"]:
+        raise AssertionError(f"{arch}: blocks {blocks} {hyper_blocks}, "
+                             f"launches {dict(total)}: only moe blocks, "
+                             "flash_attention and hyper_step should run")
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    emit(**report, hyper_euler=dict(
+        seconds=hyper_ms / 1e3, tol=tol, K=[r.K for r in hyper],
+        mean_nfe=float(np.mean([r.nfe for r in hyper])),
+        agree=float(np.mean([np.mean(np.argmax(r.outputs, -1)
+                                     == full_top[i])
+                             for i, r in enumerate(hyper)])),
+        launches=hyper_launches, expected_hyper_step_launches=expected,
+        block_applications=hyper_blocks),
+        moe_dropped=drop_summary(drops),
+        weight_bytes=sum(l.numel() * l.element_size()
+                         for l in pytree.tree_leaves(params)))
+    del engine, gp, hyper
+    torch.cuda.empty_cache()
+    return dict(total), params, prompt, report["euler"]["tol"]
+
+
+# ----------------------------------------------------- LM hypersolver fit ----
+# benchmarks/bench_cdepth_lm.py's "small" budget on the port, float32 on
+# the card: reduced qwen3_4b at 8 layers trained by 150 AdamW steps of
+# lm_loss on the synthetic token stream, then for each K a rank-32
+# HyperEuler correction fitted by 80 iterations of cdepth_residual_loss,
+# and the bench's rows (argmax agreement, logit MAE, KL against full
+# depth) for euler and hyper_euler. The K 4 correction then goes through
+# the port's CheckpointManager and --g-ckpt's loader and is served at K 4
+# by the drain engine.
+CDEPTH_LM_STEPS, CDEPTH_LM_FIT_ITERS = 150, 80
+CDEPTH_LM_KS, CDEPTH_LM_RANK, CDEPTH_LM_SERVE_K = (1, 2, 4, 8), 32, 4
+
+
+def cdepth_lm_cfg():
+    """bench_cdepth_lm._cfg: reduced qwen3_4b at 8 layers (float32, d 64,
+    4 heads of 16 over 2 kv heads)."""
+    return dataclasses.replace(get("qwen3_4b").reduced(), n_layers=8)
+
+
+def train_cdepth_lm(params, steps):
+    """bench_cdepth_lm.train_small_lm from ``params``: AdamW 1e-3 steps of
+    ``lm_loss``, gradients clipped to global norm 1.0, on
+    token_batches(vocab, 8, 64, seed=3). Returns (params, losses)."""
+    cfg = cdepth_lm_cfg()
+    opt = adamw(1e-3)
+    step = make_fit_step(lambda p, x, y: lm.lm_loss(p, cfg, x, y)[0], opt,
+                         1.0)
+    st = opt.init(params)
+    it = token_batches(cfg.vocab, 8, 64, seed=3,
+                       device=params["embed"]["table"].device)
+    losses = []
+    for i in range(steps):
+        toks, tgts = next(it)
+        params, st, loss = step(params, st, i, toks, tgts)
+        losses.append(loss)
+    return params, [float(l) for l in losses]
+
+
+def fit_cdepth_g(params, gp, K, iters):
+    """The bench's fit at mesh length K from ``gp``: AdamW 3e-3 steps of
+    ``cdepth_residual_loss``, clipped to global norm 1.0, on
+    token_batches(vocab, 4, 32, seed=13) with a new batch every 10
+    iterations (the stream's first batch is drawn and passed over, as
+    there). Returns (g params, losses)."""
+    cfg = cdepth_lm_cfg()
+    opt = adamw(3e-3)
+    step = make_fit_step(
+        lambda g, b: cdepth.cdepth_residual_loss(params, g, cfg, b, K), opt,
+        1.0)
+    st = opt.init(gp)
+    it = token_batches(cfg.vocab, 4, 32, seed=13,
+                       device=params["embed"]["table"].device)
+    batch, _ = next(it)
+    losses = []
+    for i in range(iters):
+        if i % 10 == 0:
+            batch, _ = next(it)
+        gp, st, loss = step(gp, st, i, batch)
+        losses.append(loss)
+    return gp, [float(l) for l in losses]
+
+
+def cdepth_lm_rows(params, gps, toks):
+    """bench_cdepth_lm.main's rows, unrounded: for each K (``gps`` maps K
+    to its correction), euler and hyper_euler through
+    ``lm_forward_cdepth`` against the full-depth forward on ``toks``."""
+    cfg = cdepth_lm_cfg()
+    n_groups = lm.group_layout(cfg)[1]
+    full, _ = lm.lm_forward(params, cfg, toks)
+    lp_full = torch.log_softmax(full, -1)
+    rows = []
+    for K, gp in gps.items():
+        for g in (None, gp):
+            out = cdepth.lm_forward_cdepth(params, cfg, toks, K=K,
+                                           solver="euler", g_params=g)
+            lp = torch.log_softmax(out, -1)
+            rows.append(dict(
+                bench="cdepth_lm",
+                solver="euler" if g is None else "hyper_euler", K=K,
+                full_depth_groups=n_groups, nfe_fraction=K / n_groups,
+                argmax_agreement=float(
+                    (full.argmax(-1) == out.argmax(-1)).float().mean()),
+                logit_mae=float((full - out).abs().mean()),
+                kl_vs_full_depth=float(torch.mean(torch.sum(
+                    lp_full.exp() * (lp_full - lp), -1)))))
+    return rows
+
+
+def check_cdepth_lm(train_losses, fit_losses, rows):
+    """Raises unless the training loss and the fit loss of every K short
+    of the depth fall (mean of the last 10 below the first 10; at full
+    depth Euler is exact, the target residual zero) and hyper_euler's KL
+    is below euler's at every K short of the depth."""
+    n_groups = rows[0]["full_depth_groups"]
+    for tag, losses in [("lm_loss", train_losses)] + [
+            (f"fit K={K}", l) for K, l in fit_losses.items()
+            if K < n_groups]:
+        if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+            raise AssertionError(f"cdepth_lm {tag}: loss did not fall "
+                                 f"({losses[:3]} .. {losses[-3:]})")
+    kl = {(r["solver"], r["K"]): r["kl_vs_full_depth"] for r in rows}
+    for K in sorted({r["K"] for r in rows}):
+        if K < n_groups and not kl["hyper_euler", K] < kl["euler", K]:
+            raise AssertionError(f"cdepth_lm K={K}: hyper_euler KL "
+                                 f"{kl['hyper_euler', K]} not below euler's "
+                                 f"{kl['euler', K]}")
+
+
+def serve_saved_g(params, gp, toks, K, ckpt_dir):
+    """The fitted correction through the port's ``CheckpointManager`` and
+    ``load_g_params`` (``--g-ckpt``'s loader), raising unless it comes
+    back bit for bit, then served at K by the drain engine (hyper_euler,
+    fixed K, fused) on the trained params. Returns (the completions, the
+    restored g)."""
+    cfg = cdepth_lm_cfg()
+    CheckpointManager(ckpt_dir).save(CDEPTH_LM_FIT_ITERS, gp, wait=True)
+    dev = params["embed"]["table"].device
+    restored = load_g_params(ckpt_dir, cfg, rank=CDEPTH_LM_RANK, device=dev)
+    if sorted(restored) != sorted(gp) or not all(
+            torch.equal(restored[k], gp[k]) for k in gp):
+        raise AssertionError("cdepth_lm: the restored g differs from the "
+                             "saved one")
+    engine = MultiRateEngine(
+        lm_depth_model(params, cfg, solver="hyper_euler", g_params=restored,
+                       fused=True),
+        EngineConfig(buckets=(K,), controller="fixed", fixed_K=K,
+                     max_batch=toks.shape[0], solver="hyper_euler",
+                     fused=True))
+    with torch.no_grad():
+        return engine.run(toks.cpu().numpy()), restored
+
+
+def phase_cdepth_lm(dev):
+    """A main path (ROADMAP item 16, the LM hypersolver fitted by the
+    paper's residual loss): ``benchmarks/bench_cdepth_lm.py``'s small
+    budget on the card, float32 (``train_cdepth_lm``, ``fit_cdepth_g``,
+    ``cdepth_lm_rows``), raising unless the losses fall and hyper_euler's
+    KL beats euler's below full depth (``check_cdepth_lm``). Training
+    runs flash_attention's forward in every block of every step (its
+    gradient is the plain version's). Then ``serve_saved_g``: the K 4 g
+    saved, restored and served by the engine, whose launches are counted
+    (hyper_step once per solver step, flash_attention once per block),
+    raising unless its argmax agreement with the full forward equals the
+    K 4 hyper_euler row's."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = cdepth_lm_cfg()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    LAUNCHES.clear()
+    (params, train_losses), train_ms = synced_ms(
+        lambda: train_cdepth_lm(params, CDEPTH_LM_STEPS))
+    train_flash = LAUNCHES["flash_attention"]
+    if train_flash != CDEPTH_LM_STEPS * cfg.n_layers:
+        raise AssertionError(f"cdepth_lm training: flash_attention launched "
+                             f"{train_flash} times, the blocks were "
+                             f"{CDEPTH_LM_STEPS * cfg.n_layers}")
+    gps, fit_losses, fit_ms = {}, {}, {}
+    for K in CDEPTH_LM_KS:
+        gp = lm_g_init(torch.Generator(device=dev).manual_seed(2), cfg,
+                       rank=CDEPTH_LM_RANK, param_dtype=torch.float32,
+                       device=dev)
+        (gps[K], fit_losses[K]), fit_ms[K] = synced_ms(
+            lambda: fit_cdepth_g(params, gp, K, CDEPTH_LM_FIT_ITERS))
+    toks, _ = next(token_batches(cfg.vocab, 4, 32, seed=11, device=dev))
+    with torch.no_grad():
+        rows = cdepth_lm_rows(params, gps, toks)
+        full = lm.lm_forward(params, cfg, toks)[0]
+        row_logits = cdepth.lm_forward_cdepth(
+            params, cfg, toks, K=CDEPTH_LM_SERVE_K, solver="euler",
+            g_params=gps[CDEPTH_LM_SERVE_K])
+    check_cdepth_lm(train_losses, fit_losses, rows)
+
+    ckpt = os.path.join(BUILD, "cdepth_lm_g")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        served, _ = serve_saved_g(params, gps[CDEPTH_LM_SERVE_K], toks,
+                                  CDEPTH_LM_SERVE_K, ckpt)
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    shutil.rmtree(ckpt)
+    if launches.get("hyper_step", 0) != CDEPTH_LM_SERVE_K:
+        raise AssertionError(f"cdepth_lm serve: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, the "
+                             f"solver steps were {CDEPTH_LM_SERVE_K}")
+    check_block_launches(launches, blocks, "cdepth_lm serve")
+    top = full.argmax(-1).cpu().numpy()
+    agree = float(np.mean([np.mean(np.argmax(r.outputs, -1) == top[i])
+                           for i, r in enumerate(served)]))
+    row = next(r for r in rows if r["K"] == CDEPTH_LM_SERVE_K
+               and r["solver"] == "hyper_euler")
+    if agree != row["argmax_agreement"] or any(
+            r.status != "ok" or r.K != CDEPTH_LM_SERVE_K for r in served):
+        raise AssertionError(f"cdepth_lm serve: agreement {agree}, the "
+                             f"row's {row['argmax_agreement']}; "
+                             f"{[(r.status, r.K) for r in served]}")
+    emit(phase="cdepth_lm", cfg=dict(arch=cfg.name, layers=cfg.n_layers,
+                                     d_model=cfg.d_model, dtype=cfg.dtype),
+         train_steps=CDEPTH_LM_STEPS, fit_iters=CDEPTH_LM_FIT_ITERS,
+         rank=CDEPTH_LM_RANK, rows=rows,
+         train_loss=dict(first=train_losses[:3], last=train_losses[-3:]),
+         fit_loss={K: dict(first=l[:3], last=l[-3:])
+                   for K, l in fit_losses.items()},
+         train_ms_per_step=train_ms / CDEPTH_LM_STEPS,
+         fit_ms_per_iter={K: ms / CDEPTH_LM_FIT_ITERS
+                          for K, ms in fit_ms.items()},
+         train_flash_launches=train_flash,
+         served=dict(K=CDEPTH_LM_SERVE_K, agree=agree,
+                     max_abs_diff_vs_row=float(max(
+                         np.abs(r.outputs - row_logits[i].cpu().numpy())
+                         .max() for i, r in enumerate(served)))),
+         launches=launches, block_applications=blocks,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del params, gps
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------ image classifiers ----
@@ -2082,7 +2474,7 @@ def cnf_g_apply(gp, eps, s, x, state, dstate):
     """The bench's ``_g_apply``."""
     z, _ = state
     dz, dlogp = dstate
-    h = torch.cat([z, dz, dlogp[..., None], depth_like(s, z)], dim=-1)
+    h = torch.cat([z, dz, dlogp[..., None], depth_column(s, z)], dim=-1)
     out = mlp_apply(gp, h, act=torch.tanh)
     return (out[..., :2], out[..., 2])
 
@@ -2358,7 +2750,7 @@ def beta(s):
 def tracker_node():
     """The bench's ``_make_node``: f(s, z) = MLP([z, s]), tanh."""
     def f_apply(p, s, x, z):
-        return mlp_apply(p, torch.cat([z, depth_like(s, z)], -1),
+        return mlp_apply(p, torch.cat([z, depth_column(s, z)], -1),
                          act=torch.tanh)
 
     return NeuralODE(f_apply=f_apply, hx_apply=lambda p, x: x,
@@ -2407,7 +2799,7 @@ def train_tracker(dev, iters, seed=0):
 
 def tracker_g_apply(gp, eps, s, x, z, dz):
     """The bench's ``_g_apply``: g([z, dz, s]), tanh."""
-    return mlp_apply(gp, torch.cat([z, dz, depth_like(s, z)], -1),
+    return mlp_apply(gp, torch.cat([z, dz, depth_column(s, z)], -1),
                      act=torch.tanh)
 
 
@@ -2527,6 +2919,15 @@ def phase_tracking(dev, train_iters=TRACK_TRAIN_ITERS,
     return launches
 
 
+def release_card():
+    """Frees what the dropped models held: a collector pass, then the
+    allocator's cache. Some serving objects form reference cycles, which
+    ``del`` leaves to the collector: without the pass ~17 GB of the three
+    dense models' weights stayed allocated into the OLMoE phases."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2569,10 +2970,11 @@ def main() -> int:
     launches.update(phase_flow(dev, get("qwen3_4b"), params, prompt, tol,
                                ledger, via_cli=True))
     del params, ledger
-    torch.cuda.empty_cache()
+    release_card()
     launches.update(phase_refinery_cli(dev))
-    torch.cuda.empty_cache()
-    launches.update(phase_decode_qwen(dev, bandwidth))
+    release_card()
+    launches.update(phase_decode_cli(dev, bandwidth, "qwen3_4b"))
+    release_card()
     for arch, phase in (("recurrentgemma_2b", phase_serve_griffin),
                         ("rwkv6_1p6b", phase_serve_rwkv6)):
         served, params, prompt, tol = phase(dev)
@@ -2586,6 +2988,16 @@ def main() -> int:
         launches.update(phase_decode_served(dev, bandwidth, arch, params,
                                             prompt))
         del params
+        release_card()
+    served, params, prompt, tol = phase_serve_olmoe(dev)
+    launches.update(served)
+    launches.update(phase_inflight(dev, get("olmoe_1b_7b"), params, prompt,
+                                   tol))
+    del params
+    release_card()
+    launches.update(phase_decode_cli(dev, bandwidth, "olmoe_1b_7b"))
+    release_card()
+    launches.update(phase_cdepth_lm(dev))
     phase_fused_vs_unfused(dev)
     phase_decode_fp32(dev)
     phase_refinery_fp32(dev)

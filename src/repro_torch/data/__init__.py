@@ -1,3 +1,3 @@
 from repro_torch.data.synthetic import (  # noqa: F401
-    DENSITIES, density_sampler, synthetic_images,
+    DENSITIES, density_sampler, synthetic_images, token_batches,
 )

@@ -1,7 +1,8 @@
-"""Deterministic synthetic data — the port of the 2-D densities and
-``synthetic_images`` of ``repro/data/synthetic.py`` (the container is
-offline).
+"""Deterministic synthetic data — the port of ``repro/data/synthetic.py``
+(the container is offline).
 
+* token streams: order-2 Markov sequences over a reduced alphabet, a
+  learnable next-token process for LM training loops;
 * 2-D densities for CNFs: pinwheel / rings / checkerboard / circles (the
   paper's own procedural densities, Sec. 4.2 + Grathwohl et al.);
 * class-conditional stroke/blob renders in MNIST-like (28x28x1) and
@@ -9,9 +10,8 @@ offline).
   natural-image sets.
 
 The numpy code is a copy of the reference's, so a seed gives the same
-points, images and labels in both packages; the port hands images out
-NCHW, its state layout (``nn/conv_blocks.py``). Token streams wait for
-ROADMAP.md queue 1 item 12.
+tokens, points, images and labels in both packages; the port hands
+images out NCHW, its state layout (``nn/conv_blocks.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,31 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+# ------------------------------------------------------------- tokens ----
+
+def token_batches(vocab: int, batch: int, seq_len: int, seed: int = 0,
+                  device=None):
+    """Endless (tokens, next tokens) batches, each (batch, seq_len) int32
+    on ``resolve_device(device)``: an order-2 Markov chain over a reduced
+    alphabet embedded in [0, vocab), the reference's tokens for the same
+    seed."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    alpha = min(vocab, 512)
+    trans = rng.dirichlet(np.full(alpha, 0.05), size=(alpha, alpha))
+    cum = np.cumsum(trans, axis=-1)
+    while True:
+        toks = np.zeros((batch, seq_len + 1), np.int64)
+        toks[:, 0] = rng.integers(0, alpha, batch)
+        toks[:, 1] = rng.integers(0, alpha, batch)
+        u = rng.random((batch, seq_len + 1))
+        for t in range(2, seq_len + 1):
+            c = cum[toks[:, t - 2], toks[:, t - 1]]
+            toks[:, t] = (u[:, t, None] < c).argmax(-1)
+        yield (torch.from_numpy(toks[:, :-1].astype(np.int32)).to(dev),
+               torch.from_numpy(toks[:, 1:].astype(np.int32)).to(dev))
 
 
 # ----------------------------------------------------------- densities ----

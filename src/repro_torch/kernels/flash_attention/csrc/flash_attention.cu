@@ -73,7 +73,11 @@
 //     reduced with two xor shuffles, and each owns hd/4 of the row's fp32
 //     accumulators (64 registers at hd 256) so nothing spills;
 //   * the probabilities go through shared memory (one row per quad) for
-//     P.V, which runs over the V tile with 16-byte reads.
+//     P.V, which runs over the V tile with 16-byte reads;
+//   * it is also instantiated at hd 16 (the reduced LMs whose
+//     continuous-depth hypersolver is fitted on the card), where each
+//     quad lane owns one 4-column chunk; the 16-bit path is not (its
+//     swizzle needs 8 chunks a row), so a 16-bit hd 16 call is refused.
 //
 // Both read q, k and v in place in the (B, S, heads, hd) layout through
 // their strides (no transposes, no padding copies: the TPU wrapper's
@@ -544,6 +548,10 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v, 
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:
+      if (dtype != FA_F32) return cudaErrorInvalidValue;
+      return launch_kernel(flash_attention_kernel<16>, p, B, FA_BQ, FA_THREADS,
+                           fa_smem_bytes<16>(), s);
     case 128: return launch_hd<128>(p, dtype, B, s);
     case 256: return launch_hd<256>(p, dtype, B, s);
     default: return cudaErrorInvalidValue;

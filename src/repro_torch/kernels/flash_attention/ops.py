@@ -8,6 +8,12 @@ launches the CUDA kernel (``csrc/flash_attention.cu``, built by
 bf16 and fp16 run on the tensor cores, float32 on the CUDA cores, one
 launch either way.
 ``LAUNCHES["flash_attention"]`` counts kernel launches, and nothing else.
+
+Gradients: the kernel has no backward. Where autograd needs one (an LM
+trained on the card), the forward is the kernel and the backward
+differentiates the plain version at the same inputs (``_Flash``), which
+is what the reference's training differentiates (its ``mha`` attends
+with plain einsums).
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (128, 256)       # head widths the kernel is instantiated for
-                             # (qwen3_4b's and recurrentgemma_2b's)
+                             # (qwen3_4b's and recurrentgemma_2b's), and
+FP32_HEAD_DIMS = (16,) + HEAD_DIMS   # the reduced LMs' in float32
 MAX_GRID = 65535             # grid.y (heads) and grid.z (batch) limit
 ALIGN_BYTES = 16             # one cp.async / vector load: 8 bf16 or fp16
                              # elements, 4 fp32
@@ -89,16 +96,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError(f"flash_attention: no kernel for dtype {q.dtype} "
                         f"(one of {sorted(map(str, _DTYPE_CODE))})")
     B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
+    dims = FP32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
+    if hd not in dims:
         raise ValueError(f"flash_attention: no kernel for head width {hd} "
-                         f"(one of {HEAD_DIMS})")
+                         f"in {q.dtype} (one of {dims})")
     if B > MAX_GRID or H > MAX_GRID:
         raise ValueError(f"flash_attention: batch {B} or heads {H} > "
                          f"{MAX_GRID}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q, k, v, causal, window) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel():
         launch(out, _aligned(q), _aligned(k), _aligned(v), causal, window)
     return out
+
+
+class _Flash(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        causal, window = ctx.mask
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = attention_ref(*ins, causal=causal, window=window)
+            grads = torch.autograd.grad(out, ins, grad)
+        return (*grads, None, None)
 
 
 def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,

@@ -12,7 +12,8 @@ fallback). Batching/eps policy lives in ``launch/engine.py``.
         --multirate --fused --batch 2 --prompt-len 16
 
 Any ported architecture serves (``qwen3_4b``, ``recurrentgemma_2b``,
-``rwkv6_1p6b``).
+``rwkv6_1p6b``, ``olmoe_1b_7b``; ``llama4_maverick_400b_a17b`` reduced,
+as its full width fits no single card).
 
 solver=discrete (default): standard full-depth cached decode
 (``engine.greedy_generate``): the prompt is prefilled through the port's

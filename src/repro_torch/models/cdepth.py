@@ -10,6 +10,12 @@ n_groups trades NFE for accuracy, and a HyperEuler correction g_omega
 recovers part of the loss. Group selection follows the reference's
 float32 arithmetic exactly: a group index off by one at a mesh point
 changes the answer entirely.
+
+Expert routing is not row independent, so the field keeps the
+reference's call structure for ``moe`` blocks: a scalar depth routes the
+whole batch's tokens in one dispatch; a per-sample ``(B,)`` depth (the
+reference's ``vmap`` over samples) gives every row a dispatch of its own,
+even when every row maps to the same group.
 """
 from __future__ import annotations
 
@@ -28,10 +34,14 @@ from repro_torch.models.lm import (_embed, _readout, block_apply, dtype_of,
 from repro_torch.nn.module import truncated_normal_init
 
 
-def _group_apply(params, cfg: ArchConfig, gp, h):
+def _group_apply(params, cfg: ArchConfig, gp, h, per_row: bool = False):
+    """One group of blocks over h; its aux tree (the ``moe`` blocks') is
+    carried through and dropped, as the reference's."""
     pattern, _, _ = group_layout(cfg)
+    aux = None
     for i, kind in enumerate(pattern):
-        h = block_apply(gp[f"b{i}"], cfg, kind, h)
+        h, aux = block_apply(gp[f"b{i}"], cfg, kind, h, aux,
+                             per_row=per_row)
     return h
 
 
@@ -50,11 +60,14 @@ def depth_field(params, cfg: ArchConfig):
     samples at different depths use different groups in the same step.
     The batch is split by group index — each distinct group runs once on
     its rows and the results scatter back — instead of gathering B copies
-    of a group's weights."""
+    of a group's weights. Under a ``(B,)`` row each ``moe`` block routes
+    every row alone (``block_apply``'s ``per_row``); the other kinds are
+    row independent, so the split leaves them as they were."""
     _, n_groups, _ = group_layout(cfg)
 
-    def run(g: int, h):
-        h_out = _group_apply(params, cfg, group_params(params, g), h)
+    def run(g: int, h, per_row: bool = False):
+        h_out = _group_apply(params, cfg, group_params(params, g), h,
+                             per_row)
         return (n_groups * (h_out - h)).to(h.dtype)
 
     def f(s, h):
@@ -64,12 +77,12 @@ def depth_field(params, cfg: ArchConfig):
         rows = idx.reshape(-1).tolist()
         groups = sorted(set(rows))
         if len(groups) == 1:
-            return run(groups[0], h)
+            return run(groups[0], h, per_row=True)
         out = torch.empty_like(h)
         for g in groups:
             sel = torch.tensor([i for i, r in enumerate(rows) if r == g],
                                device=h.device)
-            out[sel] = run(g, h[sel])
+            out[sel] = run(g, h[sel], per_row=True)
         return out
 
     return f
@@ -195,7 +208,7 @@ def apply_tail(params, cfg: ArchConfig, h):
     """The discrete tail layers + readout shared by every LM serving path."""
     pattern, _, tail = group_layout(cfg)
     for i in range(tail):
-        h = block_apply(params["tail"][f"t{i}"], cfg, pattern[i], h)
+        h, _ = block_apply(params["tail"][f"t{i}"], cfg, pattern[i], h)
     return _readout(params, cfg, h)
 
 

@@ -1,15 +1,18 @@
-"""Causal LM — the ``dense``, ``attn``, ``rec`` and ``rwkv`` block kinds of
-``repro/models/lm.py``.
+"""Causal LM — the ``dense``, ``moe``, ``attn``, ``rec`` and ``rwkv`` block
+kinds of ``repro/models/lm.py``.
 
 The layer stack is a repeating block *pattern*; groups of the pattern are
 parameter-stacked on a leading ``n_groups`` axis (the reference's layout,
 so weights carry across leaf for leaf) and applied in a Python loop. A
 remainder of ``n_layers mod len(pattern)`` becomes explicit tail layers.
-Ported: ``dense`` blocks (attention + FFN, no experts), Griffin's
-``rec`` (RG-LRU recurrence + FFN) and ``attn`` (local attention + FFN)
-blocks, and RWKV-6's ``rwkv`` blocks (time mix + channel mix). MoE
-blocks, learned positions and modality frontends raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Ported: ``dense`` blocks (attention + FFN), ``moe`` blocks (attention +
+mixture of experts, ``nn/moe.py``, with llama4's shared expert beside
+them), Griffin's ``rec`` (RG-LRU recurrence + FFN) and ``attn`` (local
+attention + FFN) blocks, and RWKV-6's ``rwkv`` blocks (time mix +
+channel mix). Learned positions, modality frontends and encoder-decoder
+models raise ``NotImplementedError`` naming their ROADMAP.md item.
+``lm_forward`` returns the MoE aux terms summed over groups (within a
+group ``moe_dropped`` is a max) and ``lm_loss`` weighs them in.
 
 Decode keeps per-block caches with the reference's tree and dtypes: KV
 buffers for attention (a rotating buffer under a window), the conv
@@ -18,7 +21,12 @@ float32 WKV state for ``rwkv``; group caches stack on a leading
 ``n_groups`` axis. ``lm_decode_step`` updates them in place. A prefill
 from position 0 is the full-sequence forward (``block_apply`` with a
 cache), so it runs the port's kernels; its hidden states are those of
-``lm_forward``.
+``lm_forward`` for every kind but ``moe``. Expert routing is not row
+independent (a full expert drops slots), and the reference's prefill is
+a scan of decode steps: so a ``moe`` block in the prefill dispatches
+each position's B tokens alone with the decode step's rule
+(``moe_apply``, capacity factor at least 2), while its attention and
+caches stay full-sequence.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.nn.attention import (NEG_INF, attention_init,
                                      mha, mha_decode, write_kv)
 from repro_torch.nn.ffn import (ffn_apply, ffn_init, rwkv_channel_mix,
                                 rwkv_channel_mix_init)
+from repro_torch.nn.moe import moe_apply, moe_apply_sorted, moe_init
 from repro_torch.nn.module import (dense, dense_init, embedding_init,
                                    rmsnorm, rmsnorm_init)
 from repro_torch.nn.rglru import (causal_conv1d, griffin_recurrent_apply,
@@ -43,20 +52,10 @@ from repro_torch.nn.rwkv6 import (rwkv6_decode_step, rwkv6_init,
 
 Params = Any
 
-_NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1 item 6 (other LM block kinds: MoE)",
-}
-
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
-
-
-def _require_ported(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
 
 
 def _require_plain_lm(cfg: ArchConfig) -> None:
@@ -97,7 +96,6 @@ def discrete_nfe(cfg: ArchConfig) -> int:
 # ------------------------------------------------------------- blocks ----
 
 def block_init(gen, cfg: ArchConfig, kind: str, lead=(), device=None) -> Params:
-    _require_ported(kind)
     pd = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     kw = dict(lead=lead, device=device)
@@ -112,16 +110,22 @@ def block_init(gen, cfg: ArchConfig, kind: str, lead=(), device=None) -> Params:
     if kind == "rec":
         mixer = {"griffin": griffin_recurrent_init(gen, d, cfg.lru_width,
                                                    pd, **kw)}
-    else:   # dense, attn
+    elif kind in ("dense", "attn", "moe"):
         mixer = {"attn": attention_init(gen, d, cfg.n_heads, cfg.n_kv,
                                         cfg.d_head, qk_norm=cfg.qk_norm,
                                         param_dtype=pd, **kw)}
-    return {
-        "ln1": rmsnorm_init(d, pd, **kw),
-        **mixer,
-        "ln2": rmsnorm_init(d, pd, **kw),
-        "ffn": ffn_init(gen, d, cfg.d_ff, cfg.gated_ffn, pd, **kw),
-    }
+    else:
+        raise ValueError(kind)
+    p = {"ln1": rmsnorm_init(d, pd, **kw), **mixer,
+         "ln2": rmsnorm_init(d, pd, **kw)}
+    if kind != "moe":
+        p["ffn"] = ffn_init(gen, d, cfg.d_ff, cfg.gated_ffn, pd, **kw)
+        return p
+    p["moe"] = moe_init(gen, d, cfg.d_ff_expert or cfg.d_ff, cfg.n_experts,
+                        gated=cfg.gated_ffn, param_dtype=pd, **kw)
+    if cfg.shared_expert:
+        p["shared"] = ffn_init(gen, d, cfg.d_ff, cfg.gated_ffn, pd, **kw)
+    return p
 
 
 def _attn_kwargs(cfg: ArchConfig, kind: str) -> Dict:
@@ -134,18 +138,59 @@ def _attn_kwargs(cfg: ArchConfig, kind: str) -> Dict:
                 qk_norm=cfg.qk_norm, use_rope=(cfg.pos == "rope"))
 
 
+def ZERO_AUX(device=None) -> Dict[str, torch.Tensor]:
+    """The MoE aux terms of a stack with no expert block."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("moe_aux", "moe_z", "moe_dropped")}
+
+
+def _moe_ffn(p: Params, cfg: ArchConfig, xn: torch.Tensor, *,
+             decode_rule: bool, per_row: bool):
+    """A ``moe`` block's feed-forward: (its experts plus the shared expert
+    where the config has one, the dispatch's ``MoEOutput``). The
+    full-sequence rule is the sorted dispatch at the config's capacity
+    factor; the decode step's is the einsum dispatch at a factor of at
+    least 2, each position alone."""
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act)
+    if decode_rule:
+        out = moe_apply(p["moe"], xn,
+                        capacity_factor=max(cfg.capacity_factor, 2.0),
+                        groups="position", **kw)
+    else:
+        out = moe_apply_sorted(p["moe"], xn,
+                               capacity_factor=cfg.capacity_factor,
+                               groups="row" if per_row else "all", **kw)
+    y = out.y
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], xn, act=cfg.act)
+    return y, out
+
+
+def _add_aux(aux, out):
+    """``aux`` (a ``ZERO_AUX`` tree when None) with a dispatch's terms
+    added, ``moe_dropped`` as a max."""
+    if aux is None:
+        aux = ZERO_AUX(out.y.device)
+    return {"moe_aux": aux["moe_aux"] + out.aux_loss,
+            "moe_z": aux["moe_z"] + out.router_z_loss,
+            "moe_dropped": torch.maximum(aux["moe_dropped"],
+                                         out.fraction_dropped)}
+
+
 def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
-                cache: Params = None) -> torch.Tensor:
-    """Full-sequence (train / prefill) block application. The reference
-    threads an aux-loss dict through; these block kinds never touch it.
+                aux=None, cache: Params = None, per_row: bool = False):
+    """Full-sequence (train / prefill) block application; returns (h,
+    aux). A ``moe`` block adds its aux terms to ``aux`` (a ``ZERO_AUX``
+    tree made here when None); every other kind passes ``aux`` on as is.
 
     With ``cache`` (the block's decode cache, ``block_cache_init``'s
     layout) the sequence sits at positions 0..S-1: the recurrent blocks
     start from the cache's state (zeros in a fresh cache), and the block
     writes into ``cache``, in place, what decoding position S needs — the
     state that feeding the tokens one by one through ``block_decode``
-    leaves."""
-    _require_ported(kind)
+    leaves; a ``moe`` block then routes as the decode steps would.
+    ``per_row`` dispatches each batch row's tokens alone (a per-sample
+    depth field)."""
     if kind == "rwkv":
         state = None if cache is None else (cache["x_tmix"].to(h.dtype),
                                             cache["S"])
@@ -161,7 +206,7 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
             cache["x_tmix"].copy_(x_tmix)
             cache["S"].copy_(S)
             cache["x_cmix"].copy_(xn[:, -1])
-        return h + rwkv_channel_mix(p["cmix"], xn, x_prev)
+        return h + rwkv_channel_mix(p["cmix"], xn, x_prev), aux
     if kind == "rec":
         state = None if cache is None else (cache["conv"].to(h.dtype),
                                             cache["h"])
@@ -171,7 +216,7 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
             cache["conv"].copy_(conv)
             cache["h"].copy_(h_T)
         h = h + y
-    else:   # dense, attn
+    else:   # dense, attn, moe
         kwargs = _attn_kwargs(cfg, kind)
         a = mha(p["attn"], rmsnorm(p["ln1"], h),
                 return_kv=cache is not None, **kwargs)
@@ -179,7 +224,12 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
             a, (k, v) = a
             _prefill_kv(cache, k, v, kwargs["window"])
         h = h + a
-    return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h), act=cfg.act)
+    xn = rmsnorm(p["ln2"], h)
+    if kind == "moe":
+        y, out = _moe_ffn(p, cfg, xn, decode_rule=cache is not None,
+                          per_row=per_row)
+        return h + y, _add_aux(aux, out)
+    return h + ffn_apply(p["ffn"], xn, act=cfg.act), aux
 
 
 def _prefill_kv(cache, k: torch.Tensor, v: torch.Tensor, window) -> None:
@@ -198,9 +248,8 @@ def _prefill_kv(cache, k: torch.Tensor, v: torch.Tensor, window) -> None:
 
 def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, device=None) -> Params:
-    _require_ported(kind)
     d = cfg.d_model
-    if kind in ("dense", "attn"):
+    if kind in ("dense", "attn", "moe"):
         window = _attn_kwargs(cfg, kind)["window"]
         buf = min(max_len, window) if window else max_len
         return init_cache(batch, buf, cfg.n_kv, cfg.d_head, dtype,
@@ -248,13 +297,15 @@ def block_decode(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
                  cache: Params, cur_index: int):
     """Single-token decode. h: (B, 1, d); ``cur_index``: the Python int
     position. Updates ``cache`` in place; returns (h, cache)."""
-    _require_ported(kind)
-    if kind in ("dense", "attn"):
+    if kind in ("dense", "attn", "moe"):
         a, cache = _rotating_decode_attn(p, cfg, kind, rmsnorm(p["ln1"], h),
                                          cache, cur_index)
         h = h + a
-        return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h),
-                             act=cfg.act), cache
+        xn = rmsnorm(p["ln2"], h)
+        if kind == "moe":
+            y, _ = _moe_ffn(p, cfg, xn, decode_rule=True, per_row=False)
+            return h + y, cache
+        return h + ffn_apply(p["ffn"], xn, act=cfg.act), cache
     if kind == "rwkv":
         xn = rmsnorm(p["ln1"], h)[:, 0]
         tm, (x_tmix, S) = rwkv6_decode_step(
@@ -289,8 +340,6 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
     _require_plain_lm(cfg)
     pd = dtype_of(cfg.param_dtype)
     pattern, n_groups, tail = group_layout(cfg)
-    for kind in pattern:
-        _require_ported(kind)
     params = {
         "embed": embedding_init(gen, cfg.vocab, cfg.d_model, pd, device),
         "groups": {f"b{i}": block_init(gen, cfg, kind, lead=(n_groups,),
@@ -341,32 +390,63 @@ def _readout(params, cfg: ArchConfig, h: torch.Tensor,
     return torch.matmul(h.float(), w)
 
 
-def _blocks(params, cfg: ArchConfig, h: torch.Tensor,
-            caches=None) -> torch.Tensor:
+def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None):
     """Every block over the full sequence h, groups then tail; with
-    ``caches`` (``init_lm_cache``'s tree) each block also fills its own."""
+    ``caches`` (``init_lm_cache``'s tree) each block also fills its own.
+    Returns (h, aux): each group's aux terms (``moe_dropped`` a max
+    within the group) summed over the groups, the tail's added on as
+    its blocks add them (the reference's scan, then the tail)."""
     pattern, n_groups, tail = group_layout(cfg)
+    total = ZERO_AUX(h.device)
     for g in range(n_groups):
         gp = group_params(params, g)
         gc = None if caches is None else _group_caches(caches, g)
+        aux = None
         for i, kind in enumerate(pattern):
-            h = block_apply(gp[f"b{i}"], cfg, kind, h,
-                            None if gc is None else gc[f"b{i}"])
+            h, aux = block_apply(gp[f"b{i}"], cfg, kind, h, aux,
+                                 None if gc is None else gc[f"b{i}"])
+        if aux is not None:
+            total = {k: total[k] + aux[k] for k in total}
     for i in range(tail):
-        h = block_apply(params["tail"][f"t{i}"], cfg, pattern[i], h,
-                        None if caches is None
-                        else caches["tail"][f"t{i}"])
-    return h
+        h, total = block_apply(params["tail"][f"t{i}"], cfg, pattern[i], h,
+                               total, None if caches is None
+                               else caches["tail"][f"t{i}"])
+    return h, total
 
 
 def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens: (B, S) int. Returns (logits float32 (B, S, V), aux dict);
-    the aux losses are zero for the ported block kinds."""
+    """tokens: (B, S) int. Returns (logits float32 (B, S, V), aux dict of
+    ``moe_aux``, ``moe_z`` and ``moe_dropped``, zero without experts)."""
     _require_plain_lm(cfg)
-    h = _blocks(params, cfg, _embed(params, cfg, tokens))
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    aux = {"moe_aux": zero, "moe_z": zero, "moe_dropped": zero}
+    h, aux = _blocks(params, cfg, _embed(params, cfg, tokens))
     return _readout(params, cfg, h), aux
+
+
+def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, frontend=None, remat: str = "none",
+            moe_aux_weight: float = 0.01, moe_z_weight: float = 1e-3):
+    """Mean next-token cross-entropy of ``lm_forward``'s float32 logits,
+    plus the weighted MoE aux and z terms for a config with experts.
+    Returns (loss, metrics: ``ce`` and the aux tree). A ``frontend``
+    waits for ROADMAP.md queue 1 item 6, a ``remat`` policy for item 12."""
+    if frontend is not None:
+        raise NotImplementedError(
+            "lm_loss(frontend=...): modality frontends are not ported yet: "
+            "ROADMAP.md queue 1 item 6 (other LM block kinds and models)")
+    if remat != "none":
+        raise NotImplementedError(
+            f"lm_loss(remat={remat!r}): rematerialisation policies are not "
+            "ported yet: ROADMAP.md queue 1 item 12")
+    logits, aux = lm_forward(params, cfg, tokens)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    loss = ce
+    if cfg.n_experts:
+        loss = loss + moe_aux_weight * aux["moe_aux"] + \
+            moe_z_weight * aux["moe_z"]
+    return loss, {"ce": ce, **aux}
 
 
 # ------------------------------------------------------------- decode ----
@@ -424,7 +504,8 @@ def lm_prefill(params, cfg: ArchConfig, prompt: torch.Tensor, caches,
     From position 0 this is the full-sequence forward with every block
     filling its cache (``block_apply``), the port's counterpart of the
     reference's one compiled forward: the kernels run, and the hidden
-    states are ``lm_forward``'s. Only the last position is read out.
+    states are ``lm_forward``'s (a ``moe`` block routing each position as
+    a decode step). Only the last position is read out.
     From a later position it is the reference's own algorithm: one
     ``lm_decode_step`` per position."""
     _require_plain_lm(cfg)
@@ -435,7 +516,7 @@ def lm_prefill(params, cfg: ArchConfig, prompt: torch.Tensor, caches,
                                             caches, start_index + i,
                                             readout_w)
         return logits, caches
-    h = _blocks(params, cfg, _embed(params, cfg, prompt), caches)
+    h, _ = _blocks(params, cfg, _embed(params, cfg, prompt), caches)
     return _readout(params, cfg, h[:, -1:], readout_w)[:, 0], caches
 
 

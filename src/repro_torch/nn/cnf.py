@@ -22,7 +22,7 @@ from typing import Callable
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core import FixedGrid, as_integrator, depth_like
+from repro_torch.core import FixedGrid, as_integrator
 from repro_torch.nn.module import mlp_apply, mlp_init
 
 
@@ -32,9 +32,20 @@ def cnf_mlp_init(gen: torch.Generator, dim: int = 2, hidden=(128, 128, 128),
     return mlp_init(gen, (dim + 1, *hidden, dim), param_dtype, device=device)
 
 
+def depth_column(s, z: torch.Tensor) -> torch.Tensor:
+    """The depth ``s`` as a column beside z, broadcast to ``z[..., :1]``'s
+    shape as the reference's ``jnp.broadcast_to``: a scalar fills it, and
+    a per-sample ``(B,)`` depth of B > 1 raises, as it does there. A
+    Python number is filled on z's device (no host-to-device copy)."""
+    if not isinstance(s, torch.Tensor):
+        return torch.full(z[..., :1].shape, s, dtype=z.dtype, device=z.device)
+    return torch.broadcast_to(s.to(device=z.device, dtype=z.dtype),
+                              z[..., :1].shape)
+
+
 def cnf_field(params) -> Callable:
     def f(s, z):
-        return mlp_apply(params, torch.cat([z, depth_like(s, z)], -1),
+        return mlp_apply(params, torch.cat([z, depth_column(s, z)], -1),
                          act=torch.tanh)
     return f
 

@@ -174,6 +174,26 @@ def test_field_trace_and_reversal_match_reference(cnf, s):
                                np.asarray(J.base_log_prob(state_j[0])), **TOL)
 
 
+def test_field_refuses_a_per_sample_depth_as_the_reference(cnf):
+    """The reference broadcasts s to ``z[..., :1]``, so a per-sample (B,)
+    depth raises there (its CNF goes through no multi-rate solve); the
+    port's field refuses the same input, and takes what the reference
+    takes: a Python scalar, a 0-d depth and one depth a row, (B, 1)."""
+    jp, tp = cnf
+    z = _points(2, n=4)
+    rows = np.array([0.0, 0.25, 0.5, 0.75], np.float32)
+    with pytest.raises((ValueError, TypeError)):
+        J.cnf_field(jp)(jnp.asarray(rows), jnp.asarray(z))
+    with pytest.raises(RuntimeError, match="expanded size"):
+        T.cnf_field(tp)(torch.from_numpy(rows), torch.from_numpy(z))
+    for s_j, s_t in ((0.5, 0.5), (jnp.asarray(0.5), torch.tensor(0.5)),
+                     (jnp.asarray(rows[:, None]),
+                      torch.from_numpy(rows[:, None]))):
+        np.testing.assert_allclose(
+            T.cnf_field(tp)(s_t, torch.from_numpy(z)).numpy(),
+            np.asarray(J.cnf_field(jp)(s_j, jnp.asarray(z))), **TOL)
+
+
 def test_exact_trace_is_the_jacobian_diagonal(cnf):
     _, tp = cnf
     z = torch.from_numpy(_points(2, 5))

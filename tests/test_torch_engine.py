@@ -2,8 +2,12 @@
 JAX package's ``MultiRateEngine`` on ``qwen3_4b.reduced()`` at 4 layers
 (8 prompts of 8 tokens) and ``recurrentgemma_2b.reduced()`` at 14 layers
 (4 groups of rec, rec, attn plus 2 tail rec layers; 8 prompts of 16
-tokens, past the local window of 8) and ``rwkv6_1p6b.reduced()`` at 8
-layers (8 rwkv groups; 8 prompts of 16 tokens): the same prompts through
+tokens, past the local window of 8), ``rwkv6_1p6b.reduced()`` at 8
+layers (8 rwkv groups; 8 prompts of 16 tokens), ``olmoe_1b_7b.reduced()``
+at 4 layers (4 moe groups; 8 prompts of 8 tokens) and
+``llama4_maverick_400b_a17b.reduced()`` at 8 layers (4 groups of dense,
+moe; 8 prompts of 8 tokens; the probe routes the batch in one dispatch,
+a multi-rate step every row alone): the same prompts through
 euler, heun and hyper_euler (a nonzero g), fused and unfused, with mixed
 K. Per-request uid, K, nfe and status are equal
 exactly; outputs agree at fp32 rtol = atol = 1e-4. Also: a correction g
@@ -11,7 +15,8 @@ saved by the JAX ``CheckpointManager`` loads into the port.
 
 The tolerances of the probe were picked so that no request's
 (err/tol)^(1/q) lies within 1e-3 of an integer (asserted), so rounding
-differences between the frameworks cannot flip a K."""
+differences between the frameworks cannot flip a K; every token the
+port routes clears ``MARGIN`` (asserted)."""
 import dataclasses
 import functools
 import warnings
@@ -21,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_moe import MARGIN, routing_margins
 
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.configs import get as jax_get
@@ -38,10 +44,16 @@ TOLS = {"qwen3_4b": {"euler": (0.5, 1), "heun": (0.13, 2),
         "recurrentgemma_2b": {"euler": (0.63, 1), "heun": (0.15, 2),
                               "hyper_euler": (0.132, 1)},
         "rwkv6_1p6b": {"euler": (0.7, 1), "heun": (0.7, 2),
-                       "hyper_euler": (0.12, 1)}}
+                       "hyper_euler": (0.12, 1)},
+        "olmoe_1b_7b": {"euler": (0.45, 1), "heun": (0.45, 2),
+                        "hyper_euler": (0.106, 1)},
+        "llama4_maverick_400b_a17b": {"euler": (0.75, 1),
+                                      "heun": (0.75, 2),
+                                      "hyper_euler": (0.125, 1)}}
 # arch -> (layers, prompt tokens) of the reduced model under test
 ARCHS = {"qwen3_4b": (4, 8), "recurrentgemma_2b": (14, 16),
-         "rwkv6_1p6b": (8, 16)}
+         "rwkv6_1p6b": (8, 16), "olmoe_1b_7b": (4, 8),
+         "llama4_maverick_400b_a17b": (8, 8)}
 BUCKETS = (2, 4, 8)
 
 
@@ -93,8 +105,10 @@ def test_engine_matches_jax(arch, solver, fused):
         models.append(teng.lm_depth_model(pt, cfg_t, solver=solver,
                                           g_params=g, refinable=True))
     for model in models:
-        out = teng.MultiRateEngine(
-            model, _ecfg(teng, arch, solver, fused)).run(toks)
+        with routing_margins() as gaps:
+            out = teng.MultiRateEngine(
+                model, _ecfg(teng, arch, solver, fused)).run(toks)
+        assert not gaps or min(gaps) > MARGIN, min(gaps)
         assert len({c.K for c in out}) > 1, "K is not mixed"
         for a, b in zip(out, ref):
             assert (a.uid, a.K, a.nfe, a.status) == \

@@ -143,6 +143,49 @@ def test_flash_attention_raises_where_it_has_no_kernel():
     assert LAUNCHES["flash_attention"] == 0
 
 
+def test_head_width_16_is_float32_only():
+    """The reduced LMs' head width 16 has a float32 kernel (the
+    continuous-depth hypersolver fit runs them on the card) and no 16-bit
+    one: a bf16 call raises before any build or launch."""
+    from repro_torch.kernels.flash_attention import ops
+    assert 16 in ops.FP32_HEAD_DIMS and 16 not in ops.HEAD_DIMS
+    w = torch.zeros(1, 8, 2, 16).to(torch.bfloat16).as_subclass(_CudaLike)
+    with pytest.raises(ValueError, match="head width 16 in torch.bfloat16"):
+        flash_attention(w, w, w)
+    assert LAUNCHES["flash_attention"] == 0
+
+
+def test_kernel_forward_takes_the_plain_versions_gradient(monkeypatch):
+    """Where autograd needs a backward, ``_Flash`` runs the kernel's
+    forward and differentiates the plain version at the same inputs (the
+    kernel has none). With the launch standing in for the kernel on the
+    CPU, values and gradients are the plain version's, windowed or not,
+    and the launch ran once per forward."""
+    from repro_torch.kernels.flash_attention import ops
+    calls = []
+
+    def fake_launch(out, q, k, v, causal=True, window=None):
+        calls.append(q.shape)
+        out.copy_(attention_ref(q, k, v, causal=causal, window=window))
+
+    monkeypatch.setattr(ops, "launch", fake_launch)
+    rs = np.random.RandomState(8)
+    for window in (None, 5):
+        qkv = [torch.from_numpy(rs.randn(2, 12, n, 16).astype(np.float32))
+               for n in (4, 2, 2)]
+        mine = [t.clone().requires_grad_() for t in qkv]
+        ref = [t.clone().requires_grad_() for t in qkv]
+        out = ops._Flash.apply(*mine, True, window)
+        want = attention_ref(*ref, causal=True, window=window)
+        assert torch.equal(out, want)
+        g = torch.from_numpy(rs.randn(*out.shape).astype(np.float32))
+        out.backward(g)
+        want.backward(g)
+        for a, b in zip(mine, ref):
+            assert torch.equal(a.grad, b.grad)
+    assert len(calls) == 2
+
+
 def test_kernel_reads_aligned_views_in_place():
     """The kernel reads q, k, v through their strides: a (B, S, H, hd)
     view with 4-element aligned strides and address passes as is; a view

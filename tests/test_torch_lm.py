@@ -1,13 +1,20 @@
 """The port's LM (repro_torch/models, repro_torch/nn) held against the JAX
-package's, fp32, vocab 256, d 64, 4 heads, on three reduced models:
+package's, fp32, vocab 256, d 64, 4 heads, on five reduced models:
 ``qwen3_4b.reduced()`` at 4 layers (dense blocks, kv 2, 12 tokens),
 ``recurrentgemma_2b.reduced()`` at 14 layers (4 groups of rec, rec, attn
 plus 2 tail rec layers, MQA, local window 8, 16 tokens so the window
-binds) and ``rwkv6_1p6b.reduced()`` at 8 layers (8 rwkv groups, 4 WKV
-heads of 16, 16 tokens). Weights are drawn by the JAX package and carried across with
+binds), ``rwkv6_1p6b.reduced()`` at 8 layers (8 rwkv groups, 4 WKV
+heads of 16, 16 tokens), ``olmoe_1b_7b.reduced()`` at 4 layers (moe
+blocks, MHA 4/4, qk-norm, top-2 of 4 experts, 12 tokens) and
+``llama4_maverick_400b_a17b.reduced()`` at 4 layers (2 groups of dense,
+moe; top-1 of 4 experts and a shared expert; 12 tokens). Weights are
+drawn by the JAX package and carried across with
 ``convert.params_from_jax``; tokens come from numpy. Tolerance fp32
 rtol = atol = 1e-4: XLA and PyTorch sum matmuls in different orders (and
-the reference scans the RG-LRU associatively, the port sequentially)."""
+the reference scans the RG-LRU associatively, the port sequentially).
+Every token the port routes has its k-th router probability above its
+(k+1)-th by more than ``MARGIN`` (asserted), so no rounding difference
+can move a token to another expert."""
 import dataclasses
 
 import jax
@@ -15,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_moe import MARGIN, routing_margins
 
 from repro import configs as jax_configs
 from repro.models import cdepth as jcd
@@ -31,7 +39,8 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 # arch -> (layers, prompt tokens) of the reduced model under test
 ARCHS = {"qwen3_4b": (4, 12), "recurrentgemma_2b": (14, 16),
-         "rwkv6_1p6b": (8, 16)}
+         "rwkv6_1p6b": (8, 16), "olmoe_1b_7b": (4, 12),
+         "llama4_maverick_400b_a17b": (4, 12)}
 
 
 @pytest.fixture(scope="module", params=list(ARCHS))
@@ -58,6 +67,27 @@ def test_griffin_model_layout():
     assert n_tok > cfg.local_window
     assert tlm._attn_kwargs(torch_configs.get("qwen3_4b"),
                             "dense")["window"] is None
+
+
+def test_moe_model_layouts():
+    """The MoE models under test: OLMoE's every block a moe block with
+    stacked experts; llama4's groups of (dense, moe), the moe block with
+    a shared expert of the dense width."""
+    cfg = dataclasses.replace(torch_configs.get("olmoe_1b_7b").reduced(),
+                              n_layers=ARCHS["olmoe_1b_7b"][0])
+    assert tlm.group_layout(cfg) == (("moe",), 4, 0)
+    assert (cfg.n_experts, cfg.top_k, cfg.n_kv) == (4, 2, cfg.n_heads)
+    moe = tlm.init_lm(torch.Generator().manual_seed(0), cfg)["groups"]["b0"]
+    assert sorted(moe) == ["attn", "ln1", "ln2", "moe"]
+    assert moe["moe"]["wi"].shape == (4, 4, cfg.d_model, cfg.d_ff_expert)
+    assert moe["moe"]["wd"].shape == (4, 4, cfg.d_ff_expert, cfg.d_model)
+    cfg = torch_configs.get("llama4_maverick_400b_a17b").reduced()
+    assert tlm.group_layout(cfg) == (("dense", "moe"), 2, 0)
+    blocks = tlm.init_lm(torch.Generator().manual_seed(0), cfg)["groups"]
+    assert sorted(blocks["b1"]) == ["attn", "ln1", "ln2", "moe", "shared"]
+    assert blocks["b1"]["shared"]["wi"]["kernel"].shape == \
+        (2, cfg.d_model, cfg.d_ff)
+    assert (cfg.n_experts, cfg.top_k) == (4, 1)
 
 
 def test_rwkv6_model_layout():
@@ -110,12 +140,56 @@ def test_params_carry_across_leaf_for_leaf(model):
         assert a.shape == b.shape and a.dtype == b.dtype
 
 
+def _margin_held(gaps, cfg):
+    """Every routed token cleared the margin (and a MoE config routed)."""
+    assert bool(gaps) == bool(cfg.n_experts)
+    assert not gaps or min(gaps) > MARGIN, min(gaps)
+
+
 def test_lm_forward_matches_jax(model):
+    """Logits and the aux tree (the MoE load-balance and z terms summed
+    over groups, the dropped fraction a max within a group)."""
     cfg_j, cfg_t, pj, pt, toks = model
-    lj, _ = jlm.lm_forward(pj, cfg_j, jnp.asarray(toks))
-    lt, _ = tlm.lm_forward(pt, cfg_t, torch.from_numpy(toks))
+    lj, aj = jlm.lm_forward(pj, cfg_j, jnp.asarray(toks))
+    with routing_margins() as gaps:
+        lt, at = tlm.lm_forward(pt, cfg_t, torch.from_numpy(toks))
+    _margin_held(gaps, cfg_t)
     assert lt.dtype == torch.float32 and lt.shape == (*toks.shape, cfg_t.vocab)
     _close(lt, lj)
+    assert sorted(at) == sorted(aj)
+    for k in aj:
+        assert at[k].shape == () and at[k].dtype == torch.float32
+        _close(at[k], aj[k], rtol=1e-5, atol=1e-6)
+    if cfg_t.n_experts:
+        assert float(at["moe_aux"]) > 0 and float(at["moe_z"]) > 0
+
+
+def test_lm_loss_and_grads_match_jax(model):
+    """``lm_loss`` (cross-entropy plus the weighted MoE aux and z terms)
+    and its gradient with respect to every parameter leaf."""
+    cfg_j, cfg_t, pj, pt, toks = model
+    tgts = np.random.RandomState(1).randint(
+        0, cfg_j.vocab, toks.shape).astype(np.int32)
+    (lj, mj), gj = jax.value_and_grad(
+        lambda p: jlm.lm_loss(p, cfg_j, jnp.asarray(toks),
+                              jnp.asarray(tgts)), has_aux=True)(pj)
+    pt = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(), pt)
+    with routing_margins() as gaps:
+        lt, mt = tlm.lm_loss(pt, cfg_t, torch.from_numpy(toks),
+                             torch.from_numpy(tgts))
+    _margin_held(gaps, cfg_t)
+    lt.backward()
+    _close(lt, lj, rtol=1e-5, atol=1e-5)
+    assert sorted(mt) == sorted(mj)
+    for k in mj:
+        _close(mt[k], mj[k], rtol=1e-5, atol=1e-5)
+    flat = jax.tree_util.tree_flatten_with_path(gj)[0]
+    assert len(flat) == len(jax.tree_util.tree_leaves(pt))
+    for path, g in flat:
+        node = pt
+        for k in path:
+            node = node[k.key]
+        _close(node.grad, g, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("s", [0.0, 0.3, 0.5, 0.75, 0.999, 1.0])
@@ -131,7 +205,9 @@ def test_depth_field_scalar_s_matches_jax(model, s):
 
 def test_depth_field_per_sample_s_matches_jax(model):
     """A (B,) depth row sends samples to different layer groups in one
-    evaluation (the port splits the batch by group)."""
+    evaluation (the port splits the batch by group); on a MoE model every
+    row routes alone, the reference's ``vmap`` over samples, also when
+    every row maps to the same group."""
     cfg_j, cfg_t, pj, pt, toks = model
     hj = jlm._embed(pj, cfg_j, jnp.asarray(toks))
     ht = tlm._embed(pt, cfg_t, torch.from_numpy(toks))
@@ -216,7 +292,20 @@ def test_lm_g_apply_matches_jax(model):
         _close(out_t, out_j)
 
 
-def test_unported_block_kinds_name_their_roadmap_item():
-    cfg = torch_configs.get("olmoe_1b_7b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("arch", ["paligemma_3b", "whisper_base"])
+def test_unported_block_kinds_name_their_roadmap_item(arch):
+    """paligemma's patch frontend and whisper's encoder-decoder are what
+    item 6 still holds."""
+    cfg = torch_configs.get(arch).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
         tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+
+
+def test_lm_loss_refuses_unported_options():
+    cfg = torch_configs.get("qwen3_4b").reduced()
+    params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tlm.lm_loss(params, cfg, toks, toks, frontend=torch.zeros(1, 2, 64))
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        tlm.lm_loss(params, cfg, toks, toks, remat="full")

@@ -5,9 +5,10 @@ the JAX package's on the CPU; the counterparts of tests/test_scheduler.py.
 
 Toy models are the reference tests' (a stiff decay whose rate is the
 softplus of the request's mean) in both packages; the LM cases serve
-reduced ``qwen3_4b`` (4 layers), ``recurrentgemma_2b`` (14 layers) and
-``rwkv6_1p6b`` (8 layers) in float32 on a Poisson trace through both
-schedulers, weights drawn by JAX and carried across.
+reduced ``qwen3_4b`` (4 layers), ``recurrentgemma_2b`` (14 layers),
+``rwkv6_1p6b`` (8 layers), ``olmoe_1b_7b`` (4 layers) and
+``llama4_maverick_400b_a17b`` (8 layers) in float32 on a Poisson trace
+through both schedulers, weights drawn by JAX and carried across.
 
 Host-side policy is held exactly: uid, K, nfe, status, completion order
 and the virtual-clock stamps. Outputs agree at fp32 rtol = atol = 1e-6
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_moe import MARGIN, routing_margins
 
 from repro.configs import get as jax_get
 from repro.core import FixedGrid as JaxGrid
@@ -580,7 +582,8 @@ def test_ledger_and_hot_swaps_are_ported():
 # arch -> (layers, prompt tokens, euler probe tolerance): the drain engine
 # tests' reduced models and tolerances (tests/test_torch_engine.py)
 LM = {"qwen3_4b": (4, 8, 0.5), "recurrentgemma_2b": (14, 16, 0.63),
-      "rwkv6_1p6b": (8, 16, 0.7)}
+      "rwkv6_1p6b": (8, 16, 0.7), "olmoe_1b_7b": (4, 8, 0.45),
+      "llama4_maverick_400b_a17b": (8, 8, 0.75)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -614,13 +617,18 @@ def test_lm_scheduler_matches_jax(arch, overlap):
     """A reduced LM of each architecture, float32, served in flight on a
     Poisson trace (slots 4, seg 2, euler, multi-rate, fused) by the
     port's scheduler and the reference's: equal policy record for
-    record, logits at 1e-4, K mixed."""
+    record, logits at 1e-4, K mixed. On a MoE model the padded probe
+    routes the pool in one dispatch and every segment step routes each
+    slot's row alone, as the reference's ``vmap``; routed tokens clear
+    ``MARGIN``."""
     cfg_t, pt, toks, kw, ref = _lm_setup(arch)
-    rep = twl.replay_scheduler(
-        tsch.InflightScheduler(teng.lm_depth_model(pt, cfg_t),
-                               teng.EngineConfig(**kw), slots=4, seg=2,
-                               overlap=overlap),
-        twl.poisson_trace(toks, rate=0.25, seed=0))
+    with routing_margins() as gaps:
+        rep = twl.replay_scheduler(
+            tsch.InflightScheduler(teng.lm_depth_model(pt, cfg_t),
+                                   teng.EngineConfig(**kw), slots=4, seg=2,
+                                   overlap=overlap),
+            twl.poisson_trace(toks, rate=0.25, seed=0))
+    assert not gaps or min(gaps) > MARGIN, min(gaps)
     assert len({r.K for r in rep.records}) > 1, "K is not mixed"
     assert all(r.status == "ok" for r in rep.records)
     assert_records_match(rep.records, ref.records, rtol=1e-4, atol=1e-4)

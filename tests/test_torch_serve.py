@@ -1,7 +1,8 @@
 """The port's serving CLI (repro_torch/launch/serve.py): it serves the
 continuous-depth drain path and the in-flight scheduler (``--inflight``,
 sync and ``--overlap``, on a Poisson trace) of ``qwen3_4b``,
-``recurrentgemma_2b`` and ``rwkv6_1p6b`` on the CPU when asked (the
+``recurrentgemma_2b``, ``rwkv6_1p6b``, ``olmoe_1b_7b`` and
+``llama4_maverick_400b_a17b`` on the CPU when asked (the
 default discrete decode path is tested in tests/test_torch_decode.py),
 its flag set is the reference parser's plus ``--device``, the in-flight
 flags, the refinery's and the flow tier's are checked with the
@@ -33,7 +34,8 @@ CPU_RUN = ["--device", "cpu", "--reduced", "--batch", "3", "--prompt-len",
            "8"]
 # arch -> prompt length: Griffin's prompts outrun its reduced local window
 # of 8, so the window binds; RWKV6's run its recurrence over 16 tokens
-ARCHS = {"qwen3_4b": 8, "recurrentgemma_2b": 16, "rwkv6_1p6b": 16}
+ARCHS = {"qwen3_4b": 8, "recurrentgemma_2b": 16, "rwkv6_1p6b": 16,
+         "olmoe_1b_7b": 8, "llama4_maverick_400b_a17b": 8}
 
 
 def _cpu_run(arch):

@@ -2,15 +2,17 @@
 the prefill's time with its readout at the last position against a
 readout over every position, on one GPU.
 
-    python3 tools/decode_limits.py [--seeds 1 2 3]
+    python3 tools/decode_limits.py [--seeds 1 2 3] [--archs ARCH ...]
 
 from the repository root. For each model (full width in bf16, and
-float32 at ``chip_smoke.py``'s 4 layers, Griffin 6), seeded random
+float32 at ``chip_smoke.py``'s 4 layers, Griffin 6; ``--archs`` keeps
+the named ones; OLMoE runs in bf16 only), seeded random
 weights, 8 prompts of 128 tokens per prompt seed, 32 greedy tokens
 (``chip_smoke.generate_logits``): the teacher-forced error of the sound
 generate and of the same generate under the planted fault
 ``chip_smoke.lost_cache_writes`` (``chip_smoke.teacher_forced_err``, a
-share of the largest |logit|), against the limit ``chip_smoke.py``
+share of the largest |logit|; for OLMoE against a chain of decode
+steps), against the limit ``chip_smoke.py``
 holds that model to. For the bf16 models also ``lm_prefill`` (last
 position read out) and the same block loop with every position read out
 then the last kept, timed on the host clock around synchronised work in
@@ -40,7 +42,7 @@ from repro_torch.models import lm  # noqa: E402
 
 def every_position_prefill(params, cfg, prompt, caches, w):
     """The prefill with a readout over every position, the last kept."""
-    h = lm._blocks(params, cfg, lm._embed(params, cfg, prompt), caches)
+    h, _ = lm._blocks(params, cfg, lm._embed(params, cfg, prompt), caches)
     return lm._readout(params, cfg, h, w)[:, -1].clone()
 
 
@@ -92,6 +94,7 @@ def readings(cfg, seeds, weight_seed, tol, dev):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3])
+    ap.add_argument("--archs", nargs="+", default=list(cs.BF16_DECODE_TOL))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_limits: torch.cuda.is_available() is False; this "
@@ -104,10 +107,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     ok = True
-    for arch in ("qwen3_4b", "recurrentgemma_2b", "rwkv6_1p6b"):
+    for arch in args.archs:
         ok &= readings(get(arch), args.seeds, 0, cs.BF16_DECODE_TOL[arch],
                        dev)
     for arch, n_layers in cs.FP32_DECODE_LAYERS.items():
+        if arch not in args.archs:
+            continue
         cfg = dataclasses.replace(get(arch), n_layers=n_layers,
                                   dtype="float32", param_dtype="float32")
         ok &= readings(cfg, args.seeds, 7, cs.FP32_DECODE_TOL, dev)
