@@ -79,6 +79,21 @@ function), each dispatch's dropped fraction printed; then
 a reduced LM trained by ``lm_loss``, a HyperEuler g fitted per K by
 ``cdepth_residual_loss``, hyper_euler's KL below euler's checked, and
 the K 4 g saved, restored and served by the engine.
+Last, once serving is done, the trainer (``python -m
+repro_torch.launch.train``): ``phase_train_kernels`` holds each kernel's
+training route (the kernel's forward, the plain version's backward)
+against the all-plain version at the training shapes, gradients bit for
+bit, one launch per forward and none in the backward;
+``phase_train_cli`` trains full-width qwen3_4b through the CLI's
+``main`` (8 x 128 tokens, 20 steps) and ``phase_train`` full-width
+recurrentgemma_2b and rwkv6_1p6b through ``train_loop`` (5 steps each),
+each with finite losses and grad norms, moved params and one kernel
+launch per block application, and prints ms a step (synced beside the
+watchdog's dispatch time), tokens/s, peak memory against the 12 bytes a
+parameter at rest, the model-FLOP share and the plain backwards' share;
+then one float32 step at reduced depth held against the same step with
+every kernel swapped for its plain version; ``phase_train_faults`` runs
+the reference's three fault-tolerance scenarios on reduced qwen3_4b.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -88,6 +103,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import shutil
@@ -122,9 +138,13 @@ from repro_torch.core import (  # noqa: E402
     odeint_dopri5_batched, residual_fitting_loss, train_flowhead,
     train_hypersolver)
 from repro_torch.data import (  # noqa: E402
-    density_sampler, synthetic_images, token_batches)
-from repro_torch.distributed.fault import FaultInjector, _hash01  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+    ShardedLoader, density_sampler, synthetic_images, token_batches)
+from repro_torch.distributed.fault import (  # noqa: E402
+    FailureInjector, FaultInjector, StepFailure, StepWatchdog,
+    WatchdogConfig, _hash01)
+from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    StepSettings, make_train_step)
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
     load_flow_params, load_g_params, snap_to_buckets)
@@ -1155,6 +1175,32 @@ def synced_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+@contextlib.contextmanager
+def timed_captures(ledger):
+    """While open, each ``ledger.capture_pool`` call is timed between two
+    device syncs; yields ``{"ms": [...], "offered": [rows offered, rows
+    kept]}`` over the calls that had rows. On exit the wrapper is deleted
+    from the instance, so the class's method shows through again:
+    assigning the bound method back would make the ledger hold itself, a
+    reference cycle that keeps the served model alive past ``del``."""
+    stats = {"ms": [], "offered": [0, 0]}
+    capture_pool = ledger.capture_pool
+
+    def timed(pool, rows):
+        n, ms = synced_ms(lambda: capture_pool(pool, rows))
+        if len(rows):
+            stats["ms"].append(ms)
+            stats["offered"][0] += len(rows)
+            stats["offered"][1] += n
+        return n
+
+    ledger.capture_pool = timed
+    try:
+        yield stats
+    finally:
+        del ledger.capture_pool
+
+
 def swapper(params, at=SWAP_SEGMENTS):
     """An on_tick that hot-swaps ``params`` into the scheduler once ``at``
     segments have been launched (segment ``at + 1`` is the first on the
@@ -1196,23 +1242,11 @@ def phase_refinery(dev, cfg, params, prompt, tol):
 
     ledger = ResidualLedger(model, capacity=LEDGER_CAP, capture_rate=1.0,
                             seed=0)
-    offered, capture_ms = [0, 0], []
-    capture_pool = ledger.capture_pool
-
-    def timed_capture(pool, rows):
-        n, ms = synced_ms(lambda: capture_pool(pool, rows))
-        if len(rows):
-            capture_ms.append(ms)
-            offered[0] += len(rows)
-            offered[1] += n
-        return n
-
-    ledger.capture_pool = timed_capture
     LAUNCHES.clear()
-    with count_blocks() as blocks:
+    with count_blocks() as blocks, timed_captures(ledger) as captured:
         sched, rep, wall_s = replay(model, ecfg, prompts, ledger=ledger)
     launches, blocks = dict(LAUNCHES), dict(blocks)
-    ledger.capture_pool = capture_pool
+    offered, capture_ms = captured["offered"], captured["ms"]
     tag = f"{cfg.name} refinery"
     if not records_equal(rep, base):
         raise AssertionError(f"{tag}: capture moved a completion")
@@ -2919,6 +2953,636 @@ def phase_tracking(dev, train_iters=TRACK_TRAIN_ITERS,
     return launches
 
 
+# --------------------------------------------------------------- training ----
+# The trainer (``python -m repro_torch.launch.train``, ``launch/steps.py``)
+# on the card: AdamW over the warmup-cosine schedule, the global-norm
+# clip, params and moments updated in place leaf by leaf; the flash,
+# RG-LRU and WKV6 kernels in the forward, each kernel's plain version
+# differentiated in the backward (``_Flash``, ``_RGLRUScan``, ``_WKV6``).
+# Full width for the three dense families at 8 x 128 tokens a step
+# (OLMoE-1B-7B's 6.92 B parameters need ~83 GB at rest in training: it
+# trains reduced only, in the fault phase's place on the CPU tests).
+TRAIN_CLI_STEPS, TRAIN_STEPS = 20, 5
+# The float32 step's kernel route against the all-plain one: the largest
+# difference of the gradient tree (and of the updated params) over its
+# largest value, between the sound readings' largest and the planted
+# fault's (``gradless_kernels``) smallest, read by tools/train_smoke.py
+# --fp32-seeds 13 14 15 16 17 on the H100 (PERF.md section 6): sound
+# 5.1e-7 / 2.2e-7 / 2.7e-3, fault 0.50 / 4.3e-3 / 1.0. RWKV6's sound
+# gradients differ most in the first block's u, wk and wr.
+TRAIN_FP32_TOL = {"qwen3_4b": 1e-4, "recurrentgemma_2b": 1e-4,
+                  "rwkv6_1p6b": 2e-2}
+# bytes a parameter holds at rest in training: bf16 param and grad,
+# float32 mu and nu
+TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4
+# (kernel, case, shape, dtype or with-state, window): phase_train_kernels
+TRAIN_KERNEL_CASES = [
+    ("flash_attention", "qwen3", (8, 128, 32, 8, 128), torch.bfloat16, None),
+    ("flash_attention", "griffin", (8, 128, 10, 1, 256), torch.bfloat16,
+     2048),
+    ("rglru_scan", "serve", (8, 128, 2560), torch.float32, None),
+    ("rglru_scan", "serve-bf16", (8, 128, 2560), torch.bfloat16, None),
+    ("rwkv6_scan", "serve", (8, 128, 32, 64), False, None),
+    ("rwkv6_scan", "state", (8, 128, 32, 64), True, None),
+]
+
+
+def train_case_inputs(kernel, shape, kind, window, gen, dev):
+    """(inputs, route, plain, check) of one TRAIN_KERNEL_CASES row: the
+    wrapper as the model calls it, the plain version, and the forward
+    check of the kernel's phase (flash within FLASH_TOL, RG-LRU bit for
+    bit, WKV6 within RWKV6_TOL of the largest output, S_T bit for bit);
+    route and plain return a tuple of outputs."""
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    if kernel == "flash_attention":
+        b, s, h, kv, hd = shape
+        ins = [randn(b, s, n, hd).to(kind) for n in (h, kv, kv)]
+        tol = FLASH_TOL[kind]
+
+        def check(o, p):
+            if not torch.allclose(o[0].float(), p[0].float(), rtol=tol,
+                                  atol=tol):
+                raise AssertionError("flash_attention: kernel route "
+                                     "disagrees with plain")
+        return (ins, lambda q, k, v: (fa_ops.flash_attention(
+            q, k, v, causal=True, window=window),),
+            lambda q, k, v: (attention_ref(q, k, v, causal=True,
+                                           window=window),), check)
+    if kernel == "rglru_scan":
+        def check(o, p):
+            if not torch.equal(o[0], p[0]):
+                raise AssertionError("rglru_scan: kernel route disagrees "
+                                     "with plain")
+        return (list(rglru_inputs(shape, kind, gen, dev)),
+                lambda a, b: (rg_ops.rglru_scan(a, b),),
+                lambda a, b: (rglru_scan_ref(a, b),), check)
+    b, t, h, d = shape
+    state = kind
+    r, k, v = (randn(b, t, h, d).to(torch.bfloat16) for _ in range(3))
+    w0 = torch.linspace(-6.0, -1.0, h * d, device=dev).reshape(h, d)
+    w = torch.exp(-torch.exp(w0 + 0.1 * randn(b, t, h, d)))
+    u = (0.3 * randn(h, d)).to(torch.bfloat16)
+    S0 = randn(b, h, d, d) if state else None
+    n_out = 2 if state else 1
+
+    def route(*x):
+        out = rw_ops.wkv6(*x, want_state=state)
+        return tuple(out) if state else (out,)
+
+    def check(o, p):
+        err = float((o[0] - p[0]).detach().abs().max())
+        if err > RWKV6_TOL * float(p[0].detach().abs().max()) or (
+                state and not torch.equal(o[1], p[1])):
+            raise AssertionError("rwkv6_scan: kernel route disagrees with "
+                                 "plain")
+    return ([r, k, v, w, u, S0], route,
+            lambda *x: wkv6_scan_ref(*x)[:n_out], check)
+
+
+def phase_train_kernels(dev):
+    """The kernels' training routes against the plain versions on the
+    card, at the full-width models' training shapes: the forward within
+    each kernel phase's limit; the gradient of every input (every input
+    requires grad) equal bit for bit to the all-plain version's at the
+    same inputs and output gradients, since the route's backward is the
+    plain version's; one launch in the forward and none in the backward.
+    Times the route's forward + backward against the plain version's
+    (cold L2); the comparison's launches count for no path."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for kernel, name, shape, kind, window in TRAIN_KERNEL_CASES:
+        ins, route, plain, check = train_case_inputs(kernel, shape, kind,
+                                                     window, gen, dev)
+        leaf = lambda: [None if t is None else
+                        t.detach().clone().requires_grad_() for t in ins]
+        mine, ref = leaf(), leaf()
+        LAUNCHES.clear()
+        outs = route(*mine)
+        fwd = LAUNCHES[kernel]
+        gs = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+        torch.autograd.backward(outs, gs)
+        bwd = LAUNCHES[kernel] - fwd
+        want = plain(*ref)
+        torch.autograd.backward(want, gs)
+        torch.cuda.synchronize()
+        check(outs, want)
+        if (fwd, bwd) != (1, 0):
+            raise AssertionError(f"{kernel} {name}: {fwd} launches in the "
+                                 f"forward, {bwd} in the backward")
+        diffs = {}
+        for i, (a, b) in enumerate(zip(mine, ref)):
+            if a is None:
+                continue
+            if a.grad is None or b.grad is None or a.grad.dtype != \
+                    b.grad.dtype:
+                raise AssertionError(f"{kernel} {name}: input {i} has "
+                                     "no gradient or another dtype")
+            diffs[i] = float((a.grad.float() - b.grad.float()).abs().max())
+            if not torch.equal(a.grad, b.grad):
+                raise AssertionError(
+                    f"{kernel} {name}: input {i}'s gradient differs from "
+                    f"the plain version's by up to {diffs[i]}")
+        live = [t for t in mine if t is not None]
+        ms = time_ms(lambda: torch.autograd.grad(route(*mine), live, gs),
+                     flush, reps=10)
+        plain_ms = time_ms(lambda: torch.autograd.grad(plain(*ref), [
+            t for t in ref if t is not None], gs), flush, reps=10)
+        rows.append(dict(kernel=kernel, case=name, shape=list(shape),
+                         dtype=("r, k, v, u bf16, w fp32" + (
+                             ", S0 fp32" if kind else "")
+                             if kernel == "rwkv6_scan"
+                             else str(kind).replace("torch.", "")),
+                         launches_forward=fwd, launches_backward=bwd,
+                         grad_max_abs_diff=max(diffs.values()),
+                         grads_bit_equal=True, ms_forward_backward=ms,
+                         plain_ms_forward_backward=plain_ms))
+        del ins, mine, ref, outs, want, gs, live
+    emit(phase="train_kernels", cases=rows)
+    torch.cuda.empty_cache()
+    return rows
+
+
+class SyncedWatchdog(StepWatchdog):
+    """The trainer's watchdog, with each step's synced wall time beside
+    its own: ``step_times`` (the watchdog's, the host's dispatch of the
+    step, as the reference times it) and ``synced`` (device synced before
+    the call and after the NaN screen)."""
+
+    def __init__(self, cfg=None):
+        super().__init__(cfg or WatchdogConfig())
+        self.synced = []
+
+    def run(self, fn, *args, loss_of=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return super().run(fn, *args, loss_of=loss_of)
+        finally:
+            torch.cuda.synchronize()
+            self.synced.append(time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def synced_watchdogs():
+    """While open, ``train_loop`` makes its default watchdog a
+    ``SyncedWatchdog``; yields the ones made."""
+    made = []
+    orig = train.StepWatchdog
+
+    def make(cfg):
+        made.append(SyncedWatchdog(cfg))
+        return made[-1]
+
+    train.StepWatchdog = make
+    try:
+        yield made
+    finally:
+        train.StepWatchdog = orig
+
+
+def event_timed(events, key, fn):
+    """``fn`` with each call bracketed by CUDA events kept in
+    ``events[key]``."""
+    def run(*args, **kwargs):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = fn(*args, **kwargs)
+        pair[1].record()
+        events[key].append(pair)
+        return out
+    return run
+
+
+@contextlib.contextmanager
+def timed_step_parts():
+    """While open, each backward of the kernels' training routes (the
+    plain versions' backwards) and each forward + backward of a train
+    step (``steps._value_and_grad``, keyed ``forward_backward``) is
+    bracketed by CUDA events; yields ``{key: [(start, end), ...]}``
+    (``step_part_ms`` reads them per step). The rest of a step is the clip and the
+    in-place AdamW update."""
+    routes = {"flash_attention": fa_ops._Flash,
+              "rglru_scan": rg_ops._RGLRUScan, "rwkv6_scan": rw_ops._WKV6}
+    events = collections.defaultdict(list)
+    saved = {k: vars(c)["backward"] for k, c in routes.items()}
+    value_and_grad = steps._value_and_grad
+    for k, c in routes.items():
+        c.backward = staticmethod(event_timed(events, k, c.backward))
+    steps._value_and_grad = event_timed(events, "forward_backward",
+                                        value_and_grad)
+    try:
+        yield events
+    finally:
+        steps._value_and_grad = value_and_grad
+        for k, c in routes.items():
+            c.backward = saved[k]
+
+
+def step_part_ms(events, steps):
+    """Device ms of each step per key of ``timed_step_parts`` (a key's
+    events split evenly over the steps, in order)."""
+    torch.cuda.synchronize()
+    out = {}
+    for k, v in events.items():
+        per = len(v) // steps
+        out[k] = [float(sum(s.elapsed_time(e) for s, e in
+                            v[i * per:(i + 1) * per]))
+                  for i in range(steps)]
+    return out
+
+
+def moved_share(params, cfg, dev, seed=0):
+    """Share of parameter elements that differ from ``init_lm``'s draw at
+    ``seed`` (train_loop's init), drawn again leaf by leaf."""
+    init = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
+                   device=dev)
+    moved = sum(int((a != b).sum()) for a, b in zip(
+        pytree.tree_leaves(params), pytree.tree_leaves(init)))
+    del init
+    torch.cuda.empty_cache()
+    return moved / lm.count_params(params)
+
+
+def train_report(tag, cfg, params, hist, dog, events, launches, blocks,
+                 dev, batch=B, seq=S):
+    """Checks a full-width training run (losses and grad norms finite,
+    params moved, each kernel once per block application and step) and
+    its numbers: synced ms a step (median after the first), tokens/s,
+    peak memory against the reckoning, the model-FLOP bound's share
+    (6 N tokens over the bf16 peak, N every parameter), the device ms of
+    a forward + backward (the rest of the synced step is the clip, the
+    update and the host's gaps) and the plain backwards' share of the
+    step, each the median over the steps after the first."""
+    vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{tag}: non-finite loss or grad norm {hist}")
+    check_block_launches(launches, blocks, tag)
+    steps = len(hist)
+    if sum(blocks.values()) != cfg.n_layers * steps:
+        raise AssertionError(f"{tag}: {blocks} block applications in "
+                             f"{steps} steps of {cfg.n_layers} layers")
+    moved = moved_share(params, cfg, dev)
+    if not moved > 0:
+        raise AssertionError(f"{tag}: no parameter moved in {steps} steps")
+    n = lm.count_params(params)
+    # medians over the steps after the first (which allocates and warms)
+    step_s = float(np.median(dog.synced[1:]))
+    parts = {k: float(np.median(v[1:]))
+             for k, v in step_part_ms(events, steps).items()}
+    fwd_bwd = parts.pop("forward_backward")
+    return dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.dtype, batch=batch, seq=seq, steps=steps,
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        params=n, moved_share=moved,
+        ms_per_step_synced=step_s * 1e3,
+        synced_ms=[t * 1e3 for t in dog.synced],
+        watchdog_ms=[t * 1e3 for t in dog.step_times],
+        tokens_per_s=batch * seq / step_s,
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        reckoning_at_rest_gb=n * TRAIN_BYTES_PER_PARAM / 1e9,
+        model_flop_bound_ms=6 * n * batch * seq / BF16_PEAK * 1e3,
+        model_flop_share=6 * n * batch * seq / BF16_PEAK / step_s,
+        forward_backward_ms_per_step=fwd_bwd,
+        clip_and_update_ms_per_step=step_s * 1e3 - fwd_bwd,
+        plain_backward_ms_per_step=parts,
+        plain_backward_share={k: v / (step_s * 1e3)
+                              for k, v in parts.items()},
+        launches=launches, block_applications=blocks)
+
+
+def phase_train_cli(dev):
+    """A main path through the trainer's CLI: full-width qwen3_4b, 8 x 128
+    tokens, TRAIN_CLI_STEPS steps, the CLI's settings (remat none,
+    zero_opt off, lr 3e-4 under the warmup-cosine schedule), no
+    checkpoint (one would write ~48 GB). Raises unless every loss and
+    grad norm is finite, the params moved and flash launched exactly
+    once per attention block and step; prints ``train_report``'s
+    numbers. Returns the launches."""
+    cfg = get("qwen3_4b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    with count_blocks() as blocks, synced_watchdogs() as dogs, \
+            timed_step_parts() as bwd:
+        out = train.main(["--arch", "qwen3_4b", "--steps",
+                          str(TRAIN_CLI_STEPS), "--batch", str(B), "--seq",
+                          str(S), "--log-every", "5"])
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    tag = "qwen3_4b train cli"
+    report = train_report(tag, cfg, out["params"], out["history"], dogs[0],
+                          bwd, launches, blocks, dev)
+    emit(phase="train_cli", cli_wall_s=out["seconds"], **report)
+    del out
+    release_card()
+    return launches
+
+
+def phase_train(dev):
+    """A main path through ``train_loop``: full-width recurrentgemma_2b and
+    rwkv6_1p6b, TRAIN_STEPS steps each of 8 x 128 tokens with the CLI's
+    settings; the batches are ``token_batches``' on the host, placed by a
+    ``ShardedLoader`` (pinned, non-blocking copies). The same checks and
+    numbers as ``phase_train_cli``. Then one float32 step of each dense
+    family at ``FP32_DECODE_LAYERS`` depth and full width
+    (``train_fp32_step``, ``check_train_fp32``): the kernel route's
+    gradient tree and updated params within TRAIN_FP32_TOL of the largest
+    value of the same step with every kernel swapped for its plain
+    version, and a planted fault (the kernels without a training route,
+    dropping their gradients) outside it.
+    Returns the launches."""
+    # both vocabularies exceed the stream's 512-token alphabet, so one
+    # host stream serves both models
+    host = list(itertools.islice(token_batches(
+        get("rwkv6_1p6b").vocab, B, S, seed=0, device="cpu"), TRAIN_STEPS))
+    settings = StepSettings(remat="none", zero_opt=False)
+    launches = collections.Counter()
+    for arch in ("recurrentgemma_2b", "rwkv6_1p6b"):
+        cfg = get(arch)
+        loader = ShardedLoader(({"tokens": t, "targets": y} for t, y in host),
+                               device=dev)
+        dog = SyncedWatchdog()
+        torch.cuda.reset_peak_memory_stats(dev)
+        LAUNCHES.clear()
+        with count_blocks() as blocks, timed_step_parts() as bwd:
+            params, opt_state, hist = train.train_loop(
+                cfg, settings, TRAIN_STEPS, loader, watchdog=dog, device=dev)
+        del opt_state
+        counted, blocks = dict(LAUNCHES), dict(blocks)
+        launches.update(counted)
+        report = train_report(f"{arch} train", cfg, params, hist, dog,
+                              bwd, counted, blocks, dev)
+        emit(phase="train", **report)
+        del params, loader
+        release_card()
+    fp32 = {arch: train_fp32_step(dev, arch, n, host[0])
+            for arch, n in FP32_DECODE_LAYERS.items()}
+    emit(phase="train_fp32", tol=TRAIN_FP32_TOL, **fp32)
+    for arch, r in fp32.items():
+        check_train_fp32(arch, r)
+    return launches
+
+
+@contextlib.contextmanager
+def swapped_kernels(flash, rglru, wkv6):
+    """While open, the layers call these in place of the kernel wrappers
+    (``nn/attention.py``, ``nn/rglru.py``, ``nn/rwkv6.py``)."""
+    from repro_torch.nn import attention as nn_attention
+    from repro_torch.nn import rglru as nn_rglru
+    from repro_torch.nn import rwkv6 as nn_rwkv6
+    swaps = [(nn_attention, "flash_attention", flash),
+             (nn_rglru, "rglru_scan", rglru), (nn_rwkv6, "wkv6", wkv6)]
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), f in zip(swaps, saved):
+            setattr(m, n, f)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every layer calls its kernel's plain version (the ``ref.py``): the
+    all-plain model the kernel routes are held against."""
+    def wkv6_plain(r, k, v, w, u, S0=None, *, want_state=False):
+        o, S_T = wkv6_scan_ref(r, k, v, w, u, S0)
+        return (o, S_T) if want_state else o
+
+    with swapped_kernels(
+            lambda q, k, v, causal=True, window=None:
+            attention_ref(q, k, v, causal=causal, window=window),
+            rglru_scan_ref, wkv6_plain):
+        yield
+
+
+@contextlib.contextmanager
+def gradless_kernels():
+    """A planted fault: every layer launches its kernel with no training
+    route, so its output carries no gradient (the scan wrappers before
+    this slice): what the float32 step's check must catch."""
+    def wkv6_gradless(r, k, v, w, u, S0=None, *, want_state=False):
+        return rw_ops._forward(want_state, r, k, v, w, u, S0)
+
+    with swapped_kernels(
+            lambda q, k, v, causal=True, window=None:
+            fa_ops._forward(q, k, v, causal, window),
+            rg_ops._forward, wkv6_gradless):
+        yield
+
+
+def leaf_names(tree, prefix=""):
+    """'/'-joined dict keys of each leaf, in ``pytree.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def tree_diff(a, b, names):
+    """The largest |a - b| over two leaf lists against b's largest |value|,
+    and the three leaves with the largest difference."""
+    diffs = [float((x - y).abs().max()) for x, y in zip(a, b)]
+    top = sorted(zip(diffs, names, [float(y.abs().max()) for y in b]),
+                 reverse=True)[:3]
+    return dict(max_abs_diff=max(diffs),
+                max_abs=max(float(y.abs().max()) for y in b),
+                top=[dict(leaf=n, diff=d, leaf_max=m) for d, n, m in top])
+
+
+def train_fp32_step(dev, arch, n_layers, batch, seed=13):
+    """One float32 train step at ``n_layers``, full width, from the same
+    params, through the kernel routes, through the plain versions, and
+    through the planted fault (``gradless_kernels``), params drawn from
+    ``seed``: each route's
+    gradient tree and updated params against the plain route's
+    (``tree_diff``), the loss of each, and the launches of the kernel
+    route."""
+    cfg = dataclasses.replace(get(arch), n_layers=n_layers, dtype="float32",
+                              param_dtype="float32")
+    settings = StepSettings(remat="none", zero_opt=False, lr=1e-2)
+    step_fn, opt = make_train_step(cfg, settings)
+    batch = {"tokens": batch[0].to(dev), "targets": batch[1].to(dev)}
+    params0 = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
+                      device=dev)
+    names = leaf_names(params0)
+
+    def loss_fn(p, mb):
+        return lm.lm_loss(p, cfg, mb["tokens"], mb["targets"])
+
+    out = {}
+    for route, ctx in (("kernel", contextlib.nullcontext),
+                       ("plain", plain_kernels),
+                       ("gradless", gradless_kernels)):
+        params = pytree.tree_map(torch.clone, params0)
+        st = opt.init(params)
+        LAUNCHES.clear()
+        with ctx():
+            _, _, grads = steps._value_and_grad(loss_fn, params, batch)
+            params, st, met = step_fn(params, st, 0, batch)
+        out[route] = (grads, pytree.tree_leaves(params), float(met["loss"]),
+                      sum(LAUNCHES.values()))
+        del st, params
+    report = dict(layers=n_layers, launches=out["kernel"][3],
+                  plain_launches=out["plain"][3],
+                  largest_update=max(float((x - y).abs().max()) for x, y in
+                                     zip(out["plain"][1],
+                                         pytree.tree_leaves(params0))))
+    for route in ("kernel", "gradless"):
+        report[route] = dict(
+            loss=out[route][2], plain_loss=out["plain"][2],
+            grads=tree_diff(out[route][0], out["plain"][0], names),
+            params=tree_diff(out[route][1], out["plain"][1], names))
+    del out, params0
+    torch.cuda.empty_cache()
+    return report
+
+
+def check_train_fp32(arch, r):
+    """The kernel route within TRAIN_FP32_TOL[arch] of the largest value of
+    the plain route's gradient tree and updated params, the planted fault
+    outside it, the kernels launched through the kernel route only, and
+    the params moved."""
+    tol = TRAIN_FP32_TOL[arch]
+    rel = lambda d: d["max_abs_diff"] / d["max_abs"]
+    bad = []
+    if not (rel(r["kernel"]["grads"]) <= tol
+            and rel(r["kernel"]["params"]) <= tol):
+        bad.append("the kernel route is off the plain one")
+    if not rel(r["gradless"]["grads"]) > tol:
+        bad.append("the planted fault went unseen")
+    if r["launches"] == 0 or r["plain_launches"] != 0 \
+            or not r["largest_update"] > 0:
+        bad.append("launches or update wrong")
+    if bad:
+        raise AssertionError(f"{arch} fp32 step: {'; '.join(bad)}: {r}")
+
+
+def train_remat(cfg, batch, dev):
+    """One value-and-grad of ``lm_loss`` under each remat policy on the
+    card: ``"dots"`` and ``"full"`` give ``"none"``'s loss and gradients
+    (within 1e-6 of the largest gradient: the embedding's backward
+    accumulates with atomics), and launch flash once per dense block in
+    the forward and once more in the recompute."""
+    params = init_lm(torch.Generator(device=dev).manual_seed(3), cfg,
+                     device=dev)
+    batch = {"tokens": batch[0], "targets": batch[1]}
+    out = {}
+    for remat in lm.REMAT_POLICIES:
+        LAUNCHES.clear()
+        loss, _, grads = steps._value_and_grad(
+            lambda p, mb: lm.lm_loss(p, cfg, mb["tokens"], mb["targets"],
+                                     remat=remat), params, batch)
+        out[remat] = (float(loss), grads, LAUNCHES["flash_attention"])
+    loss0, g0, n0 = out["none"]
+    g_max = max(float(g.abs().max()) for g in g0)
+    report = {}
+    for remat in ("dots", "full"):
+        loss, g, n = out[remat]
+        diff = max(float((a - b).abs().max()) for a, b in zip(g, g0))
+        report[remat] = dict(loss_equal=loss == loss0, grad_max_abs_diff=diff,
+                             grads_bit_equal=all(torch.equal(a, b)
+                                                 for a, b in zip(g, g0)),
+                             flash_launches=n)
+        if loss != loss0 or diff > 1e-6 * g_max or n != 2 * n0 \
+                or n0 != cfg.n_layers:
+            raise AssertionError(f"{cfg.name} remat {remat}: {report} "
+                                 f"(none: {n0} launches, largest gradient "
+                                 f"{g_max})")
+    return report
+
+
+def phase_train_faults(dev):
+    """tests/test_fault_tolerance.py's three scenarios on the card, through
+    ``train_loop`` with reduced qwen3_4b (float32), batch 4 x 32 of the
+    seed-5 stream, checkpoints under build/: (1) failures at steps 6 and
+    9 with checkpoints every 4 give the uninterrupted 12-step run's
+    losses at rtol 1e-4 (the embedding's backward accumulates with
+    atomics, so a replay may differ in the last bits), with 2 restarts;
+    (2) a failure at step 2 on every attempt exhausts a budget of 2 and
+    raises ``StepFailure``; (3) a second loop on a 4-step run's directory
+    resumes at step 4 and runs 4 steps. And ``train_remat`` on the first
+    batch. Returns the launches of the scenarios (flash once per dense
+    block application, checked)."""
+    cfg = get("qwen3_4b").reduced()
+    settings = StepSettings(microbatches=1, remat="none", zero_opt=False,
+                            lr=1e-3)
+    host = list(itertools.islice(token_batches(cfg.vocab, 4, 32, seed=5,
+                                               device=dev), 12))
+
+    class Replayable:
+        def __iter__(self):
+            return ({"tokens": t, "targets": y} for t, y in host)
+
+    root = os.path.join(BUILD, "train_faults")
+    shutil.rmtree(root, ignore_errors=True)
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        _, _, ref = train.train_loop(cfg, settings, 12, Replayable(),
+                                     device=dev)
+        wd = StepWatchdog(WatchdogConfig(max_restarts=5))
+        _, _, hist = train.train_loop(
+            cfg, settings, 12, Replayable(),
+            ckpt=CheckpointManager(os.path.join(root, "ft"), keep=3),
+            ckpt_every=4, injector=FailureInjector(fail_at=(6, 9)),
+            watchdog=wd, device=dev)
+
+        class AlwaysFail(FailureInjector):
+            def maybe_fail(self, step):
+                if step == 2:
+                    raise StepFailure("permanent")
+
+        budget = StepWatchdog(WatchdogConfig(max_restarts=2))
+        try:
+            train.train_loop(cfg, settings, 5, Replayable(),
+                             ckpt=CheckpointManager(
+                                 os.path.join(root, "budget"), keep=2),
+                             ckpt_every=1, injector=AlwaysFail(),
+                             watchdog=budget, device=dev)
+            raised = False
+        except StepFailure:
+            raised = True
+        ckpt = CheckpointManager(os.path.join(root, "elastic"), keep=2)
+        _, _, h1 = train.train_loop(cfg, settings, 4, Replayable(),
+                                    ckpt=ckpt, ckpt_every=2, device=dev)
+        _, _, h2 = train.train_loop(cfg, settings, 8, Replayable(),
+                                    ckpt=ckpt, ckpt_every=4, device=dev)
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    shutil.rmtree(root, ignore_errors=True)
+    tag = "qwen3_4b reduced train faults"
+    check_block_launches(launches, blocks, tag)
+    want = {h["step"]: h["loss"] for h in ref}
+    got = {h["step"]: h["loss"] for h in hist}
+    rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in want) \
+        if set(got) == set(want) else float("inf")
+    if wd.restarts != 2 or not rel <= 1e-4:
+        raise AssertionError(f"{tag}: restarts {wd.restarts}, losses of "
+                             f"the interrupted run {rel} off the "
+                             "uninterrupted run's")
+    if not raised or budget.restarts != 3:
+        raise AssertionError(f"{tag}: an exhausted budget did not raise "
+                             f"(restarts {budget.restarts})")
+    if h2[0]["step"] != 4 or len(h2) != 4:
+        raise AssertionError(f"{tag}: the second loop ran steps "
+                             f"{[h['step'] for h in h2]}")
+    remat = train_remat(cfg, host[0], dev)
+    emit(phase="train_faults", arch=cfg.name, layers=cfg.n_layers,
+         batch=4, seq=32, remat=remat, restarts=wd.restarts,
+         replay_max_rel_diff=rel,
+         replay_bit_equal=got == want, losses=[h["loss"] for h in ref],
+         budget_restarts=budget.restarts,
+         resumed_steps=[h["step"] for h in h2],
+         resumed_equal=[h["loss"] for h in h1 + h2]
+         == [want.get(h["step"]) for h in h1 + h2],
+         launches=launches, block_applications=blocks)
+    return launches
+
+
 def release_card():
     """Frees what the dropped models held: a collector pass, then the
     allocator's cache. Some serving objects form reference cycles, which
@@ -3001,6 +3665,13 @@ def main() -> int:
     phase_fused_vs_unfused(dev)
     phase_decode_fp32(dev)
     phase_refinery_fp32(dev)
+    release_card()
+    t_train = time.perf_counter()
+    phase_train_kernels(dev)
+    launches.update(phase_train_cli(dev))
+    launches.update(phase_train(dev))
+    launches.update(phase_train_faults(dev))
+    emit(phase="train_total", seconds=time.perf_counter() - t_train)
 
     head = next(r for r in rows if r["case"] == "euler+g"
                 and r["dtype"] == "bfloat16")

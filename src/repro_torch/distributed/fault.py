@@ -1,22 +1,107 @@
-"""Serving fault tolerance — the ``RetryPolicy`` and ``FaultInjector`` of
-``repro/distributed/fault.py``.
+"""Fault tolerance — the port of ``repro/distributed/fault.py``: the
+training watchdog and failure injection (``StepFailure``,
+``WatchdogConfig``, ``StepWatchdog``, ``FailureInjector``; reference
+lines 38–100 and 224–234) and the serving side (``RetryPolicy``,
+``FaultInjector``).
 
-A request whose solve diverged is retried at most ``max_retries`` times
+``StepWatchdog.run`` guards a training step (``launch/train.py``): a
+walltime deadline, the NaN screen and the restart budget. A request
+whose solve diverged is retried at most ``max_retries`` times
 (at the next-finer mesh bucket) before the caller gets the best-effort
 answer. ``FaultInjector`` is the seeded serving-chaos source: every
 decision is a pure function of its keys through ``_hash01`` (the
 reference's blake2b of the key tuple's ``repr``), so the sync and overlap
 loops — and the reference's loops, given the same seed — draw the same
-fault schedule. The training watchdog and ``FailureInjector`` wait for
-ROADMAP.md queue 1 item 12.
+fault schedule.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Tuple
+import logging
+import math
+import time
+from typing import Callable, Optional, Tuple
 
 import numpy as np
+
+log = logging.getLogger("repro_torch.fault")
+
+
+class StepFailure(RuntimeError):
+    """A training step failed (device loss, NaN blow-up, injected fault)."""
+
+
+@dataclasses.dataclass
+class WatchdogConfig:
+    step_deadline_s: float = 600.0     # straggler threshold
+    max_restarts: int = 3              # per incident window
+    nan_is_failure: bool = True
+    # close the incident window on the first clean step after a failure:
+    # the budget then bounds consecutive failures instead of the run's
+    # total (the default, which the reference's tests pin)
+    reset_on_success: bool = False
+
+
+class StepWatchdog:
+    """Wraps step execution: walltime deadline, NaN screen and restart
+    accounting.
+
+    ``run(fn, *args, loss_of=...)`` times the call, warns past the
+    deadline, then screens ``loss_of(out)``: when ``cfg.nan_is_failure``
+    and it is not finite, ``StepFailure`` is raised here. The order is the
+    reference's (time the call, then screen). On a CUDA device the call
+    only enqueues work, so the time recorded in ``step_times`` is the
+    host's dispatch of the step (and any sync the step itself makes, such
+    as a host read inside it); the screen's ``float(loss)`` is the step's
+    first full sync and falls outside the timed span. A caller that wants
+    the synced step time syncs before and after ``run`` itself."""
+
+    def __init__(self, cfg: WatchdogConfig):
+        self.cfg = cfg
+        self.restarts = 0
+        self.step_times: list = []
+
+    def run(self, fn: Callable, *args, loss_of: Optional[Callable] = None):
+        t0 = time.time()
+        out = fn(*args)
+        dt = time.time() - t0
+        self.step_times.append(dt)
+        if dt > self.cfg.step_deadline_s:
+            log.warning("step exceeded deadline: %.1fs > %.1fs (straggler?)",
+                        dt, self.cfg.step_deadline_s)
+        if loss_of is not None and self.cfg.nan_is_failure:
+            loss = float(loss_of(out))
+            if not math.isfinite(loss):
+                raise StepFailure(f"non-finite loss: {loss}")
+        if self.cfg.reset_on_success and self.restarts:
+            log.info("clean step after %d restart(s): incident window "
+                     "closed", self.restarts)
+            self.restarts = 0
+        return out
+
+    def record_failure(self) -> bool:
+        """Spends one restart; True if the budget allows it."""
+        self.restarts += 1
+        if self.restarts > self.cfg.max_restarts:
+            log.error("restart budget exhausted (%d)", self.restarts)
+            return False
+        log.warning("restart %d/%d", self.restarts, self.cfg.max_restarts)
+        return True
+
+
+class FailureInjector:
+    """Deterministic failure injection for tests: raise at given steps,
+    once each."""
+
+    def __init__(self, fail_at=()):
+        self.fail_at = set(fail_at)
+        self.fired = set()
+
+    def maybe_fail(self, step: int):
+        if step in self.fail_at and step not in self.fired:
+            self.fired.add(step)
+            raise StepFailure(f"injected failure at step {step}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,6 +6,13 @@ version (``ref.py``); a tensor on a CUDA device launches the CUDA kernel
 (``csrc/rglru_scan.cu``, built by ``kernels/_build.py`` at first use) or
 raises — there is no fallback. ``LAUNCHES["rglru_scan"]`` counts kernel
 launches, and nothing else.
+
+Training: the kernel has no backward, and neither has the reference's
+(``repro/nn/rglru.py`` differentiates a plain scan). So where autograd
+needs one — grad enabled and ``a`` or ``b`` requiring it — the wrapper
+goes through ``_RGLRUScan``: the kernel's forward, and in the backward
+the plain version differentiated at the saved inputs (one launch per
+forward, none in the backward).
 """
 from __future__ import annotations
 
@@ -56,10 +63,35 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         f"{b.dtype} (one of {sorted(map(str, _DTYPE_CODE))})")
     if a.shape[0] > MAX_BATCH:
         raise ValueError(f"rglru_scan: batch {a.shape[0]} > {MAX_BATCH}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _RGLRUScan.apply(a, b)
+    return _forward(a, b)
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if h.numel():
         launch(h, a.contiguous(), b.contiguous())
     return h
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _forward(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = rglru_scan_ref(*ins)
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, want, grad))
+        return tuple(next(got) if t.requires_grad else None for t in ins)
 
 
 def launch(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:

@@ -11,6 +11,14 @@ operand in its own float type (the serving path gives bf16 r, k, v, u
 and fp32 w), and converts to fp32 on load: nothing is upcast, padded or
 transposed here, and only an operand whose last axis is not contiguous
 is copied.
+
+Training: the kernel has no backward, and neither has the reference's
+(``repro/nn/rwkv6.py`` differentiates a plain scan). So where autograd
+needs one — grad enabled and any of r, k, v, w, u, S0 requiring it —
+the wrapper goes through ``_WKV6``: the kernel's forward, and in the
+backward the plain version differentiated at the saved inputs, through
+``o`` and, with ``want_state``, ``S_T`` (one launch per forward, none in
+the backward).
 """
 from __future__ import annotations
 
@@ -76,6 +84,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if B > MAX_BATCH or H > MAX_HEADS:
         raise ValueError(f"wkv6: grid (H {H}, B {B}) exceeds ({MAX_HEADS}, "
                          f"{MAX_BATCH})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _WKV6.apply(want_state, r, k, v, w, u, S0)
+    return _forward(want_state, r, k, v, w, u, S0)
+
+
+def _forward(want_state, r, k, v, w, u, S0):
+    B, T, H, D = r.shape
     o = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
     S_T = (torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
            if want_state else None)
@@ -91,6 +106,34 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                   for t in (r, k, v, w))
     launch(o, r, k, v, w, u.contiguous(), S0, S_T)
     return (o, S_T) if want_state else o
+
+
+class _WKV6(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, want_state, r, k, v, w, u, S0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, S0)
+        return _forward(want_state, r, k, v, w, u, S0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if all(g is None for g in grads):
+            return (None,) * 7
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors,
+                                   ctx.needs_input_grad[1:])]
+            want = [t for t in ins if t is not None and t.requires_grad]
+            # (o, S_T) of the plain version against (grad o[, grad S_T])
+            outs = [(o, g) for o, g in zip(wkv6_scan_ref(*ins), grads)
+                    if g is not None]
+            got = iter(torch.autograd.grad([o for o, _ in outs], want,
+                                           [g for _, g in outs],
+                                           allow_unused=True))
+        return (None, *(next(got) if t is not None and t.requires_grad
+                        else None for t in ins))
 
 
 def launch(o: torch.Tensor, r: torch.Tensor, k: torch.Tensor,

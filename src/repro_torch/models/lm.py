@@ -12,7 +12,11 @@ attention + FFN) blocks, and RWKV-6's ``rwkv`` blocks (time mix +
 channel mix). Learned positions, modality frontends and encoder-decoder
 models raise ``NotImplementedError`` naming their ROADMAP.md item.
 ``lm_forward`` returns the MoE aux terms summed over groups (within a
-group ``moe_dropped`` is a max) and ``lm_loss`` weighs them in.
+group ``moe_dropped`` is a max) and ``lm_loss`` weighs them in. Both take
+the reference's ``remat`` policy (``repro/models/lm.py:387–391``):
+``"full"`` recomputes each group's forward in the backward, ``"dots"``
+keeps the outputs of its matrix products and recomputes the rest; the
+tail blocks are never rematerialised.
 
 Decode keeps per-block caches with the reference's tree and dtypes: KV
 buffers for attention (a rotating buffer under a window), the conv
@@ -30,11 +34,15 @@ caches stay full-sequence.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.nn.attention import (NEG_INF, attention_init,
@@ -56,6 +64,13 @@ Params = Any
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+def _refuse_frontend(frontend, where: str) -> None:
+    if frontend is not None:
+        raise NotImplementedError(
+            f"{where}(frontend=...): modality frontends are not ported yet: "
+            "ROADMAP.md queue 1 item 6 (other LM block kinds and models)")
 
 
 def _require_plain_lm(cfg: ArchConfig) -> None:
@@ -390,21 +405,62 @@ def _readout(params, cfg: ArchConfig, h: torch.Tensor,
     return torch.matmul(h.float(), w)
 
 
-def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None):
+REMAT_POLICIES = ("none", "dots", "full")
+
+# The matrix products of a group (``dense``, the attention and MoE
+# einsums and bmms): what ``"dots"`` keeps, the counterpart of
+# ``jax.checkpoint_policies.checkpoint_dots``.
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematerialised(fn, remat: str):
+    """``fn`` under the reference's remat policy: ``"full"`` saves only its
+    inputs and replays it in the backward, ``"dots"`` also saves its
+    matrix products' outputs (a selective checkpoint), ``"none"`` is
+    ``fn``. Outside autograd (no grad, or nothing requiring it) the
+    policy changes nothing, so ``fn`` runs as is."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r}: one of {REMAT_POLICIES}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_dots)
+                  if remat == "dots" else noop_context_fn)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 context_fn=context_fn)
+
+
+def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None,
+            remat: str = "none"):
     """Every block over the full sequence h, groups then tail; with
     ``caches`` (``init_lm_cache``'s tree) each block also fills its own.
     Returns (h, aux): each group's aux terms (``moe_dropped`` a max
     within the group) summed over the groups, the tail's added on as
-    its blocks add them (the reference's scan, then the tail)."""
+    its blocks add them (the reference's scan, then the tail). ``remat``
+    wraps each group's body (``_rematerialised``), never the tail."""
     pattern, n_groups, tail = group_layout(cfg)
     total = ZERO_AUX(h.device)
-    for g in range(n_groups):
+
+    def group(h, g):
         gp = group_params(params, g)
         gc = None if caches is None else _group_caches(caches, g)
         aux = None
         for i, kind in enumerate(pattern):
             h, aux = block_apply(gp[f"b{i}"], cfg, kind, h, aux,
                                  None if gc is None else gc[f"b{i}"])
+        return h, aux
+
+    group_fn = group if caches is not None else _rematerialised(group, remat)
+    for g in range(n_groups):
+        h, aux = group_fn(h, g)
         if aux is not None:
             total = {k: total[k] + aux[k] for k in total}
     for i in range(tail):
@@ -414,11 +470,16 @@ def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None):
     return h, total
 
 
-def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, frontend=None,
+               remat: str = "none"):
     """tokens: (B, S) int. Returns (logits float32 (B, S, V), aux dict of
-    ``moe_aux``, ``moe_z`` and ``moe_dropped``, zero without experts)."""
+    ``moe_aux``, ``moe_z`` and ``moe_dropped``, zero without experts).
+    ``remat``: ``"none"``, ``"dots"`` or ``"full"`` (module docstring);
+    the values and gradients are the same under each. A ``frontend``
+    waits for ROADMAP.md queue 1 item 6."""
+    _refuse_frontend(frontend, "lm_forward")
     _require_plain_lm(cfg)
-    h, aux = _blocks(params, cfg, _embed(params, cfg, tokens))
+    h, aux = _blocks(params, cfg, _embed(params, cfg, tokens), remat=remat)
     return _readout(params, cfg, h), aux
 
 
@@ -427,17 +488,10 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
             moe_aux_weight: float = 0.01, moe_z_weight: float = 1e-3):
     """Mean next-token cross-entropy of ``lm_forward``'s float32 logits,
     plus the weighted MoE aux and z terms for a config with experts.
-    Returns (loss, metrics: ``ce`` and the aux tree). A ``frontend``
-    waits for ROADMAP.md queue 1 item 6, a ``remat`` policy for item 12."""
-    if frontend is not None:
-        raise NotImplementedError(
-            "lm_loss(frontend=...): modality frontends are not ported yet: "
-            "ROADMAP.md queue 1 item 6 (other LM block kinds and models)")
-    if remat != "none":
-        raise NotImplementedError(
-            f"lm_loss(remat={remat!r}): rematerialisation policies are not "
-            "ported yet: ROADMAP.md queue 1 item 12")
-    logits, aux = lm_forward(params, cfg, tokens)
+    Returns (loss, metrics: ``ce`` and the aux tree). ``remat`` as in
+    ``lm_forward``; a ``frontend`` waits for ROADMAP.md queue 1 item 6."""
+    _refuse_frontend(frontend, "lm_loss")
+    logits, aux = lm_forward(params, cfg, tokens, remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]

@@ -27,3 +27,19 @@ def cosine_annealing(lr_max: float, lr_min: float, total_steps: int):
             _f32(math.pi, t) * t))
 
     return sched
+
+
+def linear_warmup_cosine(lr_max: float, lr_min: float, warmup: int,
+                         total: int):
+    """Linear warmup to lr_max over ``warmup`` steps, then a cosine anneal
+    to lr_min by step ``total`` (the trainer's schedule, ``launch/steps.py``)."""
+
+    def sched(step):
+        step = _f32(step, step)
+        warm = lr_max * torch.clamp(step / max(warmup, 1), max=1.0)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = lr_min + 0.5 * (lr_max - lr_min) * (1.0 + torch.cos(
+            _f32(math.pi, t) * t))
+        return torch.where(step < warmup, warm, cos)
+
+    return sched

@@ -1,11 +1,13 @@
-"""The port's optimizer substrate (repro_torch/optim: AdamW, the global-
-norm clip, the cosine schedule) and its shared fit step
-(core/train.py::make_fit_step) held against the JAX package's on the CPU;
-the counterparts of tests/test_optim.py for what the refinery and the
-flow-head fit use (``sgd``, the int8 moments and gradient compression
-wait for ROADMAP.md queue 1 item 12).
+"""The port's optimizer substrate (repro_torch/optim: AdamW, SGD, the
+global-norm clip, the cosine and warmup-cosine schedules) and its shared
+fit step (core/train.py::make_fit_step) held against the JAX package's on
+the CPU; the counterparts of tests/test_optim.py for what the refinery,
+the flow-head fit and the trainer use (the int8 moments and gradient
+compression wait for ROADMAP.md queue 1 item 12). AdamW's in-place
+update, the trainer's, is held to its functional one in
+tests/test_torch_train.py.
 
-Tolerances: AdamW, the cosine schedule and the clip at fp32 rtol = atol =
+Tolerances: AdamW, SGD, the schedules and the clip at fp32 rtol = atol =
 1e-6 over 20 steps of numpy-seeded gradients; ``make_fit_step`` params
 at 1e-5 of the reference's after 10 steps (a loss through a tanh net,
 whose gradients XLA and PyTorch reduce in different orders)."""
@@ -21,13 +23,15 @@ from repro.optim import adamw as jax_adamw
 from repro.optim import apply_updates as jax_apply
 from repro.optim import clip_by_global_norm as jax_clip
 from repro.optim.optimizers import AdamState as JaxAdamState
+from repro.optim import sgd as jax_sgd
 from repro.optim.schedules import cosine_annealing as jax_cosine
+from repro.optim.schedules import linear_warmup_cosine as jax_warmup_cosine
 from repro_torch.checkpoint.manager import flatten_sorted
 from repro_torch.convert import params_from_jax
 from repro_torch.core import ledger_fitting_loss, make_fit_step
-from repro_torch.optim import (AdamState, adamw, apply_updates,
+from repro_torch.optim import (AdamState, SgdState, adamw, apply_updates,
                                clip_by_global_norm, cosine_annealing,
-                               global_norm)
+                               global_norm, linear_warmup_cosine, sgd)
 
 
 def _t(tree):
@@ -219,3 +223,61 @@ def test_adam_state_carries_across_from_jax():
         {"w": jnp.ones((2, 3)), "b": jnp.ones(2)}, jst, p, 0)
     _assert_close(upd, ju, 1e-6)
     _assert_close(st2.nu, jst2.nu, 1e-6)
+
+
+def test_linear_warmup_cosine_matches_reference():
+    """The trainer's schedule (``launch/steps.py``: warmup 200 of 10,000)
+    and a short one, at integer and float32 steps through warmup, the
+    anneal and past its end, within 1e-6 of the reference's."""
+    for args in ((3e-4, 3e-5, 200, 10_000), (1.0, 0.1, 5, 20),
+                 (2e-3, 0.0, 0, 10)):
+        js, ts = jax_warmup_cosine(*args), linear_warmup_cosine(*args)
+        for step in (0, 1, 3, 5, 7, 12, 199, 200, 201, 5000, 9999, 10_000,
+                     12_000):
+            np.testing.assert_allclose(float(ts(step)), float(js(step)),
+                                       rtol=1e-6, atol=1e-9)
+            np.testing.assert_allclose(
+                float(ts(torch.tensor(float(step) + 1.0))),
+                float(js(jnp.float32(step) + 1.0)), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_matches_reference_20_steps(momentum):
+    """SGD under the warmup-cosine schedule (read at ``step``, not ``step +
+    1`` as AdamW reads it), with and without momentum, 20 steps of
+    numpy-seeded gradients: params and the momentum buffer within 1e-6
+    of the reference's."""
+    rs = np.random.RandomState(4)
+    p_np = {"a": rs.randn(5, 3).astype(np.float32),
+            "n": {"b": rs.randn(7).astype(np.float32)}}
+    jopt = jax_sgd(jax_warmup_cosine(0.1, 0.01, 4, 20), momentum=momentum)
+    topt = sgd(linear_warmup_cosine(0.1, 0.01, 4, 20), momentum=momentum)
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, p_np), _t(p_np)
+    jst, tst = jopt.init(jp), topt.init(tp)
+    assert isinstance(tst, SgdState)
+    assert (tst.momentum is None) == (momentum == 0.0)
+    for step in range(20):
+        g_np = jax.tree_util.tree_map(
+            lambda l: rs.randn(*l.shape).astype(np.float32), p_np)
+        ju, jst = jopt.update(jax.tree_util.tree_map(jnp.asarray, g_np), jst,
+                              jp, step)
+        tu, tst = topt.update(_t(g_np), tst, tp, step)
+        jp, tp = jax_apply(jp, ju), apply_updates(tp, tu)
+    _assert_close(tp, jp, 1e-6)
+    if momentum:
+        _assert_close(tst.momentum, jst.momentum, 1e-6)
+    # a constant rate, as a float
+    u, _ = sgd(0.5).update({"w": torch.ones(3)}, sgd(0.5).init(None), None, 0)
+    assert torch.equal(u["w"], torch.full((3,), -0.5))
+
+
+def test_clip_promotes_low_precision_leaves_as_jax_does():
+    """A bf16 leaf times the float32 clip factor is float32 in JAX; the
+    port's clip gives the same dtype and values."""
+    g = np.random.RandomState(5).randn(6).astype(np.float32) * 4
+    jt, _ = jax_clip({"a": jnp.asarray(g).astype(jnp.bfloat16)}, 1.0)
+    tt, _ = clip_by_global_norm({"a": torch.from_numpy(g).to(
+        torch.bfloat16)}, 1.0)
+    assert jt["a"].dtype == jnp.float32 and tt["a"].dtype == torch.float32
+    np.testing.assert_allclose(tt["a"].numpy(), np.asarray(jt["a"]),
+                               rtol=1e-6, atol=1e-7)

@@ -167,3 +167,57 @@ def test_rglru_scan_raises_past_max_batch():
     with pytest.raises(ValueError, match=f"batch {MAX_BATCH + 1} > "):
         rglru_scan(a, a)
     assert LAUNCHES["rglru_scan"] == 0
+
+
+def test_training_route_takes_the_plain_versions_gradient(monkeypatch):
+    """Where autograd needs a backward, ``_RGLRUScan`` runs the kernel's
+    forward and differentiates the plain version at the same inputs (the
+    kernel has none). With the launch standing in for the kernel on the
+    CPU, values and gradients equal the plain version's bit for bit, in
+    fp32 and bf16, with either input alone requiring grad; the launch
+    ran once per forward and never in the backward. The plain gradient
+    is ``jax.grad``'s through the reference's scan to fp32 rounding."""
+    from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_ref
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    calls = []
+
+    def fake_launch(h, a, b):
+        calls.append(a.shape)
+        h.copy_(rglru_scan_ref(a, b))
+
+    monkeypatch.setattr(ops, "launch", fake_launch)
+    rs = np.random.RandomState(11)
+    shape = (2, 9, 12)
+    for dtype, need in ((torch.float32, (True, True)),
+                        (torch.bfloat16, (True, True)),
+                        (torch.float32, (False, True)),
+                        (torch.float32, (True, False))):
+        a_np = (1.0 / (1.0 + np.exp(-rs.randn(*shape)))).astype(np.float32)
+        b_np = rs.randn(*shape).astype(np.float32)
+        ins = [torch.from_numpy(x).to(dtype) for x in (a_np, b_np)]
+        mine = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+        ref = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+        out = ops._RGLRUScan.apply(*mine)
+        want = rglru_scan_ref(*ref)
+        assert torch.equal(out, want)
+        g = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+        n_calls = len(calls)
+        out.backward(g)
+        want.backward(g)
+        assert len(calls) == n_calls
+        for x, y, n in zip(mine, ref, need):
+            assert (x.grad is None) == (not n)
+            if n:
+                assert x.grad.dtype == dtype and torch.equal(x.grad, y.grad)
+        if dtype == torch.float32 and all(need):
+            jg = jax.grad(lambda a, b: jnp.sum(jax_ref(a, b) * g.numpy()),
+                          argnums=(0, 1))(a_np, b_np)
+            for x, y in zip(mine, jg):
+                np.testing.assert_allclose(x.grad.numpy(), np.asarray(y),
+                                           rtol=1e-5, atol=1e-6)
+    assert len(calls) == 4
+    # on a CPU tensor the wrapper stays the plain version, grad or not
+    a = torch.rand(1, 4, 3, requires_grad=True)
+    assert torch.equal(rglru_scan(a, a), rglru_scan_ref(a, a))
+    assert len(calls) == 4 and LAUNCHES["rglru_scan"] == 0

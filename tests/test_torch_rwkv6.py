@@ -267,3 +267,89 @@ def test_wkv6_raises_where_it_has_no_kernel():
     with pytest.raises(ValueError, match="u \\(3, 16\\)"):
         wkv6(x, x, x, x, torch.zeros(3, 16))
     assert LAUNCHES["rwkv6_scan"] == 0
+
+
+@pytest.mark.parametrize("with_s0,want_state", [(False, False),
+                                                (True, False), (True, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_route_takes_the_plain_versions_gradient(
+        monkeypatch, with_s0, want_state, dtype):
+    """Where autograd needs a backward, ``_WKV6`` runs the kernel's
+    forward and differentiates the plain version at the saved inputs.
+    With the launch standing in for the kernel on the CPU, o (and S_T),
+    and the gradients of r, k, v, w, u and S0 through o and S_T, equal the
+    plain version's bit for bit (bf16 r, k, v, u as the serving path
+    gives them, fp32 w); every input gets a nonzero gradient; the launch
+    ran once per forward and never in the backward. Without S0 the
+    plain gradient is ``jax.grad``'s through the reference's scan within
+    the layer tolerance."""
+    from repro.kernels.rwkv6_scan.ref import wkv6_ref as jax_ref
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+    calls = []
+
+    def fake_launch(o, r, k, v, w, u, S0, S_T):
+        calls.append(r.shape)
+        o_ref, s_ref = wkv6_scan_ref(r, k, v, w, u, S0)
+        o.copy_(o_ref)
+        if S_T is not None:
+            S_T.copy_(s_ref)
+
+    monkeypatch.setattr(ops, "launch", fake_launch)
+    rs = np.random.RandomState(12)
+    B, T, H, D = 2, 7, 3, 8
+    r, k, v, w, u = _operands(rs, B, T, H, D)
+    s0 = rs.randn(B, H, D, D).astype(np.float32) if with_s0 else None
+    xdt = getattr(torch, dtype)
+    ins = [torch.from_numpy(x).to(xdt) for x in (r, k, v)] + [
+        torch.from_numpy(w), torch.from_numpy(u).to(xdt)] + (
+        [torch.from_numpy(s0)] if with_s0 else [None])
+    mine = [None if t is None else t.clone().requires_grad_() for t in ins]
+    ref = [None if t is None else t.clone().requires_grad_() for t in ins]
+    out = ops._WKV6.apply(want_state, *mine)
+    want = wkv6_scan_ref(*ref)
+    outs = out if want_state else (out,)
+    for x, y in zip(outs, want):
+        assert torch.equal(x, y)
+    gs = [torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
+          for x in outs]
+    torch.autograd.backward(list(outs), gs)
+    torch.autograd.backward(list(want[:len(outs)]), gs)
+    assert len(calls) == 1
+    for x, y in zip(mine, ref):
+        if x is None:
+            continue
+        assert x.grad.dtype == x.dtype and torch.equal(x.grad, y.grad)
+        assert x.grad.float().abs().max() > 0
+    if not with_s0 and dtype == "float32":
+        jg = jax.grad(lambda *a: jnp.sum(jax_ref(*a) * gs[0].numpy()),
+                      argnums=(0, 1, 2, 3, 4))(r, k, v, w, u)
+        for x, y in zip(mine, jg):
+            np.testing.assert_allclose(x.grad.numpy(), np.asarray(y),
+                                       **LAYER_TOL)
+
+
+def test_training_route_through_the_final_state_alone(monkeypatch):
+    """A loss of S_T alone reaches k, v, w and S0 (r and u only shape o)."""
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+
+    def fake_launch(o, r, k, v, w, u, S0, S_T):
+        o_ref, s_ref = wkv6_scan_ref(r, k, v, w, u, S0)
+        o.copy_(o_ref)
+        S_T.copy_(s_ref)
+
+    monkeypatch.setattr(ops, "launch", fake_launch)
+    rs = np.random.RandomState(13)
+    ops_in = [torch.from_numpy(x) for x in _operands(rs, 1, 5, 2, 8)]
+    s0 = torch.from_numpy(rs.randn(1, 2, 8, 8).astype(np.float32))
+    mine = [t.clone().requires_grad_() for t in ops_in + [s0]]
+    ref = [t.clone().requires_grad_() for t in ops_in + [s0]]
+    _, S_T = ops._WKV6.apply(True, *mine)
+    S_T.sum().backward()
+    wkv6_scan_ref(*ref)[1].sum().backward()
+    for name, x, y in zip("rkvwuS", mine, ref):
+        if name in "ru":
+            assert x.grad is None or not x.grad.any()
+        else:
+            assert torch.equal(x.grad, y.grad) and x.grad.abs().max() > 0
