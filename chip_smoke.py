@@ -79,6 +79,19 @@ function), each dispatch's dropped fraction printed; then
 a reduced LM trained by ``lm_loss``, a HyperEuler g fitted per K by
 ``cdepth_residual_loss``, hyper_euler's KL below euler's checked, and
 the K 4 g saved, restored and served by the engine.
+Then ``phase_paligemma``: full-width ``paligemma_3b`` with its patch
+frontend (8 requests of 256 patch embeddings and 128 text tokens) through
+the prefill step, the continuous-depth scorer at K 3, 6, 9 and 18 (euler
+and hyper_euler, fused and unfused, launches exact, fused against
+unfused, and equal in float32 at 4 layers), the serving CLI's text-only
+cached decode and five train steps; and ``phase_whisper``: full-width
+``whisper_base`` on frames (8, 1500, 512) through the prefill step
+(``encode`` + ``decode_train``), 32 cached decode steps held to
+teacher forcing with a planted fault (another request's cross K/V)
+above the limit, five ``train_loop`` steps and a float32 step against
+the all-plain model, then the serving CLI's continuous-depth drain and
+cached decode of the decoder-only LM with learned positions that the
+CLI (as the reference's) builds for ``whisper_base``.
 Last, once serving is done, the trainer (``python -m
 repro_torch.launch.train``): ``phase_train_kernels`` holds each kernel's
 training route (the kernel's forward, the plain version's backward)
@@ -153,7 +166,8 @@ from repro_torch.launch.refinery import (  # noqa: E402
 from repro_torch.launch.scheduler import InflightScheduler  # noqa: E402
 from repro_torch.launch.workload import (  # noqa: E402
     latency_stats, poisson_trace, replay_scheduler)
-from repro_torch.models import cdepth, lm  # noqa: E402
+from repro_torch.models import cdepth, encdec, lm  # noqa: E402
+from repro_torch.models.encdec import init_encdec  # noqa: E402
 from repro_torch.models.cdepth import (  # noqa: E402
     lm_flow_apply, lm_flow_init, lm_g_init)
 from repro_torch.models import conv_node  # noqa: E402
@@ -171,10 +185,13 @@ GEN = 32                        # tokens each decode phase generates
 # between the sound runs' largest reading and the planted fault's
 # (``lost_cache_writes``) smallest, read by tools/decode_limits.py on the
 # H100 (PERF.md section 6). bf16 readings differ by model, so each has
-# its own: sound 7.8e-3 / 4.0e-4 / 4.3e-2 / 8.7e-2, fault 0.18 / 7.9e-3 /
-# 1.09 / 0.249 (OLMoE against a chain of decode steps, five seeds).
+# its own: sound 7.8e-3 / 4.0e-4 / 4.3e-2 / 8.7e-2 / 2.8e-4 / 8.2e-3,
+# fault 0.18 / 7.9e-3 / 1.09 / 0.249 / 2.0e-3 / 9.4e-2 (OLMoE against a
+# chain of decode steps; OLMoE, PaliGemma and Whisper-base's decoder-only
+# LM over five seeds).
 BF16_DECODE_TOL = {"qwen3_4b": 3e-2, "recurrentgemma_2b": 2e-3,
-                   "rwkv6_1p6b": 0.2, "olmoe_1b_7b": 0.15}
+                   "rwkv6_1p6b": 0.2, "olmoe_1b_7b": 0.15,
+                   "paligemma_3b": 1e-3, "whisper_base": 3e-2}
 # float32 at these depths (Griffin: two groups of rec, rec, attn): sound
 # <= 4.0e-6, fault >= 3.6e-3
 FP32_DECODE_TOL = 1e-4
@@ -394,33 +411,60 @@ def phase_kernels(dev, bandwidth):
     return rows, max(r["max_abs_err"] for r in rows)
 
 
-def attention_pairs(S_len, causal, window):
-    """(query, key) pairs a row set of length S_len attends over: the
-    work this run's masks leave, not the dense S^2."""
-    q = np.arange(S_len)
+def attention_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs Sq query rows attend over Sk keys: the work
+    this run's masks leave, not the dense Sq x Sk."""
+    q = np.arange(Sq)
     lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
-    hi = q + 1 if causal else np.full_like(q, S_len)
+    hi = q + 1 if causal else np.full_like(q, Sk)
     return int(np.sum(hi - lo))
 
 
-# name, (B, S, H, KV, hd), dtype, window: the serving shapes of both
-# models (Griffin's local window does not bind at S 128), float16 and
-# float32 at the Qwen3 shape (the fused-vs-unfused phase runs float32),
-# a window that binds, ragged S with windows whose first visited tile
-# is fully masked, OLMoE's serving shape (MHA 16/16) and the training
-# shape of phase_cdepth_lm's reduced LM (float32, hd 16)
+# name, (B, Sq, Sk, H, KV, hd), dtype, causal, window: the serving shapes
+# of both models (Griffin's local window does not bind at S 128),
+# float16 and float32 at the Qwen3 shape (the fused-vs-unfused phase runs
+# float32), a window that binds, ragged S with windows whose first
+# visited tile is fully masked, OLMoE's serving shape (MHA 16/16), the
+# training shape of phase_cdepth_lm's reduced LM (float32, hd 16);
+# Whisper-base's attention at hd 64 (the encoder over 1,500 frames,
+# non-causal; the decoder at 448 tokens, causal; cross-attention of 448
+# queries over 1,500 frames; float32 at the training step's shapes; a
+# ragged GQA cross case) and PaliGemma's (384 = 256 patches + 128 text
+# tokens, MQA 8/1 at hd 256)
 FLASH_CASES = [
-    ("griffin", (8, 128, 10, 1, 256), torch.bfloat16, 2048),
-    ("qwen3", (8, 128, 32, 8, 128), torch.bfloat16, None),
-    ("qwen3-fp16", (8, 128, 32, 8, 128), torch.float16, None),
-    ("qwen3-fp32", (8, 128, 32, 8, 128), torch.float32, None),
-    ("window-binds", (1, 4096, 10, 1, 256), torch.bfloat16, 2048),
-    ("ragged", (2, 200, 10, 1, 256), torch.bfloat16, 130),
-    ("ragged-fp32", (2, 200, 32, 8, 128), torch.float32, 40),
-    ("olmoe", (8, 128, 16, 16, 128), torch.bfloat16, None),
-    ("cdepth-lm", (8, 64, 4, 2, 16), torch.float32, None),
+    ("griffin", (8, 128, 128, 10, 1, 256), torch.bfloat16, True, 2048),
+    ("qwen3", (8, 128, 128, 32, 8, 128), torch.bfloat16, True, None),
+    ("qwen3-fp16", (8, 128, 128, 32, 8, 128), torch.float16, True, None),
+    ("qwen3-fp32", (8, 128, 128, 32, 8, 128), torch.float32, True, None),
+    ("window-binds", (1, 4096, 4096, 10, 1, 256), torch.bfloat16, True, 2048),
+    ("ragged", (2, 200, 200, 10, 1, 256), torch.bfloat16, True, 130),
+    ("ragged-fp32", (2, 200, 200, 32, 8, 128), torch.float32, True, 40),
+    ("olmoe", (8, 128, 128, 16, 16, 128), torch.bfloat16, True, None),
+    ("cdepth-lm", (8, 64, 64, 4, 2, 16), torch.float32, True, None),
+    ("whisper-enc", (8, 1500, 1500, 8, 8, 64), torch.bfloat16, False, None),
+    ("whisper-dec", (8, 448, 448, 8, 8, 64), torch.bfloat16, True, None),
+    ("whisper-cross", (8, 448, 1500, 8, 8, 64), torch.bfloat16, False,
+     None),
+    ("whisper-cross-fp16", (8, 448, 1500, 8, 8, 64), torch.float16, False,
+     None),
+    ("whisper-dec-fp32", (8, 128, 128, 8, 8, 64), torch.float32, True, None),
+    ("whisper-cross-fp32", (8, 128, 1500, 8, 8, 64), torch.float32, False,
+     None),
+    ("cross-ragged", (2, 77, 203, 8, 2, 64), torch.bfloat16, False, None),
+    ("paligemma", (8, 384, 384, 8, 1, 256), torch.bfloat16, True, None),
 ]
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 2e-5}
+
+
+def sdpa_kwargs(sq, sk, causal, window, dev):
+    """``scaled_dot_product_attention``'s mask arguments for a case."""
+    if not causal:
+        return {}
+    if window is None or window >= sq:
+        return dict(is_causal=True)
+    pos = torch.arange(sq, device=dev)
+    return dict(attn_mask=(pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
 
 
 def phase_flash(dev, bandwidth):
@@ -433,13 +477,13 @@ def phase_flash(dev, bandwidth):
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    for name, (b, s, h, kv, hd), dtype, window in FLASH_CASES:
-        def draw(n):
+    for name, (b, sq, sk, h, kv, hd), dtype, causal, window in FLASH_CASES:
+        def draw(s, n):
             return torch.randn((b, s, n, hd), generator=gen,
                                device=dev).to(dtype)
-        q, k, v = draw(h), draw(kv), draw(kv)
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
-        ref = attention_ref(q, k, v, causal=True, window=window)
+        q, k, v = draw(sq, h), draw(sk, kv), draw(sk, kv)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = FLASH_TOL[dtype]
@@ -447,33 +491,29 @@ def phase_flash(dev, bandwidth):
             raise AssertionError(f"flash_attention {name}: kernel disagrees "
                                  f"with plain (max abs err {err})")
         buf = torch.empty_like(q)
-        ms = time_ms(lambda: fa_ops.launch(buf, q, k, v, True, window),
+        ms = time_ms(lambda: fa_ops.launch(buf, q, k, v, causal, window),
                      flush)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal,
                                                  window=window), flush)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window is None or window >= s:
-            lib = dict(is_causal=True)
-        else:
-            pos = torch.arange(s, device=dev)
-            lib = dict(attn_mask=(pos[None, :] <= pos[:, None])
-                       & (pos[:, None] - pos[None, :] < window))
+        lib = sdpa_kwargs(sq, sk, causal, window, dev)
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True, **lib), flush)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * hd * b * h * attention_pairs(s, True, window)
+        flops = 4 * hd * b * h * attention_pairs(sq, sk, causal, window)
         peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
         bound = max(nbytes / bandwidth, flops / peak) * 1e3
-        rows.append(dict(case=name, shape=[b, s, h, kv, hd],
+        rows.append(dict(case=name, shape=[b, sq, sk, h, kv, hd],
                          dtype=str(dtype).replace("torch.", ""),
-                         window=window, max_abs_err=err, tol=tol, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound, bytes=nbytes, flops=flops,
+                         causal=causal, window=window, max_abs_err=err,
+                         tol=tol, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound,
+                         bytes=nbytes, flops=flops,
                          bound_by="bytes" if nbytes / bandwidth
                          >= flops / peak else "operations"))
         del q, k, v, out, ref, buf
-    emit(phase="kernels", kernel="flash_attention", causal=True, cases=rows,
+    emit(phase="kernels", kernel="flash_attention", cases=rows,
          max_abs_err=max(r["max_abs_err"] for r in rows),
          library="torch.nn.functional.scaled_dot_product_attention")
     return rows
@@ -1684,7 +1724,8 @@ def forward_logits(params, cfg, tokens, start, w):
     """The readout of ``lm_forward``'s hidden states from position
     ``start`` on (the same function as ``lm_forward(tokens)[0][:,
     start:]``, with the readout at the shape the decode path uses)."""
-    h, _ = lm._blocks(params, cfg, lm._embed(params, cfg, tokens))
+    h, _ = lm._blocks(params, cfg, lm.add_positions(
+        params, cfg, lm._embed(params, cfg, tokens)))
     return lm._readout(params, cfg, h[:, start:], w)
 
 
@@ -2971,7 +3012,7 @@ TRAIN_CLI_STEPS, TRAIN_STEPS = 20, 5
 # 5.1e-7 / 2.2e-7 / 2.7e-3, fault 0.50 / 4.3e-3 / 1.0. RWKV6's sound
 # gradients differ most in the first block's u, wk and wr.
 TRAIN_FP32_TOL = {"qwen3_4b": 1e-4, "recurrentgemma_2b": 1e-4,
-                  "rwkv6_1p6b": 2e-2}
+                  "rwkv6_1p6b": 2e-2, "whisper_base": 1e-4}
 # bytes a parameter holds at rest in training: bf16 param and grad,
 # float32 mu and nu
 TRAIN_BYTES_PER_PARAM = 2 + 2 + 4 + 4
@@ -3196,10 +3237,11 @@ def step_part_ms(events, steps):
 
 
 def moved_share(params, cfg, dev, seed=0):
-    """Share of parameter elements that differ from ``init_lm``'s draw at
-    ``seed`` (train_loop's init), drawn again leaf by leaf."""
-    init = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
-                   device=dev)
+    """Share of parameter elements that differ from ``init_lm``'s draw
+    (``init_encdec``'s for an encoder-decoder config) at ``seed``
+    (train_loop's init), drawn again leaf by leaf."""
+    init = (init_encdec if cfg.is_encdec else init_lm)(
+        torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
     moved = sum(int((a != b).sum()) for a, b in zip(
         pytree.tree_leaves(params), pytree.tree_leaves(init)))
     del init
@@ -3396,23 +3438,32 @@ def tree_diff(a, b, names):
 
 
 def train_fp32_step(dev, arch, n_layers, batch, seed=13):
-    """One float32 train step at ``n_layers``, full width, from the same
-    params, through the kernel routes, through the plain versions, and
-    through the planted fault (``gradless_kernels``), params drawn from
-    ``seed``: each route's
-    gradient tree and updated params against the plain route's
-    (``tree_diff``), the loss of each, and the launches of the kernel
-    route."""
+    """One float32 train step at ``n_layers`` (an encoder-decoder's
+    encoder and decoder each), full width, from the same params, through
+    the kernel routes, through the plain versions, and through the
+    planted fault (``gradless_kernels``), params drawn from ``seed``:
+    each route's gradient tree and updated params against the plain
+    route's (``tree_diff``), the loss of each, and the launches of the
+    kernel route. ``batch``: (tokens, targets), or a dict of the step's
+    inputs."""
     cfg = dataclasses.replace(get(arch), n_layers=n_layers, dtype="float32",
                               param_dtype="float32")
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, enc_layers=n_layers,
+                                  dec_layers=n_layers)
     settings = StepSettings(remat="none", zero_opt=False, lr=1e-2)
     step_fn, opt = make_train_step(cfg, settings)
-    batch = {"tokens": batch[0].to(dev), "targets": batch[1].to(dev)}
-    params0 = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
-                      device=dev)
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch[0], "targets": batch[1]}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    params0 = (init_encdec if cfg.is_encdec else init_lm)(
+        torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
     names = leaf_names(params0)
 
     def loss_fn(p, mb):
+        if cfg.is_encdec:
+            return encdec.encdec_loss(p, cfg, mb["frames"], mb["tokens"],
+                                      mb["targets"])
         return lm.lm_loss(p, cfg, mb["tokens"], mb["targets"])
 
     out = {}
@@ -3583,6 +3634,406 @@ def phase_train_faults(dev):
     return launches
 
 
+# ----------------------------------------------- PaliGemma and Whisper ----
+# Full-width paligemma_3b (hf:google/paligemma-3b: the Gemma-2B decoder, 18
+# layers, d 2048, MQA 8/1 of 256, GeGLU 16384, vocab 257216; 2.51 B
+# parameters, 5.03 GB in bf16) with its patch frontend: 8 requests, each
+# 256 patch embeddings (a seeded numpy normal, the SigLIP stub) before 128
+# text tokens, 384 positions. Full-width whisper_base (arXiv:2212.04356: 6 +
+# 6 layers, d 512, MHA 8/8 of 64, GELU 2048, vocab 51865; 121.0 M
+# parameters with the reference's 65,536- and 32,768-row position tables)
+# on frames (8, 1500, 512) and 128 decoder tokens.
+PALI_TEXT = S
+PALI_KS = (3, 6, 9, 18)
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 128
+# float32 checks at reduced depth, full width: PaliGemma at 4 layers (the
+# fused-vs-unfused check), Whisper at 2 + 2 layers (the train step)
+PALI_FP32_LAYERS, WHISPER_FP32_LAYERS = 4, 2
+# Teacher-forced cached decode of Whisper (bf16, 32 steps against
+# decode_train's logits), a share of the largest |logit|, between the
+# sound readings and the planted fault's (``foreign_cross_kv``), read by
+# tools/decode_limits.py on the H100 over five seeds: sound 3.9e-3 to
+# 4.6e-3, fault 5.5e-2 to 7.0e-2
+WHISPER_DECODE_TOL = 1.5e-2
+# PaliGemma's fused and unfused continuous-depth solves in bf16: the fused
+# step rounds z + eps (b.r + eps g) once, the unfused leaf algebra after
+# each product, so they differ by bf16 rounding through the stack; a share
+# of the largest |logit|, 4x the readings on the H100 (2.1e-3 to 2.5e-3
+# over K 3 to 18, both solvers). The float32 check holds them equal.
+PALI_FUSED_TOL = 1e-2
+
+
+def pali_batch(cfg, dev, seed):
+    """One PaliGemma step's inputs: (B, PALI_TEXT) tokens and targets and
+    (B, 256, d) patch embeddings from a numpy RandomState."""
+    rs = np.random.RandomState(seed)
+    toks = [torch.as_tensor(rs.randint(0, cfg.vocab, (B, PALI_TEXT)),
+                            device=dev) for _ in range(2)]
+    fe = rs.standard_normal((B, cfg.n_frontend_tokens, cfg.d_model)
+                            ).astype(np.float32)
+    return {"tokens": toks[0], "targets": toks[1],
+            "frontend": torch.as_tensor(fe, device=dev).to(
+                lm.dtype_of(cfg.dtype))}
+
+
+def logits_rel_diff(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def pali_cdepth(params, cfg, batch, ref_top, gp):
+    """``lm_forward_cdepth(frontend=)`` at each of PALI_KS, euler and
+    hyper_euler (the seeded g), unfused and fused: each solve's launches
+    (flash once per step, one dense block a group; hyper_step once per
+    fused step, none unfused) exact, NFE, argmax agreement with
+    ``lm_forward(frontend=)`` (``ref_top``), and the fused solve against
+    the unfused one within PALI_FUSED_TOL of the largest |logit|. Returns
+    (rows, launches)."""
+    rows, launches = [], collections.Counter()
+    for solver in ("euler", "hyper_euler"):
+        g = gp if solver == "hyper_euler" else None
+        for K in PALI_KS:
+            out = {}
+            for fused in (False, True):
+                LAUNCHES.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, stats = cdepth.lm_forward_cdepth(
+                    params, cfg, batch["tokens"], K, solver, g,
+                    frontend=batch["frontend"], with_stats=True, fused=fused)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                got = dict(LAUNCHES)
+                launches.update(got)
+                want = {"flash_attention": K, "hyper_step": K if fused else 0}
+                if {k: got.get(k, 0) for k in want} != want:
+                    raise AssertionError(f"paligemma cdepth {solver} K {K} "
+                                         f"fused {fused}: launches {got}, "
+                                         f"expected {want}")
+                if not bool(torch.isfinite(logits).all()):
+                    raise AssertionError(f"paligemma cdepth {solver} K {K}: "
+                                         "non-finite logits")
+                out[fused] = (logits, ms, int(stats.nfe[0]))
+            diff = logits_rel_diff(out[True][0], out[False][0])
+            if not diff <= PALI_FUSED_TOL:
+                raise AssertionError(f"paligemma cdepth {solver} K {K}: fused "
+                                     f"off the unfused solve by {diff}")
+            top = out[True][0].argmax(-1)
+            rows.append(dict(
+                solver=solver, K=K, nfe=out[True][2],
+                agreement=float((top == ref_top).float().mean()),
+                text_agreement=float((top[:, -PALI_TEXT:]
+                                      == ref_top[:, -PALI_TEXT:])
+                                     .float().mean()),
+                fused_rel_diff=diff, ms_unfused=out[False][1],
+                ms_fused=out[True][1]))
+            del out, top
+    return rows, launches
+
+
+def pali_fused_fp32(dev):
+    """Float32 at PALI_FP32_LAYERS, full width, TF32 off, with the
+    frontend: the fused and unfused solves (euler and hyper_euler with a
+    seeded g, K 2 and 4) agree to rtol 1e-4, atol 1e-5 of the largest
+    logit (``phase_fused_vs_unfused``'s bound)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get("paligemma_3b"), n_layers=PALI_FP32_LAYERS,
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = init_lm(gen, cfg, device=dev)
+    gp = lm_g_init(gen, cfg, rank=32, device=dev)
+    gp["w_out"] = truncated_normal_init(gen, gp["w_out"].shape, 0.02,
+                                        gp["w_out"].dtype, dev)
+    batch = pali_batch(cfg, dev, 32)
+    report = {}
+    with torch.no_grad():
+        for solver, g in (("euler", None), ("hyper_euler", gp)):
+            for K in (2, 4):
+                a, b = (cdepth.lm_forward_cdepth(
+                    params, cfg, batch["tokens"], K, solver, g,
+                    frontend=batch["frontend"], fused=fused)
+                    for fused in (False, True))
+                scale = float(a.abs().max())
+                ok = bool(((b - a).abs() <= 1e-4 * a.abs() + 1e-5 * scale)
+                          .all())
+                report[f"{solver}-K{K}"] = dict(
+                    max_abs_diff=float((b - a).abs().max()),
+                    max_abs_logit=scale)
+                if not ok:
+                    raise AssertionError(f"paligemma fp32 {solver} K {K}: "
+                                         f"fused off unfused {report}")
+                del a, b
+    del params
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_paligemma(dev, bandwidth):
+    """A main path: full-width paligemma_3b with its patch frontend, bf16,
+    seeded weights, 8 requests of 256 patches and 128 text tokens.
+    (1) ``make_prefill_step`` on a frontend batch: logits (B, 384, V),
+    finite, flash once per dense block. (2) the continuous-depth scorer
+    (``pali_cdepth``; its float32 check ``pali_fused_fp32``). (3)
+    ``phase_decode_cli``: the serving CLI's cached decode, text-only as
+    the reference's CLI serves it. (4) TRAIN_STEPS steps of
+    ``make_train_step`` on frontend batches under a ``SyncedWatchdog``,
+    with ``train_report``'s checks and numbers (384 positions a row).
+    Returns the launches of the four paths."""
+    cfg = get("paligemma_3b")
+    settings = StepSettings(remat="none", zero_opt=False)
+    launches = collections.Counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_lm(gen, cfg, device=dev)
+    gp = lm_g_init(gen, cfg, rank=32, device=dev)
+    gp["w_out"] = truncated_normal_init(gen, gp["w_out"].shape, 0.02,
+                                        gp["w_out"].dtype, dev)
+    batch = pali_batch(cfg, dev, 1)
+    prefill = steps.make_prefill_step(cfg, settings)
+    prefill_ms = []
+    for _ in range(2):      # the first call also loads libraries
+        LAUNCHES.clear()
+        with count_blocks() as blocks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    counted, blocks = dict(LAUNCHES), dict(blocks)
+    check_block_launches(counted, blocks, "paligemma prefill")
+    launches.update({k: 2 * v for k, v in counted.items()})
+    n_pos = cfg.n_frontend_tokens + PALI_TEXT
+    if logits.shape != (B, n_pos, cfg.vocab) or blocks.get("dense") != \
+            cfg.n_layers or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"paligemma prefill: logits {logits.shape}, "
+                             f"blocks {blocks}")
+    ref_top = logits.argmax(-1)
+    del logits
+    rows, cd_launches = pali_cdepth(params, cfg, batch, ref_top, gp)
+    launches.update(cd_launches)
+    fp32 = pali_fused_fp32(dev)
+    emit(phase="paligemma", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, batch=B,
+         patches=cfg.n_frontend_tokens, text=PALI_TEXT,
+         params=lm.count_params(params), prefill_ms=prefill_ms,
+         prefill_launches=counted, cdepth=rows, fused_fp32=fp32,
+         fused_tol=PALI_FUSED_TOL)
+    del params, gp, ref_top, batch
+    release_card()
+    launches.update(phase_decode_cli(dev, bandwidth, "paligemma_3b"))
+    release_card()
+    step_fn, opt = make_train_step(cfg, settings)
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    opt_state = opt.init(params)
+    dog = SyncedWatchdog()
+    hist = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    with count_blocks() as blocks, timed_step_parts() as bwd:
+        for step in range(TRAIN_STEPS):
+            params, opt_state, met = dog.run(
+                step_fn, params, opt_state, step, pali_batch(cfg, dev,
+                                                             100 + step),
+                loss_of=lambda out: out[2]["loss"])
+            hist.append({"step": step, "loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"])})
+    del opt_state
+    counted, blocks = dict(LAUNCHES), dict(blocks)
+    launches.update(counted)
+    report = train_report("paligemma train", cfg, params, hist, dog, bwd,
+                          counted, blocks, dev, seq=n_pos)
+    emit(phase="paligemma_train", **report)
+    del params
+    release_card()
+    return launches
+
+
+@contextlib.contextmanager
+def foreign_cross_kv():
+    """A planted fault for Whisper's teacher-forced decode check: each
+    request's cross K/V is the next request's (``init_dec_cache``'s cross
+    tensors rolled by one along the batch). The check must read it above
+    its limit."""
+    orig = encdec.init_dec_cache
+
+    def faulty(*args, **kwargs):
+        caches = orig(*args, **kwargs)
+        caches["cross"] = {k: torch.roll(v, 1, dims=1)
+                           for k, v in caches["cross"].items()}
+        return caches
+
+    encdec.init_dec_cache = faulty
+    try:
+        yield
+    finally:
+        encdec.init_dec_cache = orig
+
+
+def whisper_inputs(cfg, dev, seed):
+    """Frames (B, WHISPER_FRAMES, d) float32, tokens and targets (B,
+    WHISPER_TOKENS), from a numpy RandomState."""
+    rs = np.random.RandomState(seed)
+    frames = rs.standard_normal((B, WHISPER_FRAMES, cfg.d_model)
+                                ).astype(np.float32)
+    return {"frames": torch.as_tensor(frames, device=dev),
+            **{k: torch.as_tensor(rs.randint(0, cfg.vocab,
+                                             (B, WHISPER_TOKENS)), device=dev)
+               for k in ("tokens", "targets")}}
+
+
+def whisper_decode_logits(params, cfg, enc, toks):
+    """GEN teacher-forced decode steps through ``make_serve_step`` from
+    ``init_dec_cache``: their logits (B, GEN, V) and ms per step (host
+    clock around synchronised work)."""
+    serve_step = steps.make_serve_step(cfg)
+    caches = encdec.init_dec_cache(params, cfg, enc, toks.shape[0], GEN)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(GEN):
+        logits, caches = serve_step(params, toks[:, t], caches, t)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), (time.perf_counter() - t0) * 1e3 / GEN
+
+
+def whisper_decode_err(params, cfg, enc, toks, fault=False):
+    """The teacher-forced decode error, a share of the largest |logit| of
+    ``decode_train`` over the same tokens (under ``foreign_cross_kv`` with
+    ``fault``), and the decode's ms per step."""
+    with torch.no_grad():
+        tf = encdec.decode_train(params, cfg, enc, toks[:, :GEN])
+        with foreign_cross_kv() if fault else contextlib.nullcontext():
+            dec, ms = whisper_decode_logits(params, cfg, enc, toks)
+        return logits_rel_diff(dec, tf), ms
+
+
+def phase_whisper(dev, bandwidth):
+    """A main path: full-width whisper_base, bf16, seeded weights, frames
+    (8, 1500, 512) and 128 decoder tokens. (1) ``make_prefill_step``
+    (``encode`` + ``decode_train``): logits (B, 128, V) finite, flash once
+    per encoder layer and twice per decoder layer (self and cross). (2)
+    the cached decode: ``init_dec_cache`` and GEN teacher-forced
+    ``encdec_decode_step``s (``make_serve_step``) within
+    WHISPER_DECODE_TOL of ``decode_train``'s logits, the planted fault
+    (``foreign_cross_kv``) above it; ms per token beside the bytes a step
+    reads. (3) TRAIN_STEPS steps of ``train_loop`` on frames, tokens and
+    targets. (4) ``train_fp32_step`` at WHISPER_FP32_LAYERS layers each.
+    (5) The serving CLI on ``whisper_base``, which (as the reference's)
+    builds the decoder-only LM with learned positions (``init_lm``):
+    its continuous-depth drain (``serve_counted``: euler, multi-rate,
+    fused, K mixed; the depth path without the learned positions, as
+    the reference's) and its cached decode (``phase_decode_cli``).
+    Returns the launches."""
+    cfg = get("whisper_base")
+    settings = StepSettings(remat="none", zero_opt=False)
+    launches = collections.Counter()
+    per_forward = cfg.enc_layers + 2 * cfg.dec_layers
+    params = init_encdec(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    batch = whisper_inputs(cfg, dev, 11)
+    prefill = steps.make_prefill_step(cfg, settings)
+    prefill_ms = []
+    for _ in range(2):      # the first call also warms up
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    counted = dict(LAUNCHES)
+    launches.update(flash_attention=2 * counted.get("flash_attention", 0))
+    if counted.get("flash_attention") != per_forward or logits.shape != (
+            B, WHISPER_TOKENS, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"whisper prefill: launches {counted}, logits "
+                             f"{logits.shape}")
+    del logits
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encdec.encode(params, cfg, batch["frames"])
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    LAUNCHES.clear()
+    err, step_ms = whisper_decode_err(params, cfg, enc, batch["tokens"])
+    decode_launches = LAUNCHES["flash_attention"]
+    fault, _ = whisper_decode_err(params, cfg, enc, batch["tokens"],
+                                  fault=True)
+    if decode_launches != 2 * cfg.dec_layers or not \
+            err <= WHISPER_DECODE_TOL < fault:
+        raise AssertionError(f"whisper decode: teacher-forced error {err}, "
+                             f"planted fault {fault}, limit "
+                             f"{WHISPER_DECODE_TOL}; {decode_launches} flash "
+                             "launches (decode_train's self and cross "
+                             "attention; the decode steps' are plain)")
+    step_bytes = sum(l.numel() * l.element_size() for l in
+                     pytree.tree_leaves([params["dec_blocks"],
+                                         params["embed"]]))
+    cross_bytes = 2 * cfg.dec_layers * enc.numel() * enc.element_size()
+    emit(phase="whisper", arch=cfg.name, layers=[cfg.enc_layers,
+                                                 cfg.dec_layers],
+         d_model=cfg.d_model, dtype=cfg.dtype, batch=B,
+         frames=WHISPER_FRAMES, tokens=WHISPER_TOKENS, gen=GEN,
+         params=lm.count_params(params), prefill_ms=prefill_ms,
+         prefill_launches=counted, encode_ms=encode_ms,
+         decode_ms_per_token=step_ms, teacher_forced_rel_err=err,
+         planted_fault_rel_err=fault, limit=WHISPER_DECODE_TOL,
+         step_bytes=step_bytes + cross_bytes,
+         bytes_bound_ms_per_token=(step_bytes + cross_bytes) / bandwidth
+         * 1e3)
+    del params, enc
+    release_card()
+    host = [whisper_inputs(cfg, dev, 200 + i) for i in range(TRAIN_STEPS)]
+    dog = SyncedWatchdog()
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    with timed_step_parts() as bwd:
+        params, opt_state, hist = train.train_loop(
+            cfg, settings, TRAIN_STEPS, host, watchdog=dog, device=dev)
+    del opt_state
+    counted = dict(LAUNCHES)
+    launches.update(counted)
+    vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+    moved = moved_share(params, cfg, dev)
+    if not np.isfinite(vals).all() or not moved > 0 or counted.get(
+            "flash_attention") != per_forward * TRAIN_STEPS:
+        raise AssertionError(f"whisper train: {hist}, moved {moved}, "
+                             f"launches {counted}")
+    n = lm.count_params(params)
+    step_s = float(np.median(dog.synced[1:]))
+    parts = {k: float(np.median(v[1:]))
+             for k, v in step_part_ms(bwd, TRAIN_STEPS).items()}
+    tokens = B * (WHISPER_FRAMES + WHISPER_TOKENS)
+    emit(phase="whisper_train", arch=cfg.name, steps=TRAIN_STEPS,
+         losses=[h["loss"] for h in hist],
+         grad_norms=[h["grad_norm"] for h in hist], params=n,
+         moved_share=moved, ms_per_step_synced=step_s * 1e3,
+         synced_ms=[t * 1e3 for t in dog.synced],
+         positions_per_s=tokens / step_s,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         reckoning_at_rest_gb=n * TRAIN_BYTES_PER_PARAM / 1e9,
+         forward_backward_ms_per_step=parts.pop("forward_backward"),
+         plain_backward_ms_per_step=parts, launches=counted)
+    del params, host
+    release_card()
+    fp32 = train_fp32_step(dev, "whisper_base", WHISPER_FP32_LAYERS,
+                           whisper_inputs(cfg, "cpu", 12))
+    emit(phase="whisper_train_fp32", tol=TRAIN_FP32_TOL["whisper_base"],
+         **fp32)
+    check_train_fp32("whisper_base", fp32)
+    report, served, blocks, params, _ = serve_counted(dev, "whisper_base")
+    if set(blocks) != {"dense"} or not served.get("hyper_step"):
+        raise AssertionError(f"whisper_base serve: blocks {blocks}, "
+                             f"launches {served}")
+    emit(**report)
+    launches.update(served)
+    del params
+    release_card()
+    launches.update(phase_decode_cli(dev, bandwidth, "whisper_base"))
+    release_card()
+    return launches
+
+
 def release_card():
     """Frees what the dropped models held: a collector pass, then the
     allocator's cache. Some serving objects form reference cycles, which
@@ -3666,6 +4117,10 @@ def main() -> int:
     phase_decode_fp32(dev)
     phase_refinery_fp32(dev)
     release_card()
+    t_new = time.perf_counter()
+    launches.update(phase_paligemma(dev, bandwidth))
+    launches.update(phase_whisper(dev, bandwidth))
+    emit(phase="paligemma_whisper_total", seconds=time.perf_counter() - t_new)
     t_train = time.perf_counter()
     phase_train_kernels(dev)
     launches.update(phase_train_cli(dev))

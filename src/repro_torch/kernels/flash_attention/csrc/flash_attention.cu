@@ -12,20 +12,32 @@
 // type. The probabilities are never rounded to the activation type alone
 // before P.V.
 //
+// Query and key lengths: Sq rows of q and o (the grid), Sk rows of k and
+// v (the kv loop). They differ only for cross-attention (a decoder's
+// queries over an encoder's frames), which is non-causal and unwindowed;
+// the launcher refuses a causal or windowed call with Sq != Sk. The
+// Pallas kernel has one S; the reference computes cross-attention in
+// plain jnp (src/repro/nn/attention.py:113-140), which the port sends
+// through this kernel as it does every full-sequence attention.
+//
 // Masks: causal (k <= q), sliding window (q - k < window), and the ragged
-// sequence tail (k < S). The kv loop runs from the window's lower tile to
+// key tail (k < Sk). The kv loop runs from the window's lower tile to
 // the causal diagonal, the Pallas kernel's loop bounds (:81-88), so a
 // dense S^2 is never masked. A row whose first visited tile is fully
 // masked takes p = exp(-1e30 - (-1e30)) = 1 there, and the next tile's
 // alpha = exp(-1e30 - m) = 0 wipes it out, as in the Pallas kernel; with
 // -inf that rescale would be exp(-inf + inf) = NaN. Key/value rows past S
-// load as zeros, so that transient never multiplies garbage.
+// load as zeros, so that transient never multiplies garbage; query rows
+// past Sq load as zeros and are never stored.
 //
 // Bound on this card: at the serving shapes (B 8, S 128) the work is tiny
 // against the bytes: Griffin (10 query heads over 1 kv head, hd 256, bf16)
 // moves 11.5 MB (q and o 5.24 MB each, k and v 0.52 MB each), ~3.4 us at
 // 3.35 TB/s, against ~0.67 GFLOP (~0.7 us at the bf16 tensor-core peak);
-// Qwen3 (32 over 8, hd 128) moves 21 MB, ~6.3 us. A window of 2048 over
+// Qwen3 (32 over 8, hd 128) moves 21 MB, ~6.3 us. Whisper-base (8 heads
+// of 64): its encoder (B 8, 1,500 frames, non-causal) is ~37 GFLOP,
+// operations-bound (~37 us); cross-attention of 448 queries over 1,500
+// frames ~11 GFLOP (~11 us). A window of 2048 over
 // S 4096 (B 1, 10 heads, hd 256) is ~64 GFLOP: operations, ~65 us at
 // 989 TFLOP/s. Two kernels, one launch per call either way:
 //
@@ -34,14 +46,18 @@
 //   * one block of 4 warps per (query tile of FA_MMA_BQ = 64 rows, query
 //     head, batch), each warp owning 16 query rows; the G heads of a kv
 //     group re-read the same K/V tiles from L2, not from device memory;
-//   * q and each K/V tile (BK = 64 rows at hd 128, 16 at hd 256) are
+//   * q and each K/V tile (BK = 32 rows at hd 64, 64 at hd 128, 16 at hd 256) are
 //     copied to shared memory with 16-byte cp.async in the operand type
 //     (rows past S zero-filled through cp.async's source size), in rows
 //     whose 16-byte chunks are XOR-swizzled by the row's low 3 bits, so
 //     the 8 rows of every ldmatrix tile fall in 8 distinct bank groups;
 //   * K/V are double-buffered: tile j + 1 is in flight while tile j
-//     computes (commit_group / wait_group 1). Shared memory: 80 KB at hd
-//     128, 64 KB at hd 256; registers allow 2 blocks an SM;
+//     computes (commit_group / wait_group 1). Shared memory: 24 KB at hd
+//     64, 80 KB at hd 128, 64 KB at hd 256; registers allow 2 blocks an
+//     SM at hd 128 and 256, 4 at hd 64 (127 registers: the fp32 O
+//     accumulator is 32 a thread and 32-key score fragments 16; 64 keys
+//     took 148-156 registers and ran 10-23 % slower, 128 keys 241 and
+//     ran no faster);
 //   * S = Q K^T by mma.sync from ldmatrix fragments. Products of two
 //     16-bit values are exact in fp32, so only the summation order
 //     differs from the plain version. The scale is applied to the fp32
@@ -74,10 +90,11 @@
 //     accumulators (64 registers at hd 256) so nothing spills;
 //   * the probabilities go through shared memory (one row per quad) for
 //     P.V, which runs over the V tile with 16-byte reads;
-//   * it is also instantiated at hd 16 (the reduced LMs whose
-//     continuous-depth hypersolver is fitted on the card), where each
-//     quad lane owns one 4-column chunk; the 16-bit path is not (its
-//     swizzle needs 8 chunks a row), so a 16-bit hd 16 call is refused.
+//   * it is instantiated at hd 16 (the reduced LMs whose continuous-depth
+//     hypersolver is fitted on the card), where each quad lane owns one
+//     4-column chunk, and at hd 64 (Whisper-base, 4 chunks a lane), 128
+//     and 256; the 16-bit path is not instantiated at hd 16 (its swizzle
+//     needs 8 chunks a row), so a 16-bit hd 16 call is refused.
 //
 // Both read q, k and v in place in the (B, S, heads, hd) layout through
 // their strides (no transposes, no padding copies: the TPU wrapper's
@@ -107,7 +124,8 @@ struct FlashParams {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int S, H, KV;
+  int Sq, Sk;  // query rows (grid, output), key rows (kv tiles)
+  int H, KV;
   int causal;
   int window;  // <= 0: no window
   float scale;
@@ -117,7 +135,7 @@ struct FlashParams {
 // BQ rows visits: from the window's lower tile to the causal diagonal.
 template <int BQ, int BK>
 __device__ __forceinline__ void kv_tiles(const FlashParams& p, int q0, int& lo, int& hi) {
-  hi = (p.S + BK - 1) / BK;
+  hi = (p.Sk + BK - 1) / BK;
   if (p.causal) hi = min(hi, (q0 + BQ + BK - 1) / BK);
   lo = 0;
   if (p.window > 0) {
@@ -127,7 +145,7 @@ __device__ __forceinline__ void kv_tiles(const FlashParams& p, int q0, int& lo, 
 }
 
 __device__ __forceinline__ bool kv_visible(const FlashParams& p, int qpos, int kpos) {
-  bool ok = kpos < p.S;
+  bool ok = kpos < p.Sk;
   if (p.causal) ok = ok && kpos <= qpos;
   if (p.window > 0) ok = ok && (qpos - kpos < p.window);
   return ok;
@@ -138,7 +156,9 @@ __device__ __forceinline__ bool kv_visible(const FlashParams& p, int qpos, int k
 
 template <int HD>
 __host__ __device__ constexpr int fa_mma_bk() {
-  return HD >= 256 ? 16 : 64;  // 32 at hd 256 spills (255 registers)
+  // 32 at hd 256 spills (255 registers); at hd 64, 32 keys beat 64 and
+  // tie 128 (tools/flash_ab.py on the H100) at 127 registers
+  return HD >= 256 ? 16 : (HD <= 64 ? 32 : 64);
 }
 
 template <int HD>
@@ -153,7 +173,8 @@ __device__ __forceinline__ unsigned swz(int r, int c) {
 }
 
 // Starts the copies of rows [row0, row0 + ROWS) of one head into the tile
-// at shared address dst; rows at or past S are zero-filled.
+// at shared address dst; rows at or past S (the operand's length) are
+// zero-filled.
 template <typename T, int HD, int ROWS>
 __device__ __forceinline__ void load_tile(unsigned dst, const T* base, long long row_stride,
                                           int row0, int S) {
@@ -211,9 +232,9 @@ __global__ void __launch_bounds__(FA_MMA_THREADS) flash_attention_mma_kernel(con
   int lo, hi;
   kv_tiles<FA_MMA_BQ, BK>(p, q0, lo, hi);  // lo < hi: the diagonal tile is always visited
 
-  load_tile<T, HD, FA_MMA_BQ>(sQ, qb, p.q_ss, q0, p.S);
-  load_tile<T, HD, BK>(sK, kb, p.k_ss, lo * BK, p.S);
-  load_tile<T, HD, BK>(sV, vb, p.v_ss, lo * BK, p.S);
+  load_tile<T, HD, FA_MMA_BQ>(sQ, qb, p.q_ss, q0, p.Sq);
+  load_tile<T, HD, BK>(sK, kb, p.k_ss, lo * BK, p.Sk);
+  load_tile<T, HD, BK>(sV, vb, p.v_ss, lo * BK, p.Sk);
   cp_async_commit();
 
   float acc[OT][4];
@@ -227,8 +248,8 @@ __global__ void __launch_bounds__(FA_MMA_THREADS) flash_attention_mma_kernel(con
   for (int j = lo; j < hi; ++j) {
     const int buf = (j - lo) & 1;
     if (j + 1 < hi) {  // the next tile lands while this one computes
-      load_tile<T, HD, BK>(sK + (buf ^ 1) * TILE, kb, p.k_ss, (j + 1) * BK, p.S);
-      load_tile<T, HD, BK>(sV + (buf ^ 1) * TILE, vb, p.v_ss, (j + 1) * BK, p.S);
+      load_tile<T, HD, BK>(sK + (buf ^ 1) * TILE, kb, p.k_ss, (j + 1) * BK, p.Sk);
+      load_tile<T, HD, BK>(sV + (buf ^ 1) * TILE, vb, p.v_ss, (j + 1) * BK, p.Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -336,7 +357,7 @@ __global__ void __launch_bounds__(FA_MMA_THREADS) flash_attention_mma_kernel(con
   for (int i = 0; i < 16 * CH / 32; ++i) {
     const int e = lane + 32 * i;
     const int r = warp * 16 + e / CH, c = e % CH;
-    if (q0 + r < p.S) {
+    if (q0 + r < p.Sq) {
       *reinterpret_cast<uint4*>(ob + static_cast<long long>(q0 + r) * p.o_ss + c * 8) =
           *reinterpret_cast<const uint4*>(smem + swz<HD>(r, c));
     }
@@ -398,7 +419,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(const Flash
   const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  stage_tile<HD, FA_BQ>(sQ, qb, p.q_ss, q0, p.S, p.scale);
+  stage_tile<HD, FA_BQ>(sQ, qb, p.q_ss, q0, p.Sq, p.scale);
 
   int lo, hi;
   kv_tiles<FA_BQ, FA_BK>(p, q0, lo, hi);
@@ -412,8 +433,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(const Flash
   for (int j = lo; j < hi; ++j) {
     const int k0 = j * FA_BK;
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    stage_tile<HD, FA_BK>(sK, kb, p.k_ss, k0, p.S, 1.f);
-    stage_tile<HD, FA_BK>(sV, vb, p.v_ss, k0, p.S, 1.f);
+    stage_tile<HD, FA_BK>(sK, kb, p.k_ss, k0, p.Sk, 1.f);
+    stage_tile<HD, FA_BK>(sV, vb, p.v_ss, k0, p.Sk, 1.f);
     __syncthreads();
 
     // scores of row r against key rows lane4 + 4 * i
@@ -477,7 +498,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(const Flash
     }
   }
 
-  if (qpos < p.S) {
+  if (qpos < p.Sq) {
     const float den = fmaxf(l, 1e-30f);
     float* orow = static_cast<float*>(p.o) + b * p.o_sb + static_cast<long long>(qpos) * p.o_ss
                   + h * p.o_sh;
@@ -498,7 +519,7 @@ static cudaError_t launch_kernel(K kernel, const FlashParams& p, int B, int bq, 
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((p.S + bq - 1) / bq), static_cast<unsigned>(p.H),
+  const dim3 grid(static_cast<unsigned>((p.Sq + bq - 1) / bq), static_cast<unsigned>(p.H),
                   static_cast<unsigned>(B));
   kernel<<<grid, threads, bytes, s>>>(p);
   return cudaGetLastError();
@@ -525,16 +546,19 @@ extern "C" {
 
 // Launches the kernel on `stream`; returns cudaGetLastError() after the
 // launch (a refused launch never runs, so the wrapper must check this).
-// q: (B, S, H, hd), k and v: (B, S, KV, hd), o: (B, S, H, hd), each given
-// by its pointer and its batch, sequence and head strides in elements;
-// the last axis is contiguous and every stride and pointer is aligned to
-// 16 bytes. window <= 0 means no window.
+// q: (B, Sq, H, hd), k and v: (B, Sk, KV, hd), o: (B, Sq, H, hd), each
+// given by its pointer and its batch, sequence and head strides in
+// elements; the last axis is contiguous and every stride and pointer is
+// aligned to 16 bytes. window <= 0 means no window. Sq != Sk only for a
+// non-causal, unwindowed call.
 cudaError_t flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int S, int H, int KV, int hd,
+                                   int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
                                    const long long* q_strides, const long long* k_strides,
                                    const long long* v_strides, const long long* o_strides,
                                    int causal, int window, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+    return cudaErrorInvalidValue;
+  if (Sq != Sk && (causal || window > 0)) return cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return cudaErrorInvalidValue;
   FlashParams p = {};
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -542,7 +566,7 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v, 
   p.k_sb = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
   p.v_sb = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
   p.o_sb = o_strides[0]; p.o_ss = o_strides[1]; p.o_sh = o_strides[2];
-  p.S = S; p.H = H; p.KV = KV;
+  p.Sq = Sq; p.Sk = Sk; p.H = H; p.KV = KV;
   p.causal = causal;
   p.window = window;
   p.scale = scale;
@@ -552,6 +576,7 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v, 
       if (dtype != FA_F32) return cudaErrorInvalidValue;
       return launch_kernel(flash_attention_kernel<16>, p, B, FA_BQ, FA_THREADS,
                            fa_smem_bytes<16>(), s);
+    case 64: return launch_hd<64>(p, dtype, B, s);
     case 128: return launch_hd<128>(p, dtype, B, s);
     case 256: return launch_hd<256>(p, dtype, B, s);
     default: return cudaErrorInvalidValue;

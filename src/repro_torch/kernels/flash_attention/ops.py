@@ -6,7 +6,9 @@ the CPU takes the plain version (``ref.py``); a tensor on a CUDA device
 launches the CUDA kernel (``csrc/flash_attention.cu``, built by
 ``kernels/_build.py`` at first use) or raises — there is no fallback:
 bf16 and fp16 run on the tensor cores, float32 on the CUDA cores, one
-launch either way.
+launch either way. Keys may be longer or shorter than the queries
+(cross-attention: a decoder's queries over an encoder's frames); such a
+call is non-causal and unwindowed, and a causal or windowed one raises.
 ``LAUNCHES["flash_attention"]`` counts kernel launches, and nothing else.
 
 Gradients: the kernel has no backward. Where autograd needs one (an LM
@@ -26,8 +28,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (128, 256)       # head widths the kernel is instantiated for
-                             # (qwen3_4b's and recurrentgemma_2b's), and
+HEAD_DIMS = (64, 128, 256)   # head widths the kernel is instantiated for
+                             # (whisper_base's; qwen3_4b's; paligemma_3b's
+                             # and recurrentgemma_2b's), and
 FP32_HEAD_DIMS = (16,) + HEAD_DIMS   # the reduced LMs' in float32
 MAX_GRID = 65535             # grid.y (heads) and grid.z (batch) limit
 ALIGN_BYTES = 16             # one cp.async / vector load: 8 bf16 or fp16
@@ -41,24 +44,27 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [P, P, P, P, I, I, I, I, I, I,
-                                           P, P, P, P, I, I, ctypes.c_float,
-                                           P]
+                                           I, P, P, P, P, I, I,
+                                           ctypes.c_float, P]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_shapes(q, k, v) -> None:
+def _check_shapes(q, k, v, causal, window) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: want q "
-                         "(B, S, H, hd) and k, v (B, S, KV, hd)")
-    B, S, H, hd = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) \
-            or H % k.shape[2]:
+                         "(B, Sq, H, hd) and k, v (B, Sk, KV, hd)")
+    B, Sq, H, hd = q.shape
+    if (k.shape[0], k.shape[3]) != (B, hd) or H % k.shape[2]:
         raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)} (H % KV must be 0)")
+    if k.shape[1] != Sq and (causal or window is not None):
+        raise ValueError(f"flash_attention: {Sq} queries over {k.shape[1]} "
+                         "keys (cross-attention) take no causal mask or "
+                         "window")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -76,10 +82,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0 ->
-    (B, S, H, hd) in q's dtype. Scores, softmax and P.V in fp32;
-    ``window`` keeps keys with q_pos - k_pos < window."""
-    _check_shapes(q, k, v)
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0 ->
+    (B, Sq, H, hd) in q's dtype. Scores, softmax and P.V in fp32;
+    ``window`` keeps keys with q_pos - k_pos < window. Sq != Sk only
+    without a causal mask or window."""
+    _check_shapes(q, k, v, causal, window)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if all(t.device.type == "cpu" for t in (q, k, v)):
@@ -95,7 +102,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: no kernel for dtype {q.dtype} "
                         f"(one of {sorted(map(str, _DTYPE_CODE))})")
-    B, S, H, hd = q.shape
+    B, _, H, hd = q.shape
     dims = FP32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS
     if hd not in dims:
         raise ValueError(f"flash_attention: no kernel for head width {hd} "
@@ -140,13 +147,14 @@ def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     """One launch of the CUDA kernel on the current stream, writing
     ``out`` (operands already checked and aligned by ``flash_attention``;
     benchmarks call this directly to time the kernel alone)."""
-    B, S, H, hd = q.shape
+    B, Sq, H, hd = q.shape
     lib = _library()
     strides = [(ctypes.c_longlong * 3)(*t.stride()[:3])
                for t in (q, k, v, out)]
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, S, H, k.shape[2], hd, *strides,
+        _DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], hd,
+        *strides,
         int(causal), 0 if window is None else int(window), hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -18,15 +18,17 @@ NEG_INF = -1e30
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0.
-    Returns (B, S, H, hd) in q's dtype. Any S (no block padding)."""
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0 (Sq !=
+    Sk: cross-attention, called without a causal mask or window).
+    Returns (B, Sq, H, hd) in q's dtype. Any lengths (no block
+    padding)."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bsngh,btnh->bngst", qf, k.float()) * hd ** -0.5
-    pos = torch.arange(S, device=q.device)
-    q_pos, k_pos = pos[:, None], pos[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
     if causal:
         ok = ok & (k_pos <= q_pos)
     if window is not None:

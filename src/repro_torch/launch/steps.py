@@ -2,7 +2,8 @@
 ``repro/launch/steps.py`` for one device.
 
   * train step   = one optimizer update: value and gradient of
-    ``lm_loss`` (microbatched gradient accumulation when
+    ``lm_loss`` (``encdec_loss`` for an encoder-decoder config; a batch's
+    ``frontend`` goes to ``lm_loss``) (microbatched gradient accumulation when
     ``microbatches > 1``), the global-norm clip, AdamW. Params and
     moments are updated in place, leaf by leaf and a stacked leaf in
     chunks (``Optimizer.update_in_place``): the counterpart of the reference's donated
@@ -11,17 +12,18 @@
     model holds ~48 GB at rest in training (bf16 params and grads,
     float32 moments); a whole-tree functional update would hold ~56 GB
     more. The values are the functional update's, bit for bit.
-  * prefill step = the full-sequence forward (logits), no gradient.
-  * serve step   = one cached decode step (``lm_decode_step``), which
-    updates the caches in place (the reference donates them).
+  * prefill step = the full-sequence forward (logits), no gradient: for
+    an encoder-decoder config ``encode`` then ``decode_train``.
+  * serve step   = one cached decode step (``lm_decode_step``, or
+    ``encdec_decode_step``), which updates the caches in place (the
+    reference donates them).
 
 The sharding settings (``zero_opt``, ``seq_shard``, ``fsdp``) are kept
 with the reference's defaults; on one device they change no number, as
 on the reference's (1, 1) mesh. Their multi-device meaning waits for
 ROADMAP.md queue 1 item 10. Not ported: ``abstract_params``,
 ``input_specs``, ``data_shardings`` and ``cache_pspec``, which serve the
-dry run and sharding (item 12). Encoder-decoder and frontend configs
-raise with ``models/lm.py::_require_plain_lm``'s item 6 message.
+dry run and sharding (item 12).
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.lm import (_require_plain_lm, dtype_of,
-                                   lm_decode_step, lm_forward, lm_loss)
+from repro_torch.models import encdec
+from repro_torch.models.lm import (dtype_of, lm_decode_step, lm_forward,
+                                   lm_loss)
 from repro_torch.optim import (Optimizer, adamw, clip_scale, global_norm,
                                linear_warmup_cosine)
 
@@ -81,14 +84,18 @@ def make_train_step(cfg: ArchConfig, settings: StepSettings):
     """Returns ``(train_step, opt)``. ``train_step(params, opt_state, step,
     batch) -> (params, opt_state, metrics)`` updates ``params`` and
     ``opt_state`` in place and returns them; ``batch``: ``tokens`` and
-    ``targets`` (B, S) int; ``metrics``: ``lm_loss``'s (``ce``, MoE aux)
-    with ``loss`` and ``grad_norm`` (before clipping), 0-d tensors on the
-    params' device (reading one is the caller's host sync)."""
-    _require_plain_lm(cfg)
+    ``targets`` (B, S) int, and ``frames`` (B, T, d) for an
+    encoder-decoder config or an optional ``frontend`` (B, N, d);
+    ``metrics``: the loss's (``ce``, MoE aux) with ``loss`` and
+    ``grad_norm`` (before clipping), 0-d tensors on the params' device
+    (reading one is the caller's host sync)."""
     opt = make_optimizer(settings)
     acc_dt = dtype_of(settings.acc_dtype)
 
     def loss_fn(p, mb):
+        if cfg.is_encdec:
+            return encdec.encdec_loss(p, cfg, mb["frames"], mb["tokens"],
+                                      mb["targets"], remat=settings.remat)
         return lm_loss(p, cfg, mb["tokens"], mb["targets"],
                        frontend=mb.get("frontend"), remat=settings.remat)
 
@@ -125,11 +132,17 @@ def make_train_step(cfg: ArchConfig, settings: StepSettings):
 
 def make_prefill_step(cfg: ArchConfig, settings: StepSettings):
     """``prefill(params, batch) -> logits``: the full-sequence forward of
-    ``batch["tokens"]`` (float32 (B, S, V)), without gradient."""
-    _require_plain_lm(cfg)
+    ``batch["tokens"]`` (float32 (B, S, V); with a ``frontend`` (B, N +
+    S, V)), without gradient; for an encoder-decoder config the decoder's
+    teacher-forced logits over ``encode(batch["frames"])``."""
 
     def prefill(params, batch):
         with torch.no_grad():
+            if cfg.is_encdec:
+                enc = encdec.encode(params, cfg, batch["frames"],
+                                    remat=settings.remat)
+                return encdec.decode_train(params, cfg, enc, batch["tokens"],
+                                           remat=settings.remat)
             logits, _ = lm_forward(params, cfg, batch["tokens"],
                                    frontend=batch.get("frontend"),
                                    remat=settings.remat)
@@ -140,11 +153,13 @@ def make_prefill_step(cfg: ArchConfig, settings: StepSettings):
 
 def make_serve_step(cfg: ArchConfig):
     """``serve(params, token, caches, cur_index) -> (logits, caches)``: one
-    cached decode step (``lm_decode_step``), the caches updated in place."""
-    _require_plain_lm(cfg)
+    cached decode step (``lm_decode_step``; ``encdec_decode_step`` over
+    ``init_dec_cache``'s caches for an encoder-decoder config), the caches
+    updated in place."""
+    step = encdec.encdec_decode_step if cfg.is_encdec else lm_decode_step
 
     def serve(params, token, caches, cur_index):
         with torch.no_grad():
-            return lm_decode_step(params, cfg, token, caches, cur_index)
+            return step(params, cfg, token, caches, cur_index)
 
     return serve

@@ -13,6 +13,14 @@ data stream ahead to it -> each step under a watchdog -> periodic
 checkpoints -> on failure, a bounded restore-and-retry. The reference's
 ``mesh`` argument is gone: a multi-GPU mesh is ROADMAP.md queue 1 item 10.
 
+An encoder-decoder config (``whisper_base``) trains through
+``train_loop`` on batches of ``frames``, ``tokens`` and ``targets``. The
+CLI streams tokens only, as the reference's does, and the reference's
+CLI then fails inside ``encdec_loss`` for want of frames: the port's
+CLI refuses such a config up front, naming what is missing. A frontend
+config (``paligemma_3b``) trains text-only through the CLI, as in the
+reference.
+
 The step updates params and optimizer state in place
 (``launch/steps.py``), so a restore copies the checkpoint into those
 same tensors: a failed step's partial update is overwritten, and the
@@ -37,6 +45,7 @@ from repro_torch.data import token_batches
 from repro_torch.distributed.fault import (FailureInjector, StepFailure,
                                            StepWatchdog, WatchdogConfig)
 from repro_torch.launch.steps import StepSettings, make_train_step
+from repro_torch.models.encdec import init_encdec
 from repro_torch.models.lm import init_lm
 
 log = logging.getLogger("repro_torch.train")
@@ -67,8 +76,9 @@ def train_loop(cfg, settings: StepSettings, steps: int, batch_iter,
                watchdog: Optional[StepWatchdog] = None, seed: int = 0,
                device=None):
     """Returns (params, opt_state, history of ``{step, loss,
-    grad_norm}``). Params are ``init_lm``'s from a generator seeded
-    ``seed`` on ``resolve_device(device)``. Restartable: if ``ckpt`` has a
+    grad_norm}``). Params are ``init_lm``'s (``init_encdec``'s for an
+    encoder-decoder config) from a generator seeded ``seed`` on
+    ``resolve_device(device)``. Restartable: if ``ckpt`` has a
     latest step, resumes from it (params, optimizer state, step index).
     ``batch_iter`` must restart its stream on each ``iter()`` (a rewind
     after a failure replays it from the start)."""
@@ -76,8 +86,9 @@ def train_loop(cfg, settings: StepSettings, steps: int, batch_iter,
     step_fn, opt = make_train_step(cfg, settings)
     watchdog = watchdog or StepWatchdog(WatchdogConfig())
 
-    params = init_lm(torch.Generator(device=dev).manual_seed(seed), cfg,
-                     device=dev)
+    init = init_encdec if cfg.is_encdec else init_lm
+    params = init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                  device=dev)
     opt_state = opt.init(params)
     start = 0
     if ckpt is not None:
@@ -147,11 +158,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     wall seconds for programmatic callers."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    device = resolve_device(args.device)
-
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encdec:
+        raise SystemExit(
+            f"--arch {args.arch}: an encoder-decoder model trains on frames, "
+            "tokens and targets, and this CLI streams tokens and targets "
+            "only; call train_loop with batches that carry frames")
+    device = resolve_device(args.device)
     settings = StepSettings(microbatches=args.microbatches, remat="none",
                             lr=args.lr, zero_opt=False)
 

@@ -16,11 +16,17 @@ reference's call structure for ``moe`` blocks: a scalar depth routes the
 whole batch's tokens in one dispatch; a per-sample ``(B,)`` depth (the
 reference's ``vmap`` over samples) gives every row a dispatch of its own,
 even when every row maps to the same group.
+
+A ``frontend`` (PaliGemma's patch embeddings) is projected and prepended
+to the token embeddings as ``lm_forward`` does. Learned positions are
+left out of the depth path's initial state, as the reference leaves
+them out (its ``_embed`` adds none): for a ``pos == "learned"`` config
+``lm_forward_cdepth`` at K = n_groups is not ``lm_forward``.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -29,8 +35,8 @@ from repro_torch.core.integrate import Integrator, SolveStats
 from repro_torch.core.residual import combined_loss
 from repro_torch.core.solvers import FixedGrid
 from repro_torch.core.tableaus import get as get_tableau
-from repro_torch.models.lm import (_embed, _readout, block_apply, dtype_of,
-                                   group_layout, group_params)
+from repro_torch.models.lm import (_readout, block_apply, dtype_of,
+                                   embed_inputs, group_layout, group_params)
 from repro_torch.nn.module import truncated_normal_init
 
 
@@ -88,16 +94,16 @@ def depth_field(params, cfg: ArchConfig):
     return f
 
 
-def discrete_depth_trajectory(params, cfg: ArchConfig,
-                              tokens: torch.Tensor) -> torch.Tensor:
+def discrete_depth_trajectory(params, cfg: ArchConfig, tokens: torch.Tensor,
+                              frontend: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Residual-stream states at every group boundary, the 'exact'
     solution checkpoints for hypersolver fitting (paper Sec. 3.2; ground
     truth here is the deployed full-depth network itself). Not an
     Integrator solve: the group outputs are emitted bit for bit.
-    Returns (n_groups+1, B, S, d). The reference's ``frontend`` input
-    waits for ROADMAP.md queue 1 item 6."""
+    Returns (n_groups+1, B, S, d), S counting a ``frontend``'s rows."""
     _, n_groups, _ = group_layout(cfg)
-    h = _embed(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, frontend)
     traj = [h]
     for g in range(n_groups):
         h = _group_apply(params, cfg, group_params(params, g), h)
@@ -214,12 +220,16 @@ def apply_tail(params, cfg: ArchConfig, h):
 
 def lm_forward_cdepth(params, cfg: ArchConfig, tokens: torch.Tensor, K: int,
                       solver: str = "euler", g_params: Any = None,
-                      with_stats: bool = False):
+                      frontend: Optional[torch.Tensor] = None,
+                      with_stats: bool = False, fused: bool = False):
     """Full-sequence scoring with a K-step (hyper)solved depth integration.
-    K == n_groups with solver='euler' and no g reproduces ``lm_forward``."""
-    h = _embed(params, cfg, tokens)
+    K == n_groups with solver='euler' and no g reproduces ``lm_forward``
+    (but for learned positions, module docstring). ``fused`` takes the
+    solver's fused step (``kernels/hyper_step`` on the card), the
+    serving engine's; the reference's function has no such option."""
+    h = embed_inputs(params, cfg, tokens, frontend)
     f = depth_field(params, cfg)
-    integ = lm_integrator(solver, g_params)
+    integ = lm_integrator(solver, g_params, fused=fused)
     h = integ.solve(f, h, FixedGrid.over(0.0, 1.0, K), return_traj=False)
     logits = apply_tail(params, cfg, h)
     if not with_stats:
@@ -236,10 +246,11 @@ def lm_forward_cdepth(params, cfg: ArchConfig, tokens: torch.Tensor, K: int,
 
 
 def depth_probe(params, cfg: ArchConfig, tokens: torch.Tensor, controller,
-                solver: str = "euler", g_params: Any = None):
+                solver: str = "euler", g_params: Any = None,
+                frontend: Optional[torch.Tensor] = None):
     """Cheap per-request error probe over the LM depth ODE: a ``Probe``
     (K, err, nfe, dz0) from one controller probe step."""
-    h = _embed(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, frontend)
     f = depth_field(params, cfg)
     integ = lm_integrator(solver, g_params)
     return controller.select(integ, f, h, (0.0, 1.0))

@@ -9,8 +9,11 @@ Ported: ``dense`` blocks (attention + FFN), ``moe`` blocks (attention +
 mixture of experts, ``nn/moe.py``, with llama4's shared expert beside
 them), Griffin's ``rec`` (RG-LRU recurrence + FFN) and ``attn`` (local
 attention + FFN) blocks, and RWKV-6's ``rwkv`` blocks (time mix +
-channel mix). Learned positions, modality frontends and encoder-decoder
-models raise ``NotImplementedError`` naming their ROADMAP.md item.
+channel mix); learned positions (``pos_embed``, 8,192 rows, added over
+the whole sequence) and the ``patches`` frontend (``patch_proj`` of
+precomputed patch embeddings, prepended to the text). ``whisper_base``
+through ``init_lm`` is the reference's decoder-only LM with learned
+positions; its encoder-decoder model is ``models/encdec.py``.
 ``lm_forward`` returns the MoE aux terms summed over groups (within a
 group ``moe_dropped`` is a max) and ``lm_loss`` weighs them in. Both take
 the reference's ``remat`` policy (``repro/models/lm.py:387–391``):
@@ -52,33 +55,20 @@ from repro_torch.nn.ffn import (ffn_apply, ffn_init, rwkv_channel_mix,
                                 rwkv_channel_mix_init)
 from repro_torch.nn.moe import moe_apply, moe_apply_sorted, moe_init
 from repro_torch.nn.module import (dense, dense_init, embedding_init,
-                                   rmsnorm, rmsnorm_init)
+                                   rmsnorm, rmsnorm_init,
+                                   truncated_normal_init)
 from repro_torch.nn.rglru import (causal_conv1d, griffin_recurrent_apply,
                                   griffin_recurrent_init, rglru_decode_step)
 from repro_torch.nn.rwkv6 import (rwkv6_decode_step, rwkv6_init,
                                   rwkv6_time_mix)
 
 Params = Any
+POS_ROWS = 8192     # learned position table of a decoder-only LM
 
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
-
-
-def _refuse_frontend(frontend, where: str) -> None:
-    if frontend is not None:
-        raise NotImplementedError(
-            f"{where}(frontend=...): modality frontends are not ported yet: "
-            "ROADMAP.md queue 1 item 6 (other LM block kinds and models)")
-
-
-def _require_plain_lm(cfg: ArchConfig) -> None:
-    if cfg.pos == "learned" or cfg.frontend or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions, modality frontends and "
-            "encoder-decoder models are not ported yet: ROADMAP.md queue 1 "
-            "item 6 (other LM block kinds and models)")
 
 
 # ----------------------------------------------------------- patterns ----
@@ -351,8 +341,9 @@ def block_decode(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
     """Random weights drawn from ``gen`` on ``device``, with the reference's
-    tree: group leaves stacked on a leading ``n_groups`` axis."""
-    _require_plain_lm(cfg)
+    tree: group leaves stacked on a leading ``n_groups`` axis; a learned
+    position table for ``pos == "learned"`` and the patch projection for
+    the ``patches`` frontend."""
     pd = dtype_of(cfg.param_dtype)
     pattern, n_groups, tail = group_layout(cfg)
     params = {
@@ -367,6 +358,12 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, device=None) -> Params:
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, pd,
                                     device=device)
+    if cfg.pos == "learned":
+        params["pos_embed"] = truncated_normal_init(
+            gen, (POS_ROWS, cfg.d_model), 0.02, pd, device)
+    if cfg.frontend == "patches":
+        params["patch_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, pd,
+                                          device=device)
     return params
 
 
@@ -381,6 +378,27 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=h.device)
     return h
+
+
+def embed_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
+                 frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings (B, S, d), with a ``frontend``'s precomputed
+    modality embeddings (B, N, d) projected by ``patch_proj`` and
+    prepended: (B, N + S, d). No positions (the depth path's state)."""
+    h = _embed(params, cfg, tokens)
+    if frontend is None:
+        return h
+    fe = dense(params["patch_proj"], frontend.to(h.dtype))
+    return torch.cat([fe, h], dim=1)
+
+
+def add_positions(params, cfg: ArchConfig, h: torch.Tensor,
+                  start: int = 0) -> torch.Tensor:
+    """h (B, S, d) at positions ``start``.. with the learned position
+    rows added (``pos == "learned"``); h itself otherwise."""
+    if cfg.pos != "learned":
+        return h
+    return h + params["pos_embed"][start:start + h.shape[1]].to(h.dtype)
 
 
 def readout_weight(params, cfg: ArchConfig,
@@ -472,14 +490,15 @@ def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None,
 
 def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, frontend=None,
                remat: str = "none"):
-    """tokens: (B, S) int. Returns (logits float32 (B, S, V), aux dict of
-    ``moe_aux``, ``moe_z`` and ``moe_dropped``, zero without experts).
-    ``remat``: ``"none"``, ``"dots"`` or ``"full"`` (module docstring);
-    the values and gradients are the same under each. A ``frontend``
-    waits for ROADMAP.md queue 1 item 6."""
-    _refuse_frontend(frontend, "lm_forward")
-    _require_plain_lm(cfg)
-    h, aux = _blocks(params, cfg, _embed(params, cfg, tokens), remat=remat)
+    """tokens: (B, S) int; ``frontend``: precomputed modality embeddings
+    (B, N, d) prepended to the text (PaliGemma's patches). Returns
+    (logits float32 (B, N + S, V), aux dict of ``moe_aux``, ``moe_z`` and
+    ``moe_dropped``, zero without experts). ``remat``: ``"none"``,
+    ``"dots"`` or ``"full"`` (module docstring); the values and gradients
+    are the same under each."""
+    h = add_positions(params, cfg, embed_inputs(params, cfg, tokens,
+                                                frontend))
+    h, aux = _blocks(params, cfg, h, remat=remat)
     return _readout(params, cfg, h), aux
 
 
@@ -489,9 +508,11 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Mean next-token cross-entropy of ``lm_forward``'s float32 logits,
     plus the weighted MoE aux and z terms for a config with experts.
     Returns (loss, metrics: ``ce`` and the aux tree). ``remat`` as in
-    ``lm_forward``; a ``frontend`` waits for ROADMAP.md queue 1 item 6."""
-    _refuse_frontend(frontend, "lm_loss")
-    logits, aux = lm_forward(params, cfg, tokens, remat=remat)
+    ``lm_forward``; with a ``frontend`` the loss reads the text
+    positions' logits only (the last ``S``)."""
+    logits, aux = lm_forward(params, cfg, tokens, frontend, remat=remat)
+    if frontend is not None:
+        logits = logits[:, -tokens.shape[1]:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
@@ -509,7 +530,6 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype: Optional[torch.dtype] = None, device=None) -> Params:
     """Zeroed decode caches, the reference's tree: group caches stacked on
     a leading ``n_groups`` axis, tail caches beside them."""
-    _require_plain_lm(cfg)
     dtype = dtype or dtype_of(cfg.dtype)
     pattern, n_groups, tail = group_layout(cfg)
     one = {f"b{i}": block_cache_init(cfg, kind, batch, max_len, dtype,
@@ -534,9 +554,9 @@ def lm_decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches,
     """One decode step. token: (B,) int; ``cur_index``: the Python int
     position; ``readout_w``: a prebuilt ``readout_weight``. Updates
     ``caches`` in place; returns (logits (B, V) float32, caches)."""
-    _require_plain_lm(cfg)
     pattern, n_groups, tail = group_layout(cfg)
-    h = _embed(params, cfg, token[:, None])
+    h = add_positions(params, cfg, _embed(params, cfg, token[:, None]),
+                      cur_index)
     for g in range(n_groups):
         gp, gc = group_params(params, g), _group_caches(caches, g)
         for i, kind in enumerate(pattern):
@@ -562,7 +582,6 @@ def lm_prefill(params, cfg: ArchConfig, prompt: torch.Tensor, caches,
     a decode step). Only the last position is read out.
     From a later position it is the reference's own algorithm: one
     ``lm_decode_step`` per position."""
-    _require_plain_lm(cfg)
     if start_index:
         logits = None
         for i in range(prompt.shape[1]):
@@ -570,7 +589,8 @@ def lm_prefill(params, cfg: ArchConfig, prompt: torch.Tensor, caches,
                                             caches, start_index + i,
                                             readout_w)
         return logits, caches
-    h, _ = _blocks(params, cfg, _embed(params, cfg, prompt), caches)
+    h = add_positions(params, cfg, _embed(params, cfg, prompt))
+    h, _ = _blocks(params, cfg, h, caches)
     return _readout(params, cfg, h[:, -1:], readout_w)[:, 0], caches
 
 

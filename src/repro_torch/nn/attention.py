@@ -1,5 +1,5 @@
-"""Grouped-query attention with RoPE and optional qk-norm, and the decode
-KV cache — ``repro/nn/attention.py``.
+"""Grouped-query attention with RoPE and optional qk-norm,
+cross-attention, and the decode KV cache — ``repro/nn/attention.py``.
 
 Layouts (the reference's): q proj ``(d_model, n_heads * d_head)`` "wq",
 k/v ``(d_model, n_kv * d_head)`` "wk"/"wv", out ``(n_heads * d_head,
@@ -10,16 +10,21 @@ follows the Pallas flash kernel's contract, which differs from the
 reference ``mha``'s einsums in one place: the softmax probabilities stay
 float32 for P.V, where the reference rounds them to the activation type
 first. In float32 the two agree up to the order of summation; in bf16
-the port is the more precise.
+the port is the more precise. Cross-attention (``mha(kv_x=)``: queries
+from x, keys and values from an encoder's states, no RoPE and no mask)
+runs through the same kernel with the key length apart from the query
+length, where the reference computes it with the same plain einsums.
 
 Decode (``init_cache``, ``mha_decode``) is plain PyTorch, as the
 reference's is plain ``jnp``: one query row against the whole cache
 buffer under a ``NEG_INF`` additive bias, scores and softmax in float32,
 the probabilities rounded to the activation type for P.V. The cache is
-updated in place (the reference returns a new one). The reference's
-int8 cache (``kv_int8``) is set only by its TPU dry-run launcher and
-waits for that launcher (ROADMAP.md queue 1 item 12); cross-attention decode
-(``cross_kv``) serves ``whisper_base`` and waits for queue 1 item 6.
+updated in place (the reference returns a new one). Cross-attention
+decode (``cross_kv``, ``precompute_cross_kv``'s encoder K/V) attends
+over every encoder position under a zero bias and leaves the self cache
+as it is. The reference's int8 cache (``kv_int8``) is set only by its
+TPU dry-run launcher and waits for that launcher (ROADMAP.md queue 1
+item 12).
 """
 from __future__ import annotations
 
@@ -79,21 +84,26 @@ def _proj(w, x: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
 def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
         rope_theta: float = 1e4, positions: Optional[torch.Tensor] = None,
         causal: bool = True, window: Optional[int] = None,
-        use_rope: bool = True, qk_norm: bool = False,
-        return_kv: bool = False):
-    """Full-sequence self-attention. x: (B, S, d) -> (B, S, d); with
+        kv_x: Optional[torch.Tensor] = None, use_rope: bool = True,
+        qk_norm: bool = False, return_kv: bool = False):
+    """Full-sequence attention. x: (B, S, d) -> (B, S, d); with
     ``return_kv`` also the post-RoPE ``(k, v)``, each (B, S, n_kv, d_head),
-    for a prefill to write into its decode cache."""
+    for a prefill to write into its decode cache. ``kv_x`` (B, T, d)
+    switches to cross-attention: k and v from ``kv_x``, no RoPE, and no
+    mask whatever ``causal`` and ``window`` say (the reference's)."""
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _proj(params["wq"], x, n_heads, d_head)     # (B,S,H,hd)
-    k = _proj(params["wk"], x, n_kv, d_head)        # (B,S,KV,hd)
-    v = _proj(params["wv"], x, n_kv, d_head)
+    k = _proj(params["wk"], src, n_kv, d_head)      # (B,T,KV,hd)
+    v = _proj(params["wv"], src, n_kv, d_head)
     if qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    if use_rope:
+    if kv_x is not None:
+        causal, window = False, None
+    elif use_rope:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     ctx = flash_attention(q, k, v, causal=causal, window=window)
@@ -160,14 +170,21 @@ def mha_decode(params, x: torch.Tensor, cache: Any, cur_index: int, *,
                rope_theta: float = 1e4, window: Optional[int] = None,
                use_rope: bool = True, qk_norm: bool = False,
                cross_kv: Optional[Any] = None):
-    """Single-token self-attention decode. x: (B, 1, d); cache k/v: (B,
-    Smax, KV, hd); ``cur_index``: the Python int position being
-    generated. Writes the token's k, v at ``cur_index`` in place and
-    returns (out (B, 1, d), cache)."""
+    """Single-token decode. x: (B, 1, d); cache k/v: (B, Smax, KV, hd);
+    ``cur_index``: the Python int position being generated. Writes the
+    token's k, v at ``cur_index`` in place and returns (out (B, 1, d),
+    cache). With ``cross_kv`` (``precompute_cross_kv``'s encoder K/V,
+    each (B, T, KV, hd)) the query (qk-normed, never rotated) attends
+    over every encoder position and ``cache`` is returned untouched."""
     if cross_kv is not None:
-        raise NotImplementedError(
-            "cross_kv (encoder-decoder decode): ROADMAP.md queue 1 item 6 "
-            "(other LM block kinds and models)")
+        q = _proj(params["wq"], x, n_heads, d_head)
+        if qk_norm:
+            q = rmsnorm(params["q_norm"], q)
+        k_all, v_all = cross_kv["k"], cross_kv["v"]
+        bias = torch.zeros((k_all.shape[1],), dtype=torch.float32,
+                           device=x.device)
+        return decode_attend(params, q, k_all.to(x.dtype), v_all.to(x.dtype),
+                             bias, x.dtype), cache
     q, k_new, v_new = decode_qkv(
         params, x, cur_index, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
         rope_theta=rope_theta, use_rope=use_rope, qk_norm=qk_norm)
@@ -179,3 +196,14 @@ def mha_decode(params, x: torch.Tensor, cache: Any, cur_index: int, *,
         valid = valid & (cur_index - k_pos < window)
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     return decode_attend(params, q, k_all, v_all, bias, x.dtype), cache
+
+
+def precompute_cross_kv(params, enc: torch.Tensor, *, n_kv: int,
+                        d_head: int, qk_norm: bool = False):
+    """Encoder K/V for cross-attention decode, computed once per request:
+    each (B, T, n_kv, d_head), k qk-normed where the model has it."""
+    k = _proj(params["wk"], enc, n_kv, d_head)
+    v = _proj(params["wv"], enc, n_kv, d_head)
+    if qk_norm:
+        k = rmsnorm(params["k_norm"], k)
+    return {"k": k, "v": v}

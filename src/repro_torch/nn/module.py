@@ -1,5 +1,5 @@
-"""Primitive layers: truncated-normal init, dense, RMSNorm, embeddings,
-small MLPs.
+"""Primitive layers: truncated-normal init, dense, RMSNorm, LayerNorm,
+embeddings, small MLPs.
 
 Conventions (as in ``repro/nn/module.py``): params are nested dicts of
 tensors with the reference's key names and layouts — a dense kernel is
@@ -60,10 +60,41 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(dim: int, param_dtype=torch.float32, lead=(),
+                   device=None):
+    return {"scale": torch.ones((*lead, dim), dtype=param_dtype,
+                                device=device),
+            "bias": torch.zeros((*lead, dim), dtype=param_dtype,
+                                device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In float32 with the population variance (``jnp.var``), then cast
+    back to x's type."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
+
+
 def embedding_init(gen, vocab: int, dim: int, param_dtype=torch.float32,
                    device=None):
     return {"table": truncated_normal_init(gen, (vocab, dim), 1.0,
                                            param_dtype, device)}
+
+
+def embedding_lookup(params, ids: torch.Tensor,
+                     dtype=torch.float32) -> torch.Tensor:
+    return params["table"][ids.long()].to(dtype)
+
+
+def embedding_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding readout x @ table^T: the table rounded to x's type,
+    products exact in float32 and summed there (the reference's
+    ``preferred_element_type=float32``)."""
+    return torch.matmul(x.float(), params["table"].to(x.dtype).T.float())
 
 
 def mlp_init(gen, dims: Sequence[int], param_dtype=torch.float32,

@@ -164,10 +164,26 @@ def test_mha_return_kv_is_post_rope():
 
 
 def test_cross_kv_decode_names_its_roadmap_item():
-    _, pt, x = _attention()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tatt.mha_decode(pt, torch.from_numpy(x[:, :1]), {}, 0,
-                        cross_kv={"k": None, "v": None}, **ATT)
+    """Cross-KV decode (ROADMAP item 6, ported): each query row of x over
+    an encoder's K/V from ``precompute_cross_kv``, with qk-norm (on q, and
+    on k when the K/V are precomputed) and GQA 6/2, against the
+    reference's ``mha_decode(cross_kv=)``; the self cache is returned as
+    it was given."""
+    pj, pt, x = _attention()
+    enc = np.random.RandomState(9).randn(2, 11, 24).astype(np.float32)
+    ckv_j = jatt.precompute_cross_kv(pj, jnp.asarray(enc), n_kv=2, d_head=4,
+                                     qk_norm=True)
+    ckv_t = tatt.precompute_cross_kv(pt, torch.from_numpy(enc), n_kv=2,
+                                     d_head=4, qk_norm=True)
+    _close_tree(ckv_t, ckv_j, rtol=1e-5, atol=1e-5)
+    cache = tatt.init_cache(2, 7, 2, 4, dtype=torch.float32)
+    for t in range(3):
+        oj, _ = jatt.mha_decode(pj, jnp.asarray(x[:, t:t + 1]), {},
+                                jnp.asarray(t), cross_kv=ckv_j, **ATT)
+        ot, back = tatt.mha_decode(pt, torch.from_numpy(x[:, t:t + 1]),
+                                   cache, t, cross_kv=ckv_t, **ATT)
+        _close(ot, oj, rtol=1e-5, atol=1e-5)
+        assert back is cache and not cache["k"].any()
 
 
 def test_rglru_decode_step_matches_jax():

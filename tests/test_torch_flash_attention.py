@@ -218,11 +218,11 @@ def test_kernel_alignment_is_counted_in_bytes(dtype):
     assert _aligned(odd_stride) is not odd_stride
 
 
-@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_mha_gives_the_kernel_operands_it_reads_in_place(monkeypatch, hd):
     """On the main path nothing is copied before the kernel: the q, k, v
     that ``mha`` hands the wrapper (projections, qk-norm, RoPE) are bf16
-    and pass the 16-byte rule as they are, at both instantiated widths."""
+    and pass the 16-byte rule as they are, at every instantiated width."""
     seen = []
 
     def record(q, k, v, **kw):
@@ -252,27 +252,28 @@ def _mma_emulation(q, k, v, *, causal=True, window=None, split=True):
     on the CPU, in float32, returned before the final rounding: q, k, v in
     their 16-bit type; scores from products exact in fp32, times
     float32(hd^-0.5) * float32(log2 e) after the product; per 64-row query
-    tile, kv tiles of 64 keys (16 at hd 256) from the window's lower tile
-    to the causal diagonal, masked with the finite -1e30; an online
-    softmax in base 2; each probability split into hi = T(p) and
+    tile, kv tiles of 64 keys (32 at hd 64, 16 at hd 256) from the
+    window's lower tile to the causal diagonal (over every key of a
+    longer or shorter k, non-causal), masked with the finite -1e30; an
+    online softmax in base 2; each probability split into hi = T(p) and
     lo = T(p - hi) for P.V (``split=False``: hi alone, p rounded once);
     o = acc / max(l, 1e-30)."""
     B, S, H, hd = q.shape
-    G = H // k.shape[2]
-    BQ, BK = 64, (16 if hd >= 256 else 64)
+    Sk, G = k.shape[1], H // k.shape[2]
+    BQ, BK = 64, (16 if hd >= 256 else 32 if hd <= 64 else 64)
     T = q.dtype
-    n = -(-S // max(BQ, BK)) * max(BQ, BK)
+    n = -(-max(S, Sk) // max(BQ, BK)) * max(BQ, BK)
 
     def heads(t, rep):              # (B, S, n, hd) -> (B, H, n_pad, hd)
         t = t.float().repeat_interleave(rep, dim=2).transpose(1, 2)
-        return torch.nn.functional.pad(t, (0, 0, 0, n - S))
+        return torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[2]))
 
     qf, kf, vf = heads(q, 1), heads(k, G), heads(v, G)
     scale2 = torch.tensor(hd ** -0.5, dtype=torch.float32) \
         * torch.tensor(LOG2E, dtype=torch.float32)
     out = torch.zeros(B, H, n, hd)
     for q0 in range(0, S, BQ):
-        hi = -(-S // BK)
+        hi = -(-Sk // BK)
         if causal:
             hi = min(hi, (q0 + BQ + BK - 1) // BK)
         lo = max(0, q0 - (window - 1)) // BK if window else 0
@@ -282,7 +283,7 @@ def _mma_emulation(q, k, v, *, causal=True, window=None, split=True):
         l = torch.zeros(B, H, BQ, 1)
         for j in range(lo, hi):
             kpos = torch.arange(j * BK, (j + 1) * BK)[None, :]
-            ok = kpos < S
+            ok = kpos < Sk
             if causal:
                 ok = ok & (kpos <= qpos)
             if window:
@@ -347,3 +348,20 @@ def test_mma_emulation_is_float32_before_rounding(B, S, H, KV, hd, window,
                                atol=1e-5 * scale)
     once = _mma_emulation(q, k, v, window=window, split=False)
     assert float((once - ref).abs().max()) > 1e-5 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_mma_emulation_of_cross_lengths(dtype):
+    """Cross-attention on the tensor-core path: 77 queries over 203 keys
+    (GQA 8/2, hd 64: 32-key tiles, a ragged last one), non-causal, is
+    within 1e-5 of the float32 reference before the final rounding, as
+    the self-attention cases are."""
+    rs = np.random.RandomState(9)
+    q = torch.from_numpy(rs.randn(2, 77, 8, 64).astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rs.randn(2, 203, 2, 64).astype(np.float32))
+            .to(dtype) for _ in range(2))
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=False)
+    out = _mma_emulation(q, k, v, causal=False)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))

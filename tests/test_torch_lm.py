@@ -292,23 +292,76 @@ def test_lm_g_apply_matches_jax(model):
         _close(out_t, out_j)
 
 
+def _same_tree(own, ref):
+    """``own`` has ``ref``'s tree (keys at every level), shapes and
+    dtypes."""
+    assert jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(lambda t: 0, own)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: 0, ref))
+    for a, b in zip(jax.tree_util.tree_leaves(own),
+                    jax.tree_util.tree_leaves(ref)):
+        assert tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
+
+
 @pytest.mark.parametrize("arch", ["paligemma_3b", "whisper_base"])
 def test_unported_block_kinds_name_their_roadmap_item(arch):
-    """paligemma's patch frontend and whisper's encoder-decoder are what
-    item 6 still holds."""
-    cfg = torch_configs.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        tlm.init_lm(torch.Generator().manual_seed(0), cfg)
+    """paligemma's patch frontend and whisper's learned positions and
+    encoder-decoder, once ROADMAP item 6, are ported: ``init_lm`` (and for
+    whisper ``init_encdec``) draw the reference's tree of shapes and
+    dtypes (``patch_proj``; ``pos_embed`` of 8,192 rows; the stacked
+    encoder and decoder blocks), and ``params_from_jax`` carries the
+    reference's weights leaf for leaf."""
+    from repro.models import encdec as jed
+    from repro_torch.models import encdec as ted
+    cfg_j = jax_configs.get(arch).reduced()
+    cfg_t = torch_configs.get(arch).reduced()
+    inits = [(jlm.init_lm, tlm.init_lm)]
+    if cfg_t.is_encdec:
+        inits.append((jed.init_encdec, ted.init_encdec))
+    for init_j, init_t in inits:
+        ref = jax.tree_util.tree_map(np.asarray, jax.jit(
+            lambda k: init_j(k, cfg_j))(jax.random.PRNGKey(0)))
+        carried = params_from_jax(ref)
+        _same_tree(init_t(torch.Generator().manual_seed(0), cfg_t), carried)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
+            node = carried
+            for k in path:
+                node = node[k.key]
+            np.testing.assert_array_equal(node.numpy(), leaf)
+    own = tlm.init_lm(torch.Generator().manual_seed(0), cfg_t)
+    assert ("patch_proj" in own) == (arch == "paligemma_3b")
+    assert ("pos_embed" in own) == (arch == "whisper_base")
 
 
 def test_lm_loss_refuses_unported_options():
-    """A frontend still waits for item 6; every remat policy is accepted
+    """``lm_loss(frontend=)`` (reduced paligemma: 8 patch embeddings
+    projected and prepended, the loss over the text positions only) and
+    its gradient against the reference's; every remat policy is accepted
     and gives the same loss (bit for bit: tests/test_torch_train.py)."""
-    cfg = torch_configs.get("qwen3_4b").reduced()
-    params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tlm.lm_loss(params, cfg, toks, toks, frontend=torch.zeros(1, 2, 64))
-    losses = [tlm.lm_loss(params, cfg, toks, toks, remat=r)[0]
-              for r in ("none", "dots", "full")]
+    cfg_j = jax_configs.get("paligemma_3b").reduced()
+    cfg = torch_configs.get("paligemma_3b").reduced()
+    pj = jax.jit(lambda k: jlm.init_lm(k, cfg_j))(jax.random.PRNGKey(2))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, pj))
+    rs = np.random.RandomState(3)
+    toks = rs.randint(0, cfg.vocab, (2, 6)).astype(np.int32)
+    tgts = rs.randint(0, cfg.vocab, (2, 6)).astype(np.int32)
+    fe = rs.randn(2, cfg.n_frontend_tokens, cfg.d_model).astype(np.float32)
+    (lj, _), gj = jax.jit(jax.value_and_grad(
+        lambda p: jlm.lm_loss(p, cfg_j, jnp.asarray(toks), jnp.asarray(tgts),
+                              frontend=jnp.asarray(fe)), has_aux=True))(pj)
+    live = jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(),
+                                  params)
+    lt, mt = tlm.lm_loss(live, cfg, torch.from_numpy(toks),
+                         torch.from_numpy(tgts), frontend=torch.from_numpy(fe))
+    lt.backward()
+    _close(lt, lj, rtol=1e-5, atol=1e-5)
+    for path, g in jax.tree_util.tree_flatten_with_path(gj)[0]:
+        node = live
+        for k in path:
+            node = node[k.key]
+        _close(node.grad, g, rtol=1e-4, atol=1e-5)
+    assert float(live["patch_proj"]["kernel"].grad.abs().max()) > 0
+    t = torch.from_numpy(toks)
+    losses = [tlm.lm_loss(params, cfg, t, t, frontend=torch.from_numpy(fe),
+                          remat=r)[0] for r in ("none", "dots", "full")]
     assert all(torch.equal(l, losses[0]) for l in losses)

@@ -40,6 +40,8 @@ from repro import configs as jax_configs
 from repro.data import ShardedLoader as JaxLoader
 from repro.distributed import fault as jfault
 from repro.launch import steps as jsteps
+from repro.launch import train as jtrain
+from repro.models import encdec as jed
 from repro.models import lm as jlm
 from repro.optim import apply_updates as jax_apply
 from repro.optim import clip_by_global_norm as jax_clip
@@ -51,6 +53,7 @@ from repro_torch.data import ShardedLoader, token_batches
 from repro_torch.distributed import fault as tfault
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
+from repro_torch.models import encdec as ted
 from repro_torch.models import lm as tlm
 from repro_torch.optim import apply_updates, clip_by_global_norm, clip_scale
 
@@ -113,9 +116,12 @@ def _ref_step(cfg, settings):
         return _REF_STEPS[key]
     opt = jsteps.make_optimizer(settings)
 
-    def loss_fn(p, mb):
+    def loss_fn(p, mb):       # steps.py's loss_fn
+        if cfg.is_encdec:
+            return jed.encdec_loss(p, cfg, mb["frames"], mb["tokens"],
+                                   mb["targets"], remat=settings.remat)
         return jlm.lm_loss(p, cfg, mb["tokens"], mb["targets"],
-                           remat=settings.remat)
+                           frontend=mb.get("frontend"), remat=settings.remat)
 
     def step(params, opt_state, step, batch):
         m = settings.microbatches
@@ -248,10 +254,40 @@ def test_remat_policies_equal_none_bit_for_bit(arch):
         tlm.lm_loss(params, cfg, t, y, remat="some")
 
 
+def _frontend_and_encdec_batch(cfg, seed=6):
+    """Numpy inputs of the step builders' frontend and encoder-decoder
+    branches at reduced size: tokens and targets (2, 6), with 8 patch
+    embeddings (paligemma) or 12 frames (whisper)."""
+    rs = np.random.RandomState(seed)
+    batch = {k: rs.randint(0, cfg.vocab, (2, 6)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    if cfg.is_encdec:
+        batch["frames"] = rs.randn(2, 12, cfg.d_model).astype(np.float32)
+    else:
+        batch["frontend"] = rs.randn(2, cfg.n_frontend_tokens,
+                                     cfg.d_model).astype(np.float32)
+    return batch
+
+
+def _init_pair(arch, seed=0):
+    """(cfg_j, cfg_t, the reference's weights, the port's copy): an
+    encoder-decoder config's ``init_encdec``, else ``init_lm``."""
+    cfg_j, cfg_t = _cfgs(arch)
+    init = jed.init_encdec if cfg_j.is_encdec else jlm.init_lm
+    pj = jax.jit(functools.partial(init, cfg=cfg_j))(
+        jax.random.PRNGKey(seed))
+    return cfg_j, cfg_t, pj, params_from_jax(
+        jax.tree_util.tree_map(np.asarray, pj))
+
+
 def test_prefill_and_serve_steps():
     """The prefill step is ``lm_forward``'s logits, without gradient; the
-    serve step is ``lm_decode_step``; frontend and encoder-decoder
-    configs raise naming ROADMAP item 6."""
+    serve step is ``lm_decode_step``. The frontend and encoder-decoder
+    branches (once ROADMAP item 6) against the reference's ``prefill`` and
+    ``serve`` bodies (``steps.py:285–293``, ``:301–305``): paligemma's
+    ``lm_forward(frontend=)`` and ``lm_decode_step``, whisper's ``encode``
+    + ``decode_train`` and two ``encdec_decode_step``s over
+    ``init_dec_cache``."""
     cfg = torch_configs.get("qwen3_4b").reduced()
     params = tlm.init_lm(torch.Generator().manual_seed(0), cfg)
     t = torch.from_numpy(_batches(cfg.vocab, 1)[0][0])
@@ -265,10 +301,103 @@ def test_prefill_and_serve_steps():
                                  tlm.init_lm_cache(cfg, B, 4), 0)
     assert torch.equal(got, want)
     for arch in ("paligemma_3b", "whisper_base"):
-        c = torch_configs.get(arch).reduced()
-        for build in (tsteps.make_train_step, tsteps.make_prefill_step):
-            with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-                build(c, settings)
+        cfg_j, cfg_t, pj, pt = _init_pair(arch)
+        nb = _frontend_and_encdec_batch(cfg_t)
+        bj = {k: jnp.asarray(v) for k, v in nb.items()}
+        bt = {k: torch.from_numpy(v) for k, v in nb.items()}
+        logits = tsteps.make_prefill_step(cfg_t, settings)(pt, bt)
+        assert not logits.requires_grad
+        if cfg_j.is_encdec:
+            enc = jax.jit(functools.partial(jed.encode, cfg=cfg_j))(
+                pj, frames=bj["frames"])
+            want = jax.jit(functools.partial(jed.decode_train, cfg=cfg_j))(
+                pj, enc=enc, tokens=bj["tokens"])
+            cj = jed.init_dec_cache(pj, cfg_j, enc, 2, 6)
+            ct = ted.init_dec_cache(pt, cfg_t, ted.encode(pt, cfg_t,
+                                                          bt["frames"]), 2, 6)
+            dec_j = jed.encdec_decode_step
+        else:
+            want = jax.jit(functools.partial(jlm.lm_forward, cfg=cfg_j))(
+                pj, tokens=bj["tokens"], frontend=bj["frontend"])[0]
+            assert logits.shape[1] == 6 + cfg_t.n_frontend_tokens
+            cj = jlm.init_lm_cache(cfg_j, 2, 6)
+            ct = tlm.init_lm_cache(cfg_t, 2, 6)
+            dec_j = jlm.lm_decode_step
+        dec_j = jax.jit(functools.partial(dec_j, cfg=cfg_j))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+        serve_t = tsteps.make_serve_step(cfg_t)
+        for t in range(2):
+            lj, cj = dec_j(pj, token=bj["tokens"][:, t], caches=cj,
+                           cur_index=jnp.asarray(t))
+            lt, ct = serve_t(pt, bt["tokens"][:, t], ct, t)
+            np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["paligemma_3b", "whisper_base"])
+def test_train_step_frontend_and_encdec_branches(arch):
+    """Two steps of ``make_train_step`` on a batch with a ``frontend``
+    (paligemma: ``lm_loss(frontend=)``) or ``frames`` (whisper:
+    ``encdec_loss``) against the reference's composed step on the same
+    batch: loss, ce and grad norm each step, and the params after."""
+    cfg_j, cfg_t, pj, pt = _init_pair(arch)
+    nb = _frontend_and_encdec_batch(cfg_t)
+    settings = dict(SETTINGS)
+    opt_j, step_j = _ref_step(cfg_j, jsteps.StepSettings(**settings))
+    step_t, opt_t = tsteps.make_train_step(cfg_t,
+                                           tsteps.StepSettings(**settings))
+    sj, st = opt_j.init(pj), opt_t.init(pt)
+    for step in range(2):
+        pj, sj, mj = step_j(pj, sj, jnp.asarray(step, jnp.int32),
+                            {k: jnp.asarray(v) for k, v in nb.items()})
+        pt, st, mt = step_t(pt, st, step,
+                            {k: torch.from_numpy(v) for k, v in nb.items()})
+        for k in ("loss", "grad_norm", "ce"):
+            np.testing.assert_allclose(float(mt[k]), float(mj[k]), **TOL)
+    _assert_trees_close(pt, pj)
+
+
+def test_train_loop_trains_whisper_on_frames():
+    """``train_loop`` on reduced whisper (``init_encdec``'s weights from
+    seed 0, batches of frames, tokens and targets): three steps whose
+    losses and grad norms are the reference's step, from the same
+    weights on the same batches, within 1e-5."""
+    _, cfg = _cfgs("whisper_base")
+    cfg_j = _cfgs("whisper_base")[0]
+    batches = [{k: torch.from_numpy(v) for k, v in
+                _frontend_and_encdec_batch(cfg, seed=10 + i).items()
+                if k != "frontend"} for i in range(3)]
+    settings = tsteps.StepSettings(**SETTINGS)
+    _, _, hist = ttrain.train_loop(cfg, settings, 3, batches, device="cpu")
+    opt, step_fn = _ref_step(cfg_j, jsteps.StepSettings(**SETTINGS))
+    pj = _to_jax(ted.init_encdec(torch.Generator().manual_seed(0), cfg))
+    sj = opt.init(pj)
+    for step, b in enumerate(batches):
+        pj, sj, met = step_fn(pj, sj, jnp.asarray(step, jnp.int32),
+                              {k: jnp.asarray(v.numpy())
+                               for k, v in b.items()})
+        assert hist[step]["step"] == step
+        np.testing.assert_allclose(hist[step]["loss"], float(met["loss"]),
+                                   **TOL)
+        np.testing.assert_allclose(hist[step]["grad_norm"],
+                                   float(met["grad_norm"]), **TOL)
+
+
+def test_cli_refuses_whisper_as_the_reference_cannot_run_it(monkeypatch,
+                                                            capsys):
+    """A kept reference behaviour: the training CLI streams tokens and
+    targets only, and an encoder-decoder loss needs frames. The
+    reference's CLI fails inside its loss on the missing ``frames`` key;
+    the port's exits before any step, naming what is missing."""
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "whisper_base",
+                                      "--reduced", "--steps", "1",
+                                      "--batch", "2", "--seq", "8"])
+    with pytest.raises(KeyError, match="frames"):
+        jtrain.main()
+    with pytest.raises(SystemExit, match="trains on frames"):
+        ttrain.main(["--arch", "whisper_base", "--reduced", "--device",
+                     "cpu", "--steps", "1", "--batch", "2", "--seq", "8"])
 
 
 # ------------------------------------------------------------ faults ----

@@ -13,10 +13,13 @@ generate and of the same generate under the planted fault
 ``chip_smoke.lost_cache_writes`` (``chip_smoke.teacher_forced_err``, a
 share of the largest |logit|; for OLMoE against a chain of decode
 steps), against the limit ``chip_smoke.py``
-holds that model to. For the bf16 models also ``lm_prefill`` (last
-position read out) and the same block loop with every position read out
-then the last kept, timed on the host clock around synchronised work in
-the order A B B A, three times. Prints the card's name and power limit
+holds that model to; for ``whisper_base`` also the encoder-decoder's 32
+teacher-forced cached decode steps against ``decode_train``, sound and
+under ``chip_smoke.foreign_cross_kv`` (the LM readings are of the
+decoder-only LM with learned positions that the serving CLI builds). For the bf16 LMs also
+``lm_prefill`` (last position read out) and the same block loop with
+every position read out then the last kept, timed on the host clock
+around synchronised work in the order A B B A, three times. Prints the card's name and power limit
 first, then one JSON line per model, then a last ``{"ok": true, ...}``
 line; exits non-zero without a CUDA device or when a reading falls on
 the wrong side of its limit.
@@ -42,7 +45,8 @@ from repro_torch.models import lm  # noqa: E402
 
 def every_position_prefill(params, cfg, prompt, caches, w):
     """The prefill with a readout over every position, the last kept."""
-    h, _ = lm._blocks(params, cfg, lm._embed(params, cfg, prompt), caches)
+    h, _ = lm._blocks(params, cfg, lm.add_positions(
+        params, cfg, lm._embed(params, cfg, prompt)), caches)
     return lm._readout(params, cfg, h, w)[:, -1].clone()
 
 
@@ -91,6 +95,29 @@ def readings(cfg, seeds, weight_seed, tol, dev):
     return max(row["sound"]) <= tol < min(row["fault"])
 
 
+def whisper_readings(seeds, dev):
+    """Whisper-base's teacher-forced cached decode (``chip_smoke.py``'s
+    ``whisper_decode_err``: full width, bf16, frames and tokens per seed)
+    sound and under the planted fault ``foreign_cross_kv``, against
+    ``chip_smoke.WHISPER_DECODE_TOL``."""
+    cfg = get("whisper_base")
+    params = cs.init_encdec(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    row = dict(arch=cfg.name, dtype=cfg.dtype, limit=cs.WHISPER_DECODE_TOL,
+               sound=[], fault=[])
+    for seed in seeds:
+        batch = cs.whisper_inputs(cfg, dev, seed)
+        with torch.no_grad():
+            enc = cs.encdec.encode(params, cfg, batch["frames"])
+        for key, fault in (("sound", False), ("fault", True)):
+            row[key].append(cs.whisper_decode_err(
+                params, cfg, enc, batch["tokens"], fault=fault)[0])
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps(row), flush=True)
+    return max(row["sound"]) <= cs.WHISPER_DECODE_TOL < min(row["fault"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3])
@@ -110,6 +137,8 @@ def main() -> int:
     for arch in args.archs:
         ok &= readings(get(arch), args.seeds, 0, cs.BF16_DECODE_TOL[arch],
                        dev)
+    if "whisper_base" in args.archs:
+        ok &= whisper_readings(args.seeds, dev)
     for arch, n_layers in cs.FP32_DECODE_LAYERS.items():
         if arch not in args.archs:
             continue
