@@ -36,6 +36,18 @@ to the drain engine's, logits near the drain's, hyper_step once per
 segment step and each block kernel once per block application; it prints
 wall times, segments, the host syncs per segment and the virtual p50/p99
 latency.
+After qwen3_4b's in-flight phase, the roofline clock (``phase_roofline``:
+``RooflineOracle`` at ctx 128 on the cost model's H100 record, raising
+unless the card is the one the record names): the drain engine on both
+clocks bit for bit, the in-flight sync and overlap loops on a Poisson
+trace at 0.25 per field evaluation of the pool with K and useful steps
+equal to ``phase_inflight``'s and every segment timed by CUDA events, and
+the serving CLI with ``--cost-oracle roofline`` in its own process (exit
+0, device_us). At the very end, ``report_roofline`` prints the
+``roofline_vs_measured`` line: that segment, each decode phase's ms a
+token and each train phase's ms a step beside the cost model's
+prediction for its cell and the dominant term, raising if any measured
+time is below 0.9 of its prediction.
 Then, per model on the same params, the online refinery
 (``phase_refinery``: the in-flight trace replayed with a 64-row
 ``ResidualLedger``, completions bit for bit the ledger-free run's, every
@@ -112,6 +124,7 @@ the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is available or the port's sources are missing.
 """
+import ast
 import collections
 import contextlib
 import dataclasses
@@ -133,7 +146,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import get  # noqa: E402
+from repro_torch.configs import ShapeSpec, get  # noqa: E402
 from repro_torch.core.tableaus import get as get_tableau  # noqa: E402
 from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -161,6 +174,7 @@ from repro_torch.launch.steps import (  # noqa: E402
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
     load_flow_params, load_g_params, snap_to_buckets)
+from repro_torch.launch.oracle import RooflineOracle  # noqa: E402
 from repro_torch.launch.refinery import (  # noqa: E402
     Refinery, RefineryConfig, ResidualLedger)
 from repro_torch.launch.scheduler import InflightScheduler  # noqa: E402
@@ -178,6 +192,8 @@ from repro_torch.nn.cnf import (  # noqa: E402
 from repro_torch.nn.module import (  # noqa: E402
     mlp_apply, mlp_init, truncated_normal_init)
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.roofline.costmodel import (  # noqa: E402
+    H100, Mesh2D, cell_cost)
 
 B, S, D = 8, 128, 2560          # the serving phases' batch of prompts
 GEN = 32                        # tokens each decode phase generates
@@ -216,8 +232,14 @@ INFLIGHT_TOL = BF16_DECODE_TOL
 LEDGER_CAP, SHADOW_PROMPTS, SWAP_SEGMENTS = 64, 4, 4
 FLOW_ITERS, FLOW_BATCH, FLOW_RANK, FLOW_NAN_FRAC = 50, 16, 64, 0.5
 BUILD = os.path.join(ROOT, "build")
+# What the phases measured, for the roofline comparison at the end
+# (``report_roofline``): decode ms a token, train ms a step and the
+# in-flight K per request, keyed by kind, then arch.
+MEASURED = collections.defaultdict(dict)
 FP32_PEAK = 67e12               # H100 SXM float32 outside the tensor cores
-BF16_PEAK = 989e12              # H100 SXM dense bf16/fp16 tensor cores
+# dense bf16/fp16 tensor cores: the cost model's H100 record (one source
+# for the card's rates, roofline/costmodel.py)
+BF16_PEAK = H100.peak_flops
 
 
 def emit(**row):
@@ -243,9 +265,10 @@ def hmma_counts(libs):
 
 
 def memory_bandwidth(name: str) -> float:
-    """Published device-memory rate of the card (bytes/s): H100 SXM only."""
-    if name == "NVIDIA H100 80GB HBM3":
-        return 3.35e12
+    """Published device-memory rate of the card (bytes/s), from the cost
+    model's chip record: H100 SXM only."""
+    if name == H100.name:
+        return H100.hbm_bw
     raise RuntimeError(f"no memory rate on record for {name!r}")
 
 
@@ -1136,6 +1159,9 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
                              f"{dispatches * SEG}")
     check_block_launches(launches, blocks, tag)
     stats = latency_stats(sync_rep)
+    MEASURED["inflight"][cfg.name] = dict(
+        K={r.uid: r.K for r in sync_rep.records},
+        useful_steps=sync_rep.useful_steps)
     emit(phase="inflight", arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, dtype=cfg.dtype, requests=INFLIGHT_REQUESTS,
          prompt_len=S, slots=SLOTS, seg=SEG, arrival_rate=ARRIVAL_RATE,
@@ -1160,6 +1186,235 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
     del drain, sync_rep, over_rep
     torch.cuda.empty_cache()
     return launches
+
+# The roofline phase: the card the cost model's H100 record describes,
+# its CLI run's time limit, and the smallest measured / predicted ratio a
+# reading may show (no card beats its own roofline: a ratio below this
+# means a rate or a byte count of the model is wrong).
+ROOFLINE_CLI_TIMEOUT_S = 600
+ROOFLINE_MIN_RATIO = 0.9
+# the families each decode and train phase ran, priced at their cells
+ROOFLINE_DECODE_ARCHS = ("qwen3_4b", "recurrentgemma_2b", "rwkv6_1p6b",
+                         "olmoe_1b_7b", "paligemma_3b", "whisper_base")
+ROOFLINE_TRAIN_ARCHS = ("qwen3_4b", "recurrentgemma_2b", "rwkv6_1p6b",
+                        "paligemma_3b", "whisper_base")
+
+
+@contextlib.contextmanager
+def timed_segments():
+    """While open, every segment call a slot pool builds
+    (``Integrator.segment_cell``) is bracketed by two CUDA events; yields
+    the list of (start, end) event pairs, one per segment."""
+    events = []
+    orig = Integrator.segment_cell
+
+    def cell(self, *args, **kwargs):
+        run = orig(self, *args, **kwargs)
+
+        def timed(*call_args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run(*call_args)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    Integrator.segment_cell = cell
+    try:
+        yield events
+    finally:
+        Integrator.segment_cell = orig
+
+
+def roofline_cli(tol, rate):
+    """``python -m repro_torch.launch.serve`` in flight on the roofline
+    clock, in a process of its own: the in-flight phases' 16 prompts,
+    slots, seg and tolerance, the Poisson rate per device-us. Returns
+    its latency line's dict and each request's K by uid; raises unless
+    it exits 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen3_4b", "--batch", str(INFLIGHT_REQUESTS), "--prompt-len",
+           str(S), "--solver", "euler", "--multirate", "--fused",
+           "--buckets", BUCKETS, "--tol", repr(tol), "--slots", str(SLOTS),
+           "--seg", str(SEG), "--inflight", "--arrival-trace", "poisson",
+           "--cost-oracle", "roofline", "--arrival-rate", repr(rate)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          env=env, timeout=ROOFLINE_CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI on the roofline clock exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    stats = [ast.literal_eval(l.split("] ", 1)[1]) for l in lines
+             if l.startswith("[inflight poisson] ")]
+    K = {int(l.split()[1].rstrip(":")): int(l.split("K=")[1].split()[0])
+         for l in lines if l.strip().startswith("req ")}
+    if len(stats) != 1:
+        raise AssertionError(f"serve CLI printed {len(stats)} latency "
+                             f"lines: {proc.stdout[-2000:]}")
+    return stats[0], K
+
+
+def phase_roofline(dev, params, prompt, tol):
+    """A main path on the roofline clock (``launch/oracle.py::
+    RooflineOracle``, ctx 128, the H100 record), on qwen3_4b's serve-phase
+    params and tolerance. Raises unless the card is the one the record
+    describes. (1) The drain engine serves the 8 prompts on the
+    sequential clock and on the roofline clock: completions equal bit for
+    bit (logits, hence tokens; K, nfe, status, order). (2) The in-flight
+    phases' 16 prompts on a Poisson trace at ARRIVAL_RATE per field
+    evaluation of the pool (``ARRIVAL_RATE / oracle.step_time(SLOTS)``
+    per device-us), sync loop then overlap loop: equal bit for bit, each
+    request's K and the useful step count equal ``phase_inflight``'s,
+    ``latency_stats`` in device_us; each sync segment timed by CUDA
+    events around its ``segment_cell``. (3) The serving CLI once with
+    ``--cost-oracle roofline``, in its own process: exits 0, device_us,
+    the same K. Launches: hyper_step once per solver step, the block
+    kernels once per block application. Returns the launches and the
+    segment's row of ``report_roofline``."""
+    name = torch.cuda.get_device_name(0)
+    if name != H100.name:
+        raise AssertionError(f"the cost model's record is {H100.name!r}, "
+                             f"the card is {name!r}: its rates would not "
+                             "describe this card")
+    cfg = get("qwen3_4b")
+    oracle = RooflineOracle(cfg, ctx=S)
+    rate = ARRIVAL_RATE / oracle.step_time(SLOTS)
+    prompts = inflight_prompts(cfg, prompt)
+    ecfg = EngineConfig(buckets=tuple(int(b) for b in BUCKETS.split(",")),
+                        tol=tol, max_batch=B, solver="euler", fused=True)
+    model = lm_depth_model(params, cfg, solver="euler", fused=True)
+    trace = poisson_trace(prompts, rate=rate, seed=0)
+    t0 = time.perf_counter()
+    LAUNCHES.clear()
+    with count_blocks() as blocks, torch.no_grad():
+        seq = MultiRateEngine(model, ecfg).run(prompt)
+        engine = MultiRateEngine(model, ecfg, oracle=oracle)
+        roof = engine.run(prompt)
+        drain_us = engine.last_report.cost
+        with timed_segments() as events:
+            sync_sched = InflightScheduler(model, ecfg, slots=SLOTS,
+                                           seg=SEG, oracle=oracle)
+            sync_rep = replay_scheduler(sync_sched, trace)
+        torch.cuda.synchronize()
+        seg_us = [a.elapsed_time(b) * 1e3 for a, b in events]
+        sync_rep = own_outputs(sync_rep)
+        over_sched = InflightScheduler(model, ecfg, slots=SLOTS, seg=SEG,
+                                       oracle=oracle, overlap=True)
+        over_rep = own_outputs(replay_scheduler(over_sched, trace))
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    served_s = time.perf_counter() - t0
+
+    key = lambda r: (r.uid, r.K, r.nfe, r.status)
+    if [key(r) for r in roof] != [key(r) for r in seq] or not all(
+            np.array_equal(a.outputs, b.outputs) for a, b in zip(roof, seq)):
+        raise AssertionError("roofline drain: completions differ from the "
+                             "sequential clock's")
+    check_served(roof, "roofline drain")
+    stamps = lambda r: (r.uid, r.K, r.nfe, r.status, r.t_submit, r.t_admit,
+                        r.t_done)
+    if [stamps(r) for r in sync_rep.records] != \
+            [stamps(r) for r in over_rep.records] or not all(
+            np.array_equal(a.outputs, b.outputs)
+            for a, b in zip(sync_rep.records, over_rep.records)):
+        raise AssertionError("roofline in flight: sync and overlap differ")
+    ref = MEASURED["inflight"][cfg.name]
+    got = {r.uid: r.K for r in sync_rep.records}
+    if got != ref["K"] or sync_rep.useful_steps != ref["useful_steps"] \
+            or any(r.status != "ok" for r in sync_rep.records):
+        raise AssertionError(f"roofline in flight: K {got}, useful steps "
+                             f"{sync_rep.useful_steps}; phase_inflight's "
+                             f"{ref}")
+    stats = latency_stats(sync_rep)
+    units = {latency_stats(r)["cost_unit"] for r in (sync_rep, over_rep)}
+    dispatches = sync_sched.dispatches + over_sched.dispatches
+    expected = 2 * packed_k_max_sum(seq, B) + dispatches * SEG
+    if launches.get("hyper_step", 0) != expected or units != {"device_us"}:
+        raise AssertionError(f"roofline: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, the "
+                             f"solver steps were {expected}; units {units}")
+    check_block_launches(launches, blocks, "roofline")
+    if len(seg_us) != sync_sched.dispatches:
+        raise AssertionError(f"roofline: {len(seg_us)} timed segments of "
+                             f"{sync_sched.dispatches}")
+    del seq, roof, sync_rep, over_rep
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    cli_stats, cli_K = roofline_cli(tol, rate)
+    cli_s = time.perf_counter() - t1
+    if cli_stats["cost_unit"] != "device_us" or cli_K != ref["K"]:
+        raise AssertionError(f"roofline CLI: {cli_stats}, K {cli_K}; "
+                             f"phase_inflight's {ref['K']}")
+
+    cell = cell_cost(cfg, ShapeSpec(f"oracle_decode{S}_b{SLOTS}", "decode",
+                                    S, SLOTS), Mesh2D(1, 1, 1),
+                     depth_fraction=1.0 / oracle.n_groups)
+    predicted = oracle.segment_cost((S,), SEG, SLOTS, 1)
+    measured = float(np.median(seg_us))
+    segment = dict(row="inflight_segment_us", arch=cfg.name,
+                   cell=f"decode ctx {S}, width {SLOTS}, 1/"
+                        f"{oracle.n_groups} of depth, x {SEG} steps",
+                   predicted=predicted, measured=measured,
+                   ratio=measured / predicted, dominant=cell.dominant)
+    emit(phase="roofline", arch=cfg.name, chip=H100.name, ctx=S,
+         step_time_us=oracle.step_time(SLOTS), arrival_rate_per_us=rate,
+         drain_cost_us=drain_us, segments=len(seg_us),
+         segment_us=dict(median=measured, min=float(np.min(seg_us)),
+                         max=float(np.max(seg_us))),
+         segment_cost_us=predicted,
+         virtual=dict(p50_latency=stats["p50_latency"],
+                      p99_latency=stats["p99_latency"],
+                      throughput=stats["throughput"],
+                      cost_unit=stats["cost_unit"]),
+         cli_latency=cli_stats,
+         served_s=served_s, cli_s=cli_s, launches=launches,
+         expected_hyper_step_launches=expected, block_applications=blocks)
+    return launches, segment
+
+
+def report_roofline(segment, decode_archs=ROOFLINE_DECODE_ARCHS,
+                    train_archs=ROOFLINE_TRAIN_ARCHS):
+    """The ``roofline_vs_measured`` line: the in-flight segment (from
+    ``phase_roofline``), each decode phase's ms a token against the
+    decode cell of its batch and context (B prompts, S + GEN positions)
+    beside ``decode_limits``' weight-bytes bound, and each train phase's
+    synced ms a step against the train cell of B x S tokens (remat none
+    and one microbatch, the trainer's settings), all on one card of the
+    H100 record. Raises if any measured time is below ROOFLINE_MIN_RATIO
+    times its prediction."""
+    one = Mesh2D(1, 1, 1)
+    rows = [segment]
+    for arch in decode_archs:
+        cfg = get(arch)
+        m = MEASURED["decode_encdec" if cfg.is_encdec else "decode"][arch]
+        t = cell_cost(cfg, ShapeSpec(f"decode_{B}x{S + GEN}", "decode",
+                                     S + GEN, B), one)
+        pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
+        rows.append(dict(row="decode_ms_per_token", arch=arch,
+                         cell=f"decode B {B}, ctx {S + GEN}",
+                         predicted=pred, measured=m["ms"],
+                         ratio=m["ms"] / pred, dominant=t.dominant,
+                         weight_bytes_bound_ms=m["weight_bytes_bound_ms"]))
+    for arch in train_archs:
+        cfg = get(arch)
+        t = cell_cost(cfg, ShapeSpec(f"train_{B}x{S}", "train", S, B), one,
+                      remat="none", microbatches=1)
+        pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
+        ms = MEASURED["train"][arch]
+        rows.append(dict(row="train_ms_per_step", arch=arch,
+                         cell=f"train B {B} x S {S}, remat none",
+                         predicted=pred, measured=ms, ratio=ms / pred,
+                         dominant=t.dominant))
+    emit(roofline_vs_measured=rows, chip=H100.name,
+         min_ratio=ROOFLINE_MIN_RATIO)
+    low = [r for r in rows if r["ratio"] < ROOFLINE_MIN_RATIO]
+    if low:
+        raise AssertionError(f"measured below {ROOFLINE_MIN_RATIO} x the "
+                             f"roofline's prediction: {low}")
+    return rows
 
 
 def refinable_model(params, cfg):
@@ -1863,6 +2118,9 @@ def phase_decode(dev, bandwidth, cfg, run):
     n_params = lm.count_params(params)
     weight_bytes = sum(l.numel() * l.element_size()
                        for l in pytree.tree_leaves(params))
+    MEASURED["decode"][cfg.name] = dict(
+        ms=pieces["decode_ms_per_token"],
+        weight_bytes_bound_ms=weight_bytes / bandwidth * 1e3)
     emit(phase="decode", arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
          gen=GEN, seconds=seconds, tok_per_s=B * GEN / seconds,
@@ -3276,6 +3534,7 @@ def train_report(tag, cfg, params, hist, dog, events, launches, blocks,
     parts = {k: float(np.median(v[1:]))
              for k, v in step_part_ms(events, steps).items()}
     fwd_bwd = parts.pop("forward_backward")
+    MEASURED["train"][cfg.name] = step_s * 1e3
     return dict(
         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         dtype=cfg.dtype, batch=batch, seq=seq, steps=steps,
@@ -3970,6 +4229,9 @@ def phase_whisper(dev, bandwidth):
                      pytree.tree_leaves([params["dec_blocks"],
                                          params["embed"]]))
     cross_bytes = 2 * cfg.dec_layers * enc.numel() * enc.element_size()
+    MEASURED["decode_encdec"][cfg.name] = dict(
+        ms=step_ms,
+        weight_bytes_bound_ms=(step_bytes + cross_bytes) / bandwidth * 1e3)
     emit(phase="whisper", arch=cfg.name, layers=[cfg.enc_layers,
                                                  cfg.dec_layers],
          d_model=cfg.d_model, dtype=cfg.dtype, batch=B,
@@ -4004,6 +4266,7 @@ def phase_whisper(dev, bandwidth):
     parts = {k: float(np.median(v[1:]))
              for k, v in step_part_ms(bwd, TRAIN_STEPS).items()}
     tokens = B * (WHISPER_FRAMES + WHISPER_TOKENS)
+    MEASURED["train"][cfg.name] = step_s * 1e3
     emit(phase="whisper_train", arch=cfg.name, steps=TRAIN_STEPS,
          losses=[h["loss"] for h in hist],
          grad_norms=[h["grad_norm"] for h in hist], params=n,
@@ -4079,6 +4342,10 @@ def main() -> int:
     launches.update(served)
     launches.update(phase_inflight(dev, get("qwen3_4b"), params, prompt, tol,
                                    via_cli=True))
+    t_roof = time.perf_counter()
+    roof_launches, roof_segment = phase_roofline(dev, params, prompt, tol)
+    launches.update(roof_launches)
+    emit(phase="roofline_total", seconds=time.perf_counter() - t_roof)
     refined, ledger = phase_refinery(dev, get("qwen3_4b"), params, prompt,
                                      tol)
     launches.update(refined)
@@ -4127,6 +4394,7 @@ def main() -> int:
     launches.update(phase_train(dev))
     launches.update(phase_train_faults(dev))
     emit(phase="train_total", seconds=time.perf_counter() - t_train)
+    report_roofline(roof_segment)
 
     head = next(r for r in rows if r["case"] == "euler+g"
                 and r["dtype"] == "bfloat16")

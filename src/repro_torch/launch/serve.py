@@ -33,7 +33,16 @@ depth steps per scheduling round, finished requests retire and refill
 between segments. ``--arrival-trace poisson|bursty`` replays a seeded
 arrival trace (``--arrival-rate`` requests per cost unit) and prints the
 ``[inflight <trace>]`` latency line (``launch/workload.py``); ``none``
-submits the whole batch at once. ``--overlap`` runs the pipelined loop
+submits the whole batch at once.
+
+``--cost-oracle`` picks the virtual clock both serving loops stamp
+(``launch/oracle.py``): ``sequential`` (default) counts sequential field
+evaluations; ``roofline`` prices every probe, segment, solve and flow
+eval of the served ``--arch`` at the prompt's context in predicted
+device microseconds on the H100 record (``roofline/costmodel.py``), so
+latency, queue wait, throughput and ``--deadline`` are in ``device_us``
+and ``--arrival-rate`` is per device-us. The clock moves no K, nfe,
+status or output. ``--overlap`` runs the pipelined loop
 (uid-for-uid identical completions). Request hardening: ``--deadline``
 (virtual-clock slack), ``--queue-cap`` with ``--overload-policy``
 (shed/degrade/block), and ``--progress-every N`` prints a progress line
@@ -63,8 +72,8 @@ candidate step and the promotions; a graceful drain flushes the ledger
 drain, in-flight) in ``torch.profiler`` (CPU activity, and CUDA on a
 card) and writes a Chrome trace, ``DIR/serve.pt.trace.json``.
 
-Flags of slices not ported yet exit non-zero naming their ROADMAP.md item:
-``--mesh`` and ``--cost-oracle roofline``.
+A flag of a slice not ported yet exits non-zero naming its ROADMAP.md
+item: ``--mesh``.
 """
 from __future__ import annotations
 
@@ -84,11 +93,11 @@ from repro_torch.configs import get
 from repro_torch.launch.engine import (EngineConfig, MultiRateEngine,
                                        greedy_generate, lm_depth_model,
                                        load_flow_params, load_g_params)
+from repro_torch.launch.oracle import make_oracle
 from repro_torch.models.lm import (discrete_nfe, group_layout, init_lm,
                                    lm_forward)
 
 _ITEM = {
-    "roofline": "ROADMAP.md queue 1 item 9 (cost model on H100 terms)",
     "mesh": "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)",
 }
 
@@ -153,9 +162,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", type=int, default=0, help=_ITEM["mesh"])
     ap.add_argument("--cost-oracle", default="sequential",
                     choices=["sequential", "roofline"],
-                    help="virtual-clock pricing: 'sequential' counts "
-                         "sequential field evals; 'roofline' waits for "
-                         + _ITEM["roofline"])
+                    help="virtual-clock pricing (launch/oracle.py): "
+                         "'sequential' counts sequential field evals "
+                         "(batch-width free); 'roofline' prices probes, "
+                         "segments and solves of the served --arch in "
+                         "predicted device-us on the H100 record "
+                         "(roofline/costmodel.py)")
     ap.add_argument("--overlap", action="store_true",
                     help="pipelined in-flight loop (--inflight only): "
                          "launch segment N+1 before reading segment N's "
@@ -219,8 +231,6 @@ def _refuse_unported(args) -> None:
     waits = []
     if args.mesh:
         waits.append(("--mesh", "mesh"))
-    if args.cost_oracle == "roofline":
-        waits.append(("--cost-oracle roofline", "roofline"))
     if waits:
         raise SystemExit("not ported to repro_torch yet: " + "; ".join(
             f"{flag} waits for {_ITEM[item]}" for flag, item in waits))
@@ -455,6 +465,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                            refinable=args.refine, rank=args.g_rank,
                            flow_params=flow_params)
     mode = "multirate" if args.multirate else f"K={K_fixed}"
+    # the roofline clock prices the served arch at the prompt's context;
+    # reported latency and wait switch to its unit (device-us) with it
+    oracle = make_oracle(args.cost_oracle, cfg, ctx=args.prompt_len)
 
     with torch.no_grad():
         full, _ = lm_forward(params, cfg, torch.as_tensor(prompt,
@@ -477,7 +490,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                   deadline=args.deadline or None,
                                   queue_cap=args.queue_cap or None,
                                   overload_policy=args.overload_policy,
-                                  ledger=ledger)
+                                  ledger=ledger, oracle=oracle)
         if args.refine:
             # held-out seeded prompts the live trace never serves: the
             # shadow gate's replay set
@@ -527,7 +540,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                     full_top=full_top, seconds=dt, device=device,
                     refinery=refinery, ledger=ledger)
 
-    engine = MultiRateEngine(model, ecfg)
+    engine = MultiRateEngine(model, ecfg, oracle=oracle)
     with torch.no_grad(), _profiled(args.profile_dir, device):
         _synchronize(device)
         t0 = time.perf_counter()

@@ -16,7 +16,9 @@ where only the update algebra runs (the toy state), 1e-5 through the toy
 classifier's head and 1e-4 through an LM. Probe tolerances keep every
 request's (err / tol)^(1/q) at least 1e-4 from an integer (asserted), so
 rounding cannot flip a K. The port's sync and overlap loops are equal
-bit for bit."""
+bit for bit. On the roofline clock (``launch/oracle.py::RooflineOracle``
+at the reference's TPU v5e record) both serving loops stamp what the
+reference's stamp."""
 import dataclasses
 import functools
 
@@ -33,6 +35,7 @@ from repro.core import Integrator as JaxIntegrator
 from repro.core import get_tableau as jax_tableau
 from repro.core import make_segment_carry as jax_make_carry
 from repro.launch import engine as jeng
+from repro.launch import oracle as jor
 from repro.launch import scheduler as jsch
 from repro.launch import workload as jwl
 from repro.models.lm import init_lm as jax_init_lm
@@ -41,8 +44,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import FixedGrid, Integrator, SegmentCarry, get_tableau
 from repro_torch.core import make_segment_carry
 from repro_torch.launch import engine as teng
+from repro_torch.launch import oracle as tor
 from repro_torch.launch import scheduler as tsch
 from repro_torch.launch import workload as twl
+from repro_torch.roofline.costmodel import TPU_V5E
 
 LOOPS = pytest.mark.parametrize("overlap", [False, True],
                                 ids=["sync", "overlap"])
@@ -576,6 +581,88 @@ def test_ledger_and_hot_swaps_are_ported():
     psched = tsch.InflightScheduler(model, ecfg)
     assert psched.hot_swap_g({"a": torch.tensor(0.5)}) is gp
     assert float(psched.g_params["a"]) == 0.5
+
+
+# ----------------------------------------------------- roofline clock ----
+
+def test_roofline_oracle_prices_seg_and_width():
+    """The reference's pin, on the port's oracle (H100 record): seg = 2s
+    costs strictly more than seg = s for a busy pool, and pool width is
+    priced sublinearly where the sequential clock gives it away."""
+    o = tor.RooflineOracle(torch_get("qwen3_8b"), ctx=4096)
+    shape = (32,)
+    for s in (1, 2, 4):
+        assert o.segment_cost(shape, 2 * s, 8, 1) \
+            > o.segment_cost(shape, s, 8, 1)
+    t8, t16 = o.step_time(8), o.step_time(16)
+    assert t8 < t16 < 2 * t8
+    assert o.probe_cost(shape, 8, 2) == 2 * t8
+    seq = tor.SequentialEvalOracle()
+    assert seq.segment_cost(shape, 2, 8, 1) \
+        == seq.segment_cost(shape, 2, 9999, 1)
+
+
+def test_roofline_oracle_replay_stamps_device_us():
+    """The reference's end-to-end replay on the port: the same K per
+    request as the sequential clock, the same step counts, costs in
+    device_us."""
+    o = tor.RooflineOracle(torch_get("qwen3_8b"), ctx=4096)
+    ecfg = teng.EngineConfig(buckets=(2, 4, 8), tol=5e-3, max_batch=4)
+    xs = twl.heterogeneous_requests(12, 6, seed=5)
+    t_seq = twl.poisson_trace(xs, rate=0.3, seed=6)
+    t_us = twl.poisson_trace(xs, rate=0.3 / o.step_time(4), seed=6)
+    rep_seq = twl.replay_scheduler(
+        tsch.InflightScheduler(_toy(), ecfg, slots=4, seg=2), t_seq)
+    rep_us = twl.replay_scheduler(
+        tsch.InflightScheduler(_toy(), ecfg, slots=4, seg=2, oracle=o),
+        t_us)
+    assert rep_us.cost_unit == "device_us"
+    assert twl.latency_stats(rep_us)["cost_unit"] == "device_us"
+    assert {r.uid: r.K for r in rep_us.records} == \
+        {r.uid: r.K for r in rep_seq.records}
+    assert rep_us.useful_steps == rep_seq.useful_steps
+    assert rep_us.total_cost > rep_seq.total_cost
+
+
+@pytest.mark.parametrize("loop", ["engine", "sync", "overlap"])
+def test_roofline_replay_of_the_toy_classifier_equals_reference(loop):
+    """The toy classifier (the reference's head) replayed on the roofline
+    clock at the v5e record through the port's drain engine or scheduler
+    equals the reference's on the same trace: records and their stamps,
+    the ledger and ``latency_stats``; logits at 1e-6."""
+    W = np.asarray(jax.random.normal(jax.random.PRNGKey(7), (32, 10))
+                   / np.sqrt(32))
+    o = tor.RooflineOracle(torch_get("qwen3_8b"), ctx=4096, chip=TPU_V5E)
+    jo = jor.RooflineOracle(jax_get("qwen3_8b"), ctx=4096)
+    kw = dict(buckets=(2, 4, 8, 16), tol=5e-3, max_batch=8)
+    xs = twl.heterogeneous_requests(24, 32, seed=3)
+    _assert_k_margin(twl.toy_classifier(W, fused=False),
+                     teng.EngineConfig(**kw), xs)
+    rate = 1.0 / o.step_time(8)
+    if loop == "engine":
+        rep = twl.replay_engine(teng.MultiRateEngine(
+            twl.toy_classifier(W, fused=False), teng.EngineConfig(**kw),
+            oracle=o), twl.poisson_trace(xs, rate=rate, seed=103))
+        ref = jwl.replay_engine(jeng.MultiRateEngine(
+            jwl.toy_classifier(fused=False), jeng.EngineConfig(**kw),
+            oracle=jo), jwl.poisson_trace(xs, rate=rate, seed=103))
+    else:
+        rep = twl.replay_scheduler(tsch.InflightScheduler(
+            twl.toy_classifier(W, fused=False), teng.EngineConfig(**kw),
+            slots=8, seg=2, oracle=o, overlap=loop == "overlap"),
+            twl.poisson_trace(xs, rate=rate, seed=103))
+        ref = jwl.replay_scheduler(jsch.InflightScheduler(
+            jwl.toy_classifier(fused=False), jeng.EngineConfig(**kw),
+            slots=8, seg=2, oracle=jo),
+            jwl.poisson_trace(xs, rate=rate, seed=103))
+    assert_records_match(rep.records, ref.records, rtol=1e-6, atol=1e-6)
+    assert (rep.total_cost, rep.probe_cost, rep.useful_steps,
+            rep.total_steps, rep.occupied_steps, rep.makespan) == \
+        (ref.total_cost, ref.probe_cost, ref.useful_steps, ref.total_steps,
+         ref.occupied_steps, ref.makespan)
+    assert twl.latency_stats(rep) == jwl.latency_stats(ref)
+    assert twl.latency_stats(rep)["cost_unit"] == "device_us"
+    assert len({r.K for r in rep.records}) > 1
 
 
 # ------------------------------------------------------------ LM cases ----

@@ -11,8 +11,10 @@ checkpoints a correction that ``--g-ckpt`` then serves, ``--flow-ckpt``
 with ``--flow-threshold`` serves part of the traffic at K=0 from a head
 the port fitted and saved itself, ``--profile-dir`` writes a trace in
 every mode, it never falls back to the CPU silently (no CUDA and no
-``--device cpu`` exits non-zero), and flags of slices not ported yet
-exit non-zero naming their ROADMAP.md item."""
+``--device cpu`` exits non-zero), ``--cost-oracle roofline`` serves
+what the sequential clock serves with latencies in ``device_us``, and
+the flag of a slice not ported yet (``--mesh``) exits non-zero naming
+its ROADMAP.md item."""
 import ast
 import json
 import os
@@ -80,12 +82,45 @@ def test_serves_fixed_k_on_cpu(capsys, arch):
 
 @pytest.mark.parametrize("extra", [
     ["--solver", "euler", "--mesh", "2"],
-    ["--solver", "euler", "--cost-oracle", "roofline"],
 ])
 def test_unported_flags_exit_naming_roadmap_item(extra):
     with pytest.raises(SystemExit) as e:
         serve.main(CPU_RUN + extra)
-    assert "ROADMAP.md queue 1 item" in str(e.value.code)
+    assert "ROADMAP.md queue 1 item 10" in str(e.value.code)
+
+
+@pytest.mark.parametrize("mode", ["drain", "inflight"])
+def test_cost_oracle_roofline_serves_as_the_sequential_clock(capsys, mode):
+    """``--cost-oracle roofline`` serves what the sequential clock serves
+    (per request K, nfe, status and logits, bit for bit) and stamps the
+    in-flight latency line in ``device_us``, its Poisson rate per
+    device-us (the reference's conversion: the sequential rate over one
+    field evaluation of the pool)."""
+    from repro_torch.launch.oracle import RooflineOracle
+    argv = CPU_RUN + ["--solver", "euler", "--multirate", "--fused"]
+    if mode == "inflight":
+        argv += ["--inflight", "--arrival-trace", "poisson"]
+    seq = serve.main(argv)
+    step = RooflineOracle(seq["cfg"], ctx=8).step_time(4)
+    roof = serve.main(argv + ["--cost-oracle", "roofline"]
+                      + (["--arrival-rate", repr(0.25 / step)]
+                         if mode == "inflight" else []))
+    key = lambda r: (r.uid, r.K, r.nfe, r.status)
+    assert [key(r) for r in roof["results"]] == \
+        [key(r) for r in seq["results"]]
+    for a, b in zip(roof["results"], seq["results"]):
+        assert np.array_equal(a.outputs, b.outputs)
+    out = capsys.readouterr().out
+    if mode == "inflight":
+        stats = [ast.literal_eval(l.split("] ", 1)[1])
+                 for l in out.splitlines()
+                 if l.startswith("[inflight poisson] ")]
+        assert [s["cost_unit"] for s in stats] == ["sequential_evals",
+                                                   "device_us"]
+        assert roof["sched"].oracle.unit == "device_us"
+    else:
+        assert roof["engine"].oracle.unit == "device_us"
+        assert seq["engine"].oracle.unit == "sequential_evals"
 
 
 @pytest.mark.parametrize("extra", [

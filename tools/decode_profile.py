@@ -34,9 +34,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.roofline.costmodel import H100  # noqa: E402
 
 B, S = 8, 128
-BANDWIDTH = {"NVIDIA H100 80GB HBM3": 3.35e12}    # published, bytes/s
+# the cost model's H100 record: the published HBM3 rate, bytes/s
+BANDWIDTH = {H100.name: H100.hbm_bw}
 
 
 def profile_arch(arch, steps, dev, bandwidth):
