@@ -91,6 +91,25 @@ function), each dispatch's dropped fraction printed; then
 a reduced LM trained by ``lm_loss``, a HyperEuler g fitted per K by
 ``cdepth_residual_loss``, hyper_euler's KL below euler's checked, and
 the K 4 g saved, restored and served by the engine.
+The reference's performance options on one card: after qwen3_4b's flow
+phase, ``phase_kv_int8`` (8 prompts of 4,096 tokens and 32 generated,
+the bf16 cache greedy and ``set_perf_options(kv_int8=True)``
+teacher-forced on its tokens: int8 k, v and float32 scales in at most
+0.52 of the bf16 cache's bytes, one flash launch per layer in the int8
+prefill, every step's logits within ``KV_INT8_TOL`` of the bf16 cache's
+and a planted fault (the new token's scales lost) above it) and
+``phase_chunking`` (the same prefill under
+``set_attention_chunking(512)``, logits ``torch.equal`` and the same
+flash launches); after olmoe_1b_7b's in-flight phase, on its params,
+``phase_moe_int8`` (``int8_dispatch`` on one block within the
+reference's 0.05 bound with routing unchanged, the forward and a
+fixed-K drain within ``MOE_INT8_TOL`` and a planted fault (the payload
+dequantized with scale 1) above it, the same launches both ways) and
+``phase_train_8bit`` (full-width OLMoE trained four steps with
+``adamw8bit``'s in-place update: finite losses, moved params, int8
+moments of the reckoned size, and on one step's full-width gradients
+the in-place update bit for bit the functional one on the expert ``wi``
+stack and ``compress_with_feedback`` exact to float32 rounding).
 Then ``phase_paligemma``: full-width ``paligemma_3b`` with its patch
 frontend (8 requests of 256 patch embeddings and 128 text tokens) through
 the prefill step, the continuous-depth scorer at K 3, 6, 9 and 18 (euler
@@ -191,7 +210,7 @@ from repro_torch.nn.cnf import (  # noqa: E402
     exact_trace_dynamics)
 from repro_torch.nn.module import (  # noqa: E402
     mlp_apply, mlp_init, truncated_normal_init)
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim import adamw, scaled  # noqa: E402
 from repro_torch.roofline.costmodel import (  # noqa: E402
     H100, Mesh2D, cell_cost)
 
@@ -1380,13 +1399,15 @@ def report_roofline(segment, decode_archs=ROOFLINE_DECODE_ARCHS,
     """The ``roofline_vs_measured`` line: the in-flight segment (from
     ``phase_roofline``), each decode phase's ms a token against the
     decode cell of its batch and context (B prompts, S + GEN positions)
-    beside ``decode_limits``' weight-bytes bound, and each train phase's
-    synced ms a step against the train cell of B x S tokens (remat none
-    and one microbatch, the trainer's settings), all on one card of the
-    H100 record. Raises if any measured time is below ROOFLINE_MIN_RATIO
+    beside ``decode_limits``' weight-bytes bound, ``phase_kv_int8``'s
+    decode with each cache at KV_PROMPT + GEN positions (the int8 cell's
+    ``decode_hbm_bytes(kv_int8=True)``), and each train phase's synced ms
+    a step against the train cell of B x S tokens (remat none and one
+    microbatch, the trainer's settings; ``phase_train_8bit``'s with
+    one-byte moments), all on one card of the H100 record. Raises if any measured time is below ROOFLINE_MIN_RATIO
     times its prediction."""
     one = Mesh2D(1, 1, 1)
-    rows = [segment]
+    rows = [segment] if segment is not None else []
     for arch in decode_archs:
         cfg = get(arch)
         m = MEASURED["decode_encdec" if cfg.is_encdec else "decode"][arch]
@@ -1398,14 +1419,28 @@ def report_roofline(segment, decode_archs=ROOFLINE_DECODE_ARCHS,
                          predicted=pred, measured=m["ms"],
                          ratio=m["ms"] / pred, dominant=t.dominant,
                          weight_bytes_bound_ms=m["weight_bytes_bound_ms"]))
-    for arch in train_archs:
+    for (arch, kv), ms in MEASURED["decode_long"].items():
+        ctx = KV_PROMPT + GEN
+        t = cell_cost(get(arch), ShapeSpec(f"decode_{B}x{ctx}", "decode",
+                                           ctx, B), one,
+                      kv_int8=kv == "int8")
+        pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
+        rows.append(dict(row="decode_ms_per_token", arch=arch,
+                         cell=f"decode B {B}, ctx {ctx}, {kv} KV cache",
+                         predicted=pred, measured=ms, ratio=ms / pred,
+                         dominant=t.dominant,
+                         decode_hbm_bytes=t.hbm_bytes_dev))
+    train = [(arch, MEASURED["train"][arch], 4, "") for arch in train_archs]
+    train += [(arch, ms, 1, ", int8 moments")
+              for arch, ms in MEASURED["train_8bit"].items()]
+    for arch, ms, moment_bytes, note in train:
         cfg = get(arch)
         t = cell_cost(cfg, ShapeSpec(f"train_{B}x{S}", "train", S, B), one,
-                      remat="none", microbatches=1)
+                      remat="none", microbatches=1,
+                      moment_bytes=moment_bytes)
         pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
-        ms = MEASURED["train"][arch]
         rows.append(dict(row="train_ms_per_step", arch=arch,
-                         cell=f"train B {B} x S {S}, remat none",
+                         cell=f"train B {B} x S {S}, remat none{note}",
                          predicted=pred, measured=ms, ratio=ms / pred,
                          dominant=t.dominant))
     emit(roofline_vs_measured=rows, chip=H100.name,
@@ -2291,6 +2326,563 @@ def phase_serve_olmoe(dev):
     del engine, gp, hyper
     torch.cuda.empty_cache()
     return dict(total), params, prompt, report["euler"]["tol"]
+
+
+# ------------------------------------------------------ quantized paths ----
+# The single-card half of the reference's performance options: the int8 KV
+# cache (``set_perf_options(kv_int8=True)``) and q-chunked attention on
+# full-width qwen3_4b at an 8 x 4,096 prompt, the int8 MoE dispatch
+# (``int8_dispatch``) on full-width olmoe_1b_7b, and full-width OLMoE
+# trained with 8-bit Adam moments (``optim.adamw8bit``). No kernel is new:
+# the prefills run flash_attention, the OLMoE drain hyper_step.
+KV_PROMPT, KV_CHUNK = 4096, 512
+# int8 against bf16 cache, teacher-forced on the bf16 run's tokens: each
+# step's largest |logit difference| over that step's largest |bf16 logit|,
+# between the sound run's largest reading and the planted fault's
+# (``lost_scale_writes``), read on the H100 with the serve phase's weights
+# (seed 0): sound 7.6e-3 to 9.2e-3 over the 32 steps, fault 8.2e-3 at the
+# prefill rising to 1.72e-2 at the last step (a lost token weighs 1 of
+# ~4,100 keys, so the fault grows a step at a time).
+KV_INT8_TOL = 1.25e-2
+# an int8 cache's bytes over the bf16 cache's (int8 payload plus float32
+# scales per token and head: (1 + 4 / 128) / 2 = 0.516 at head width 128)
+KV_INT8_BYTES_RATIO = 0.52
+# one moe block's mean |y_int8 - y| over mean |y| (the reference's own
+# bound, tests/test_nn_layers.py::test_moe_int8_dispatch_close_to_fp)
+MOE_INT8_BLOCK_BOUND = 0.05
+# the whole model with int8 dispatch on against off (a forward's logits
+# and a fixed-K drain's outputs): largest |difference| over largest |off|,
+# between the sound readings and the planted fault's
+# (``int8_without_scales``), read on the H100 with seed-0 weights: sound
+# 0.087 / 0.123 (forward / drain) on a RandomState(0) prompt and 0.064 /
+# 0.116 on the serving CLI's, fault 1.37 / 1.35 and 1.35 / 1.27. Routing
+# differs after the first block (a token's expert choice flips), which
+# is most of the sound reading.
+MOE_INT8_TOL = 0.3
+MOE_INT8_K = 4
+TRAIN_8BIT_STEPS = 4
+# AdamW at rest in training with float32 moments: bf16 param and grad,
+# float32 mu and nu (TRAIN_BYTES_PER_PARAM); with int8 moments each moment
+# costs 1 + 4/256 bytes an element
+TRAIN_8BIT_BYTES_PER_PARAM = 2 + 2 + 2 * (1 + 4 / 256)
+# a block's compression error is at most half its scale, up to float32
+# rounding: the quotient g / scale and the dequantized q * scale (values of
+# up to 127 scales) are each rounded within 2^-24 of 128 scales, so the
+# error may exceed half a scale by 4 * 128 * 2^-24 = 2^-15 of it
+COMPRESS_ROUNDING = 2.0 ** -15
+# elements per block-aligned chunk of the full-width checks on one step's
+# gradients (another size than the in-place update's own)
+TRAIN_8BIT_CHECK_CHUNK = 3 << 24
+
+
+@contextlib.contextmanager
+def perf_options(**kw):
+    """``lm.set_perf_options(**kw)`` while open, the options before it
+    after."""
+    saved = dict(lm.PERF_OPT)
+    lm.set_perf_options(**kw)
+    try:
+        yield
+    finally:
+        lm.set_perf_options(**saved)
+
+
+@contextlib.contextmanager
+def attention_chunking(q_chunk):
+    from repro_torch.nn import attention as nn_attention
+    nn_attention.set_attention_chunking(q_chunk)
+    try:
+        yield
+    finally:
+        nn_attention.set_attention_chunking(None)
+
+
+@contextlib.contextmanager
+def lost_scale_writes():
+    """A planted fault for the int8 cache: a decode step writes its
+    token's int8 k and v but not their scales, which stay as they were
+    (zero), so every later step reads that token's k and v as zeros. The
+    prefill's writes stay."""
+    from repro_torch.nn import attention as nn_attention
+    orig = nn_attention.write_kv
+
+    def faulty(cache, slots, k, v):
+        saved = {n: cache[n][:, slots].clone() for n in cache
+                 if n.endswith("_scale")}
+        orig(cache, slots, k, v)
+        for n, s in saved.items():
+            cache[n][:, slots] = s
+
+    nn_attention.write_kv = faulty
+    try:
+        yield
+    finally:
+        nn_attention.write_kv = orig
+
+
+@contextlib.contextmanager
+def int8_without_scales():
+    """A planted fault for the int8 MoE dispatch: the int8 payload is
+    dequantized with scale 1, so the experts see values up to 127 where
+    the tokens were of order 1."""
+    from repro_torch.nn import moe as nn_moe
+    orig = nn_moe.quantize_absmax
+
+    def faulty(xt):
+        q, scale = orig(xt)
+        return q, torch.ones_like(scale)
+
+    nn_moe.quantize_absmax = faulty
+    try:
+        yield
+    finally:
+        nn_moe.quantize_absmax = orig
+
+
+def rel_err(a, b):
+    """Largest |a - b| over the largest |b| (inf where a is not finite)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if not bool(torch.isfinite(a).all()):
+        return float("inf")
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def tree_bytes(tree):
+    return sum(l.numel() * l.element_size() for l in pytree.tree_leaves(tree))
+
+
+def forced_decode_logits(params, cfg, prompt, toks, w):
+    """A prefill of ``prompt`` into fresh caches (``init_lm_cache`` under
+    the options in force), then one ``lm_decode_step`` per token of
+    ``toks`` but the last, teacher-forced. Returns (logits (B, gen, V),
+    caches, prefill ms, decode ms per token, the prefill's
+    flash_attention launches)."""
+    P, gen = prompt.shape[1], toks.shape[1]
+    caches = lm.init_lm_cache(cfg, prompt.shape[0], P + gen,
+                              device=prompt.device)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, caches = lm.lm_prefill(params, cfg, prompt, caches, readout_w=w)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    flash = LAUNCHES.get("flash_attention", 0)
+    out = [logits]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = lm.lm_decode_step(params, cfg, toks[:, i], caches,
+                                           P + i, readout_w=w)
+        out.append(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (gen - 1)
+    return torch.stack(out, dim=1), caches, prefill_ms, step_ms, flash
+
+
+def per_step_err(logits, ref):
+    """Each step's largest |logit difference| over that step's largest
+    |reference logit| (inf where a logit is not finite)."""
+    return [rel_err(logits[:, j], ref[:, j]) for j in range(ref.shape[1])]
+
+
+def phase_kv_int8(dev, bandwidth, params):
+    """A main path: full-width qwen3_4b (bf16, the serve phase's params)
+    prefilled with 8 prompts of KV_PROMPT tokens and decoded GEN steps,
+    once with the bf16 cache (greedy, ``generate_logits``) and once under
+    ``set_perf_options(kv_int8=True)`` teacher-forced on the bf16 run's
+    tokens. Raises unless the int8 caches hold int8 k, v and float32
+    scales in at most KV_INT8_BYTES_RATIO of the bf16 cache's bytes, the
+    int8 prefill launched flash_attention once per layer, every step's
+    int8 logits are within KV_INT8_TOL of the bf16 cache's, and the same
+    run under ``lost_scale_writes`` is above it. Prints prefill ms, decode
+    ms a token with each cache, the KV bytes, peak memory and the
+    weight-bytes and KV-bytes bounds a token; the roofline line gets both
+    decode times (``report_roofline``)."""
+    cfg = get("qwen3_4b")
+    dt = lm.dtype_of(cfg.dtype)
+    prompt = torch.as_tensor(np.random.RandomState(11).randint(
+        0, cfg.vocab, (B, KV_PROMPT)), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        w = lm.readout_weight(params, cfg, dt)
+        # untimed: the first prefill at this shape warms up the kernels'
+        # and the GEMMs' choices, which the first timed run would pay for
+        lm.lm_prefill(params, cfg, prompt, lm.init_lm_cache(
+            cfg, B, KV_PROMPT, device=dev), readout_w=w)
+        bf16, toks, bf16_prefill_ms, bf16_step_ms = generate_logits(
+            params, cfg, prompt, GEN, w)
+        bf16_bytes = tree_bytes(lm.init_lm_cache(
+            cfg, B, KV_PROMPT + GEN, device="meta"))
+        with perf_options(kv_int8=True):
+            logits, caches, prefill_ms, step_ms, flash = \
+                forced_decode_logits(params, cfg, prompt, toks, w)
+            kinds = {k: str(v.dtype) for k, v in
+                     caches["groups"]["b0"].items()}
+            kv_bytes = tree_bytes(caches)
+            del caches
+            errs = per_step_err(logits, bf16)
+            del logits
+            with lost_scale_writes():
+                f_logits, _, _, _, _ = forced_decode_logits(
+                    params, cfg, prompt, toks, w)
+            fault = per_step_err(f_logits, bf16)
+            del f_logits
+    del w, bf16
+    want = {"k": "torch.int8", "v": "torch.int8",
+            "k_scale": "torch.float32", "v_scale": "torch.float32"}
+    layers = cfg.n_layers
+    n_params = lm.count_params(params)
+    weight_bytes = tree_bytes(params)
+    report = dict(
+        phase="kv_int8", arch=cfg.name, layers=layers, dtype=cfg.dtype,
+        batch=B, prompt_len=KV_PROMPT, gen=GEN, cache_leaves=kinds,
+        kv_bytes=dict(int8=kv_bytes, bf16=bf16_bytes,
+                      ratio=kv_bytes / bf16_bytes),
+        prefill_ms=dict(int8=prefill_ms, bf16=bf16_prefill_ms),
+        decode_ms_per_token=dict(int8=step_ms, bf16=bf16_step_ms),
+        flash_launches_in_int8_prefill=flash,
+        teacher_forced_rel_err=errs, max_rel_err=max(errs),
+        planted_fault_rel_err=fault, max_planted_fault_rel_err=max(fault),
+        limit=KV_INT8_TOL,
+        weight_bytes_bound_ms_per_token=weight_bytes / bandwidth * 1e3,
+        kv_bytes_bound_ms_per_token=dict(int8=kv_bytes / bandwidth * 1e3,
+                                         bf16=bf16_bytes / bandwidth * 1e3),
+        params=n_params,
+        peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        sample=toks[0, :8].tolist())
+    emit(**report)
+    MEASURED["decode_long"][(cfg.name, "int8")] = step_ms
+    MEASURED["decode_long"][(cfg.name, "bf16")] = bf16_step_ms
+    if kinds != want:
+        raise AssertionError(f"kv_int8: cache leaves {kinds}, want {want}")
+    if not kv_bytes <= KV_INT8_BYTES_RATIO * bf16_bytes:
+        raise AssertionError(f"kv_int8: {kv_bytes} cache bytes against "
+                             f"{bf16_bytes} in bf16")
+    if flash != layers:
+        raise AssertionError(f"kv_int8: the prefill launched flash "
+                             f"{flash} times for {layers} layers")
+    if not max(errs) <= KV_INT8_TOL < max(fault):
+        raise AssertionError(
+            f"kv_int8: teacher-forced error {max(errs)}, planted fault "
+            f"{max(fault)}, limit {KV_INT8_TOL} of the largest |logit|")
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash}
+
+
+def phase_chunking(dev, params):
+    """Full-width qwen3_4b's prefill of 8 x KV_PROMPT tokens with and
+    without ``set_attention_chunking(KV_CHUNK)``: on the card the flash
+    kernel runs unchanged under chunking (it never forms the (S, S)
+    scores), so the logits must be ``torch.equal`` and the flash launches
+    the same, one per layer. Returns the launches."""
+    cfg = get("qwen3_4b")
+    prompt = torch.as_tensor(np.random.RandomState(12).randint(
+        0, cfg.vocab, (B, KV_PROMPT)), device=dev)
+    out, flash = [], []
+    with torch.no_grad():
+        for chunk in (None, KV_CHUNK):
+            caches = lm.init_lm_cache(cfg, B, KV_PROMPT, device=dev)
+            LAUNCHES.clear()
+            with attention_chunking(chunk):
+                (logits, _), ms = synced_ms(lambda: lm.lm_prefill(
+                    params, cfg, prompt, caches))
+            flash.append(LAUNCHES.get("flash_attention", 0))
+            out.append((logits, ms))
+            del caches
+    equal = torch.equal(out[0][0], out[1][0])
+    emit(phase="chunking", arch=cfg.name, batch=B, prompt_len=KV_PROMPT,
+         q_chunk=KV_CHUNK, logits_equal=equal, flash_launches=flash,
+         prefill_ms=dict(unchunked=out[0][1], chunked=out[1][1]))
+    if not equal or flash != [cfg.n_layers] * 2:
+        raise AssertionError(f"chunking: logits equal {equal}, flash "
+                             f"launches {flash} for {cfg.n_layers} layers")
+    torch.cuda.empty_cache()
+    return {"flash_attention": sum(flash)}
+
+
+def moe_int8_drain(params, cfg, prompt, **opts):
+    """One drain of ``prompt`` through the engine at a fixed K of
+    MOE_INT8_K (euler, fused) under the given ``set_perf_options``: (the
+    requests' outputs (B, S, V), ms, launches, dropped fractions)."""
+    engine = MultiRateEngine(
+        lm_depth_model(params, cfg, solver="euler", fused=True),
+        EngineConfig(buckets=(MOE_INT8_K,), controller="fixed",
+                     fixed_K=MOE_INT8_K, max_batch=B, solver="euler",
+                     fused=True))
+    LAUNCHES.clear()
+    with perf_options(**opts), moe_drops() as drops, torch.no_grad():
+        results, ms = synced_ms(lambda: engine.run(prompt))
+    launches = dict(LAUNCHES)
+    if [r.K for r in results] != [MOE_INT8_K] * len(results) \
+            or any(r.status != "ok" for r in results):
+        raise AssertionError(f"moe_int8 drain: K {[r.K for r in results]}, "
+                             f"status {[r.status for r in results]}")
+    out = np.stack([r.outputs for r in sorted(results, key=lambda r: r.uid)])
+    return out, ms, launches, drops
+
+
+def phase_moe_int8(dev, params, prompt):
+    """On full-width olmoe_1b_7b (the serve phase's params and prompt),
+    ``int8_dispatch`` on against off. One moe block (group 0, its ln2 of
+    the prompt's embeddings, 8 x 128 tokens): raises unless mean |dy| /
+    mean |y| < MOE_INT8_BLOCK_BOUND and the routing terms (aux, z,
+    dropped fraction) are equal, since the router reads the unquantized
+    tokens. The whole model: the full-sequence forward's logits and a
+    fixed-K drain's outputs (``moe_int8_drain``, K MOE_INT8_K, both runs
+    the same steps) within MOE_INT8_TOL, the same runs under
+    ``int8_without_scales`` above it, and flash_attention and hyper_step
+    launched as often with int8 as without. Prints each block's dropped
+    fraction both ways (routing may differ after the first block) and
+    the drains' ms. Returns the int8 drain's launches."""
+    cfg = get("olmoe_1b_7b")
+    toks = torch.as_tensor(prompt, device=dev)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor, act=cfg.act)
+    with torch.no_grad():
+        gp = lm.group_params(params, 0)["b0"]
+        xn = lm.rmsnorm(gp["ln2"], lm._embed(params, cfg, toks))
+        fp = lm.moe_apply_sorted(gp["moe"], xn, **kw)
+        q8 = lm.moe_apply_sorted(gp["moe"], xn, int8_dispatch=True, **kw)
+        block_err = float(torch.mean(torch.abs(fp.y.float() - q8.y.float()))
+                          / torch.mean(torch.abs(fp.y.float())))
+        same_routing = all(torch.equal(a, b) for a, b in zip(fp[1:], q8[1:]))
+        del xn, fp, q8
+        fwd = {}
+        for tag, ctx in (("off", contextlib.nullcontext),
+                         ("int8", lambda: perf_options(int8_dispatch=True))):
+            with ctx(), moe_drops() as drops:
+                fwd[tag] = lm.lm_forward(params, cfg, toks)[0]
+            fwd[tag + "_dropped"] = drop_summary(drops)
+            fwd[tag + "_by_block"] = [float(f) for f in drops["sorted/all"]]
+        with perf_options(int8_dispatch=True), int8_without_scales():
+            fault_fwd = rel_err(lm.lm_forward(params, cfg, toks)[0],
+                                fwd["off"])
+        fwd_err = rel_err(fwd.pop("int8"), fwd["off"])
+        del fwd["off"]
+    off, off_ms, off_launches, _ = moe_int8_drain(params, cfg, prompt)
+    on, on_ms, on_launches, on_drops = moe_int8_drain(
+        params, cfg, prompt, int8_dispatch=True)
+    with int8_without_scales():
+        fault, _, _, _ = moe_int8_drain(params, cfg, prompt,
+                                        int8_dispatch=True)
+    drain_err, fault_drain = rel_err(on, off), rel_err(fault, off)
+    report = dict(
+        phase="moe_int8", arch=cfg.name, batch=B, prompt_len=S,
+        block=dict(mean_abs_rel=block_err, bound=MOE_INT8_BLOCK_BOUND,
+                   routing_equal=same_routing),
+        forward=dict(rel_err=fwd_err, planted_fault_rel_err=fault_fwd,
+                     dropped_by_block=dict(off=fwd["off_by_block"],
+                                           int8=fwd["int8_by_block"])),
+        drain=dict(K=MOE_INT8_K, rel_err=drain_err,
+                   planted_fault_rel_err=fault_drain,
+                   ms=dict(off=off_ms, int8=on_ms),
+                   launches=dict(off=off_launches, int8=on_launches),
+                   dropped_int8=drop_summary(on_drops)),
+        limit=MOE_INT8_TOL)
+    emit(**report)
+    if not block_err < MOE_INT8_BLOCK_BOUND or not same_routing:
+        raise AssertionError(f"moe_int8 block: mean |dy| / mean |y| "
+                             f"{block_err}, routing equal {same_routing}")
+    for tag, err, flt in (("forward", fwd_err, fault_fwd),
+                          ("drain", drain_err, fault_drain)):
+        if not err <= MOE_INT8_TOL < flt:
+            raise AssertionError(f"moe_int8 {tag}: error {err}, planted "
+                                 f"fault {flt}, limit {MOE_INT8_TOL}")
+    if off_launches != on_launches or not on_launches.get("hyper_step") \
+            or not on_launches.get("flash_attention"):
+        raise AssertionError(f"moe_int8 drain launches: off {off_launches}, "
+                             f"int8 {on_launches}")
+    torch.cuda.empty_cache()
+    return on_launches
+
+
+def moment_leaves(tree):
+    from repro_torch.optim import QTensor
+    return pytree.tree_leaves(tree, is_leaf=lambda t: isinstance(t, QTensor))
+
+
+def check_8bit_update(opt, params, grads, state, step, scale, key):
+    """On the leaf at ``key`` (a path into ``params``): ``update_in_place``
+    on copies of the leaf and its moments against ``update`` then
+    ``apply_updates`` on the originals, one block-aligned chunk of
+    TRAIN_8BIT_CHECK_CHUNK elements at a time (blocks are quantized
+    alone, so the functional update of a chunk is the whole leaf's on
+    those blocks). Returns the elements and blocks that differ."""
+    from repro_torch.optim import Adam8bitState, QTensor, apply_updates
+    from repro_torch.optim.quantized_state import BLOCK
+    leaves = pytree.tree_leaves(params)
+    names = leaf_names(params)
+    i = names.index(key)
+    p, g = leaves[i], grads[i]
+    mq, vq = moment_leaves(state.mu)[i], moment_leaves(state.nu)[i]
+    copies = [p.clone(), QTensor(mq.q.clone(), mq.scale.clone()),
+              QTensor(vq.q.clone(), vq.scale.clone())]
+    opt.update_in_place([g], Adam8bitState([copies[1]], [copies[2]]),
+                        [copies[0]], step, scale)
+    bad_p = bad_blocks = 0
+    pf, gf, cf = p.view(-1), g.reshape(-1), copies[0].view(-1)
+    for lo in range(0, p.numel(), TRAIN_8BIT_CHECK_CHUNK):
+        hi = min(lo + TRAIN_8BIT_CHECK_CHUNK, p.numel())
+        rows = slice(lo // BLOCK, -(-hi // BLOCK))
+        st = Adam8bitState([QTensor(mq.q[rows], mq.scale[rows])],
+                           [QTensor(vq.q[rows], vq.scale[rows])])
+        u, st = opt.update([scaled(gf[lo:hi], scale)], st, [pf[lo:hi]], step)
+        new_p = apply_updates([pf[lo:hi]], u)[0]
+        bad_p += int((new_p != cf[lo:hi]).sum())
+        for mine, ref in ((copies[1], st.mu[0]), (copies[2], st.nu[0])):
+            bad_blocks += int(((mine.q[rows] != ref.q).any(1)
+                               | (mine.scale[rows] != ref.scale)[:, 0])
+                              .sum())
+        del u, st, new_p
+    return dict(leaf=key, elements=p.numel(), params_differing=bad_p,
+                moment_blocks_differing=bad_blocks)
+
+
+def check_compression(grads, scale):
+    """``compress_with_feedback`` of one step's clipped gradients (float32,
+    as the clip leaves them) from a zero error, leaf by leaf in
+    block-aligned chunks: the largest |g_hat + e' - (g + e)| over the
+    largest |g| (float32 rounding) and the largest block error over half
+    its block's scale (at most 1 + COMPRESS_ROUNDING)."""
+    from repro_torch.optim import (compress_with_feedback,
+                                   init_error_feedback, quantize_blockwise)
+    from repro_torch.optim.quantized_state import BLOCK
+    worst_sum = worst_block = 0.0
+    for g in grads:
+        gf = g.reshape(-1)
+        for lo in range(0, gf.numel(), TRAIN_8BIT_CHECK_CHUNK):
+            g32 = scaled(gf[lo:lo + TRAIN_8BIT_CHECK_CHUNK], scale)
+            e = init_error_feedback([g32])
+            g_hat, e_new = compress_with_feedback([g32], e)
+            total = (g_hat[0] + e_new[0]) - (g32 + e[0])
+            worst_sum = max(worst_sum, float(total.abs().max()
+                                             / g32.abs().max().clamp_min(
+                                                 1e-30)))
+            err = torch.nn.functional.pad(
+                e_new[0], (0, (-g32.numel()) % BLOCK)).reshape(-1, BLOCK)
+            half = quantize_blockwise(g32 + e[0]).scale / 2
+            worst_block = max(worst_block, float(
+                (err.abs().amax(1, keepdim=True) / half).max()))
+            del g32, e, g_hat, e_new, total, err, half
+    return dict(max_rel_sum_err=worst_sum, max_block_err_over_half_scale=
+                worst_block)
+
+
+def phase_train_8bit(dev, params):
+    """A main path: full-width olmoe_1b_7b (the serve phase's params,
+    trained in place) for TRAIN_8BIT_STEPS steps of 8 x 128 tokens with
+    ``adamw8bit(linear_warmup_cosine(lr, lr / 10, 200, 10 000),
+    weight_decay=0.1).update_in_place``: the trainer's step
+    (``launch/steps.py::make_train_step``'s value and grad of ``lm_loss``
+    at remat none, its global-norm clip, batches through a
+    ``ShardedLoader``) with the 8-bit moments in place of AdamW's.
+    Raises unless every loss and grad norm is finite, flash launched once
+    per block application, params moved and the moments are int8 of the
+    reckoned size. Then, on one more step's full-width gradients, raises
+    unless ``update_in_place`` equals ``update`` + ``apply_updates`` on
+    the expert ``wi`` stack bit for bit (``check_8bit_update``) and
+    ``compress_with_feedback`` keeps g_hat + e' = g + e to float32
+    rounding with every block's error at most half its scale
+    (``check_compression``). Prints ms a step, peak memory against the
+    bytes float32 moments would hold at rest, and the rest bytes."""
+    from repro_torch.optim import (adamw8bit, clip_scale, global_norm,
+                                   linear_warmup_cosine)
+    from repro_torch.optim.quantized_state import BLOCK
+    cfg = get("olmoe_1b_7b")
+    s = StepSettings()
+    opt = adamw8bit(linear_warmup_cosine(s.lr, s.lr * 0.1, 200, 10_000),
+                    weight_decay=0.1)
+
+    def loss_fn(p, mb):
+        return lm.lm_loss(p, cfg, mb["tokens"], mb["targets"], remat="none")
+
+    names = leaf_names(params)
+    watch = [n for n in names if n.endswith(("moe/router/kernel",
+                                             "moe/wi", "attn/wq/kernel"))]
+    leaves = dict(zip(names, pytree.tree_leaves(params)))
+    before = {n: leaves[n][0].clone() for n in watch}
+    n = lm.count_params(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = opt.init(params)
+    loader = ShardedLoader(({"tokens": t, "targets": y} for t, y in
+                            itertools.islice(token_batches(
+                                cfg.vocab, B, S, seed=0, device="cpu"),
+                                TRAIN_8BIT_STEPS + 1)), device=dev)
+    hist, ms = [], []
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        for step in range(TRAIN_8BIT_STEPS):
+            batch = next(loader)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, grads = steps._value_and_grad(loss_fn, params, batch)
+            with torch.no_grad():
+                gnorm = global_norm(grads)
+                opt.update_in_place(grads, state, params, step,
+                                    clip_scale(gnorm, s.grad_clip))
+            del grads
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append(dict(loss=float(loss), grad_norm=float(gnorm)))
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moments = moment_leaves(state.mu) + moment_leaves(state.nu)
+    moment_bytes = tree_bytes(moments)
+    reckoned = 2 * sum(-(-l.numel() // BLOCK) * (BLOCK + 4)
+                       for l in pytree.tree_leaves(params))
+    kinds = {str(m.q.dtype) for m in moments} | {str(m.scale.dtype)
+                                                 for m in moments}
+    moved = {k: float((leaves[k][0] != v).float().mean())
+             for k, v in before.items()}
+    del before
+    # one more step's gradients, for the checks against the functional
+    # update and the compression
+    loss, _, grads = steps._value_and_grad(loss_fn, params, next(loader))
+    with torch.no_grad():
+        scale = clip_scale(global_norm(grads), s.grad_clip)
+        wi = next(k for k in names if k.endswith("moe/wi"))
+        update_check = check_8bit_update(opt, params, grads, state,
+                                         TRAIN_8BIT_STEPS, scale, wi)
+        compress = check_compression(grads, scale)
+    del grads, state, moments
+    rest = tree_bytes(params) + moment_bytes
+    report = dict(
+        phase="train_8bit", arch=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, dtype=cfg.dtype, batch=B, seq=S,
+        steps=TRAIN_8BIT_STEPS, losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist], ms_per_step=ms,
+        ms_per_step_median=float(np.median(ms[1:])), params=n,
+        moved_share_of_first_slice=moved, moment_bytes=moment_bytes,
+        reckoned_moment_bytes=reckoned, moment_dtypes=sorted(kinds),
+        rest_bytes=rest, rest_gb=rest / 1e9,
+        float32_moments_at_rest_gb=n * TRAIN_BYTES_PER_PARAM / 1e9,
+        int8_moments_at_rest_gb=n * TRAIN_8BIT_BYTES_PER_PARAM / 1e9,
+        peak_memory_gb=peak / 1e9, update_in_place_check=update_check,
+        compression_check=compress, launches=launches,
+        block_applications=blocks)
+    emit(**report)
+    MEASURED["train_8bit"][cfg.name] = report["ms_per_step_median"]
+    vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"train_8bit: non-finite loss or grad norm "
+                             f"{hist}")
+    check_block_launches(launches, blocks, "olmoe_1b_7b train_8bit")
+    if sum(blocks.values()) != cfg.n_layers * TRAIN_8BIT_STEPS:
+        raise AssertionError(f"train_8bit: {blocks} block applications")
+    if not any(v > 0 for v in moved.values()):
+        raise AssertionError(f"train_8bit: no parameter moved: {moved}")
+    if kinds != {"torch.int8", "torch.float32"} or moment_bytes != reckoned:
+        raise AssertionError(f"train_8bit: moments {sorted(kinds)} of "
+                             f"{moment_bytes} bytes, reckoned {reckoned}")
+    if update_check["params_differing"] or \
+            update_check["moment_blocks_differing"]:
+        raise AssertionError(f"train_8bit: update_in_place differs from "
+                             f"update + apply_updates: {update_check}")
+    if not (compress["max_rel_sum_err"] <= 2.0 ** -22
+            and compress["max_block_err_over_half_scale"]
+            <= 1 + COMPRESS_ROUNDING):
+        raise AssertionError(f"train_8bit: compression {compress}")
+    release_card()
+    return launches
 
 
 # ----------------------------------------------------- LM hypersolver fit ----
@@ -4351,7 +4943,11 @@ def main() -> int:
     launches.update(refined)
     launches.update(phase_flow(dev, get("qwen3_4b"), params, prompt, tol,
                                ledger, via_cli=True))
-    del params, ledger
+    del ledger
+    release_card()
+    launches.update(phase_kv_int8(dev, bandwidth, params))
+    launches.update(phase_chunking(dev, params))
+    del params
     release_card()
     launches.update(phase_refinery_cli(dev))
     release_card()
@@ -4375,6 +4971,9 @@ def main() -> int:
     launches.update(served)
     launches.update(phase_inflight(dev, get("olmoe_1b_7b"), params, prompt,
                                    tol))
+    launches.update(phase_moe_int8(dev, params, prompt))
+    release_card()
+    launches.update(phase_train_8bit(dev, params))
     del params
     release_card()
     launches.update(phase_decode_cli(dev, bandwidth, "olmoe_1b_7b"))

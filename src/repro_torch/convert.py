@@ -4,10 +4,13 @@
 arrays — ``np.asarray`` of each JAX leaf — and returns the same tree of
 tensors with the same leaf names, layouts and dtypes. bfloat16 leaves
 (numpy's ``ml_dtypes`` bfloat16) travel through their raw 16-bit pattern,
-so no value is rounded on the way. Works for LM params, g params and
-optimizer states (NamedTuples such as the reference's ``AdamState``) alike;
+so no value is rounded on the way. Works for LM params, g params, decode
+caches (an int8 cache's payloads and float32 scales too) and optimizer
+states (NamedTuples such as the reference's ``AdamState``) alike;
 conv params keep the reference's HWIO layout (``nn/conv_blocks.py``), so
-they carry unchanged too.
+they carry unchanged too. ``quantized_state_from_jax`` carries an 8-bit
+Adam state (``Adam8bitState`` of ``QTensor`` leaves) into the port's own
+NamedTuples, which the port's optimizer tells from the tree around them.
 
 Image states differ in layout: the reference's are NHWC, the port's
 NCHW. ``nchw_from_nhwc`` and ``nhwc_from_nchw`` carry a state, a batch of
@@ -32,17 +35,30 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     return t.to(device) if device is not None else t
 
 
-def params_from_jax(tree: Any, device=None) -> Any:
+def params_from_jax(tree: Any, device=None, namedtuples=None) -> Any:
+    """``namedtuples``: NamedTuple classes by name, to rebuild a
+    reference NamedTuple of that name as (another reference NamedTuple
+    keeps its own type)."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        return {k: params_from_jax(v, device, namedtuples)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        children = [params_from_jax(v, device) for v in tree]
+        children = [params_from_jax(v, device, namedtuples) for v in tree]
         if hasattr(tree, "_fields"):     # a NamedTuple takes its fields
-            return type(tree)(*children)
+            cls = (namedtuples or {}).get(type(tree).__name__, type(tree))
+            return cls(*children)
         return type(tree)(children)
     if tree is None:
         return None
     return tensor_from_numpy(tree, device)
+
+
+def quantized_state_from_jax(tree: Any, device=None) -> Any:
+    """A reference ``Adam8bitState`` (or a tree of ``QTensor``s), numpy
+    leaves, as the port's ``Adam8bitState`` and ``QTensor``s."""
+    from repro_torch.optim.quantized_state import Adam8bitState, QTensor
+    return params_from_jax(tree, device, {"QTensor": QTensor,
+                                          "Adam8bitState": Adam8bitState})
 
 
 def nchw_from_nhwc(a: np.ndarray, device=None) -> torch.Tensor:

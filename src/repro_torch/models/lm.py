@@ -34,6 +34,16 @@ a scan of decode steps: so a ``moe`` block in the prefill dispatches
 each position's B tokens alone with the decode step's rule
 (``moe_apply``, capacity factor at least 2), while its attention and
 caches stay full-sequence.
+
+``PERF_OPT`` (``set_perf_options``) holds the reference's two run-time
+performance options, off by default: ``int8_dispatch`` quantizes each
+token of a full-sequence MoE dispatch to int8 with a per-token scale
+before the expert GEMMs (``nn/moe.py``; the decode rule has no int8
+path, as in the reference), and ``kv_int8`` makes every unwindowed KV
+cache int8 with per-(token, head) scales (``nn/attention.py``). A
+prefill from position 0 into an int8 cache runs the flash kernel over
+the dequantized k and v, the values the reference's decode steps attend
+over.
 """
 from __future__ import annotations
 
@@ -50,7 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs import ArchConfig
 from repro_torch.nn.attention import (NEG_INF, attention_init,
                                      decode_attend, decode_qkv, init_cache,
-                                     mha, mha_decode, write_kv)
+                                     mha, mha_decode, read_kv, write_kv)
 from repro_torch.nn.ffn import (ffn_apply, ffn_init, rwkv_channel_mix,
                                 rwkv_channel_mix_init)
 from repro_torch.nn.moe import moe_apply, moe_apply_sorted, moe_init
@@ -69,6 +79,20 @@ POS_ROWS = 8192     # learned position table of a decoder-only LM
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+# Run-time performance options (set by the caller, not by model code):
+#   int8_dispatch -- int8 MoE dispatch payload with per-token scales
+#   kv_int8       -- int8 KV cache with per-(token, head) scales
+PERF_OPT = {"int8_dispatch": False, "kv_int8": False}
+
+
+def set_perf_options(**kw) -> None:
+    for k, v in kw.items():
+        if k not in PERF_OPT:
+            raise KeyError(f"unknown performance option {k!r}: one of "
+                           f"{sorted(PERF_OPT)}")
+        PERF_OPT[k] = v
 
 
 # ----------------------------------------------------------- patterns ----
@@ -154,8 +178,9 @@ def _moe_ffn(p: Params, cfg: ArchConfig, xn: torch.Tensor, *,
     """A ``moe`` block's feed-forward: (its experts plus the shared expert
     where the config has one, the dispatch's ``MoEOutput``). The
     full-sequence rule is the sorted dispatch at the config's capacity
-    factor; the decode step's is the einsum dispatch at a factor of at
-    least 2, each position alone."""
+    factor, in int8 under ``PERF_OPT["int8_dispatch"]``; the decode
+    step's is the einsum dispatch at a factor of at least 2, each
+    position alone."""
     kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act)
     if decode_rule:
         out = moe_apply(p["moe"], xn,
@@ -164,6 +189,7 @@ def _moe_ffn(p: Params, cfg: ArchConfig, xn: torch.Tensor, *,
     else:
         out = moe_apply_sorted(p["moe"], xn,
                                capacity_factor=cfg.capacity_factor,
+                               int8_dispatch=PERF_OPT["int8_dispatch"],
                                groups="row" if per_row else "all", **kw)
     y = out.y
     if "shared" in p:
@@ -193,7 +219,8 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
     start from the cache's state (zeros in a fresh cache), and the block
     writes into ``cache``, in place, what decoding position S needs — the
     state that feeding the tokens one by one through ``block_decode``
-    leaves; a ``moe`` block then routes as the decode steps would.
+    leaves; a ``moe`` block then routes as the decode steps would, and
+    an int8 cache's attention runs over the dequantized k and v.
     ``per_row`` dispatches each batch row's tokens alone (a per-sample
     depth field)."""
     if kind == "rwkv":
@@ -224,7 +251,9 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
     else:   # dense, attn, moe
         kwargs = _attn_kwargs(cfg, kind)
         a = mha(p["attn"], rmsnorm(p["ln1"], h),
-                return_kv=cache is not None, **kwargs)
+                return_kv=cache is not None,
+                kv_int8=cache is not None and cache["k"].dtype == torch.int8,
+                **kwargs)
         if cache is not None:
             a, (k, v) = a
             _prefill_kv(cache, k, v, kwargs["window"])
@@ -258,7 +287,8 @@ def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
         window = _attn_kwargs(cfg, kind)["window"]
         buf = min(max_len, window) if window else max_len
         return init_cache(batch, buf, cfg.n_kv, cfg.d_head, dtype,
-                          device=device)
+                          device=device,
+                          kv_int8=PERF_OPT["kv_int8"] and window is None)
     if kind == "rwkv":
         hd = d // cfg.rwkv_heads
         return {
@@ -289,7 +319,7 @@ def _rotating_decode_attn(p, cfg: ArchConfig, kind: str, h, cache,
     q, k_new, v_new = decode_qkv(p["attn"], h, cur_index, **kwargs)
     slot = cur_index % buf
     write_kv(cache, slice(slot, slot + 1), k_new, v_new)
-    k_all, v_all = cache["k"].to(h.dtype), cache["v"].to(h.dtype)
+    k_all, v_all = read_kv(cache, h.dtype)
     # slot i holds absolute position cur - ((slot - i) mod buf)
     idx = torch.arange(buf, device=h.device)
     abs_pos = cur_index - torch.remainder(slot - idx, buf)
@@ -529,7 +559,8 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
 def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype: Optional[torch.dtype] = None, device=None) -> Params:
     """Zeroed decode caches, the reference's tree: group caches stacked on
-    a leading ``n_groups`` axis, tail caches beside them."""
+    a leading ``n_groups`` axis (an int8 cache's scales too), tail caches
+    beside them."""
     dtype = dtype or dtype_of(cfg.dtype)
     pattern, n_groups, tail = group_layout(cfg)
     one = {f"b{i}": block_cache_init(cfg, kind, batch, max_len, dtype,

@@ -15,6 +15,15 @@ from x, keys and values from an encoder's states, no RoPE and no mask)
 runs through the same kernel with the key length apart from the query
 length, where the reference computes it with the same plain einsums.
 
+Q-chunked attention (``set_attention_chunking``): the reference attends
+query block by query block under a ``lax.map``, so that its score buffer
+is (B, H, chunk, S) and never (B, H, S, S). On the CPU the port's plain
+version does the same (``_chunked_self_attention``, the flash
+contract's arithmetic a chunk at a time); on the card the flash kernel
+already never forms the (S, S) scores, so it runs unchanged under any
+chunking. Chunking applies, as in the reference, only to self-attention
+with ``S > chunk`` and ``S % chunk == 0``.
+
 Decode (``init_cache``, ``mha_decode``) is plain PyTorch, as the
 reference's is plain ``jnp``: one query row against the whole cache
 buffer under a ``NEG_INF`` additive bias, scores and softmax in float32,
@@ -22,9 +31,13 @@ the probabilities rounded to the activation type for P.V. The cache is
 updated in place (the reference returns a new one). Cross-attention
 decode (``cross_kv``, ``precompute_cross_kv``'s encoder K/V) attends
 over every encoder position under a zero bias and leaves the self cache
-as it is. The reference's int8 cache (``kv_int8``) is set only by its
-TPU dry-run launcher and waits for that launcher (ROADMAP.md queue 1
-item 12).
+as it is. The int8 cache (``init_cache(kv_int8=True)``) holds int8 k
+and v with float32 per-(token, head) scales, each the amax over hd over
+127 (``_quantize_kv``); a decode step writes the new token's payload and
+scales in place and attends over the whole cache dequantized to the
+activation type, as the reference does. A prefill into an int8 cache
+(``mha(kv_int8=True)``) runs the flash kernel over the dequantized k and
+v, which is what the reference's decode steps attend over.
 """
 from __future__ import annotations
 
@@ -33,10 +46,18 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.nn.module import (dense_init, rmsnorm, rmsnorm_init,
-                                   truncated_normal_init)
+from repro_torch.nn.module import (dense_init, quantize_absmax, rmsnorm,
+                                   rmsnorm_init, truncated_normal_init)
 
 NEG_INF = -1e30
+
+# The query chunk of self-attention (``set_attention_chunking``): None
+# attends over all queries at once.
+_CHUNK = {"q_chunk": None}
+
+
+def set_attention_chunking(q_chunk: Optional[int]) -> None:
+    _CHUNK["q_chunk"] = q_chunk
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
@@ -81,16 +102,56 @@ def _proj(w, x: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], n, d_head)
 
 
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+               window: Optional[int]) -> torch.Tensor:
+    """(S_q, S_k) additive float32 bias: 0 where query position ``q_pos``
+    may attend key position ``k_pos``, ``NEG_INF`` elsewhere."""
+    qp, kp = q_pos[:, None], k_pos[None, :]
+    ok = torch.ones((q_pos.shape[-1], k_pos.shape[-1]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (qp - kp < window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _chunked_self_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool,
+                            window: Optional[int], qc: int) -> torch.Tensor:
+    """q (B, S, H, hd); k, v (B, S, KV, hd): exact attention one block of
+    ``qc`` queries at a time, each block's scores (B, KV, G, qc, S).
+    Float32 scores, softmax and P.V, rounded once to q's dtype (the flash
+    kernel's contract). Returns (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, S, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(S, device=q.device)
+    out = []
+    for lo in range(0, S, qc):
+        s = torch.einsum("bsngh,btnh->bngst", qg[:, lo:lo + qc], kf)
+        bias = _mask_bias(k_pos[lo:lo + qc], k_pos, causal, window)
+        p = torch.softmax(s * hd ** -0.5 + bias, dim=-1)
+        out.append(torch.einsum("bngst,btnh->bsngh", p, vf))
+    return torch.cat(out, dim=1).reshape(B, S, H, hd).to(q.dtype)
+
+
 def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
         rope_theta: float = 1e4, positions: Optional[torch.Tensor] = None,
         causal: bool = True, window: Optional[int] = None,
         kv_x: Optional[torch.Tensor] = None, use_rope: bool = True,
-        qk_norm: bool = False, return_kv: bool = False):
+        qk_norm: bool = False, return_kv: bool = False,
+        kv_int8: bool = False):
     """Full-sequence attention. x: (B, S, d) -> (B, S, d); with
     ``return_kv`` also the post-RoPE ``(k, v)``, each (B, S, n_kv, d_head),
     for a prefill to write into its decode cache. ``kv_x`` (B, T, d)
     switches to cross-attention: k and v from ``kv_x``, no RoPE, and no
-    mask whatever ``causal`` and ``window`` say (the reference's)."""
+    mask whatever ``causal`` and ``window`` say (the reference's).
+    ``kv_int8`` (a prefill into an int8 cache): the queries attend over k
+    and v quantized as the cache stores them and dequantized to x's
+    dtype; ``return_kv`` still gives the unquantized k and v, which the
+    cache's writes quantize to the same payloads and scales."""
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
     q = _proj(params["wq"], x, n_heads, d_head)     # (B,S,H,hd)
@@ -106,27 +167,71 @@ def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
             positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    ctx = flash_attention(q, k, v, causal=causal, window=window)
+    kv = (k, v)
+    if kv_int8:
+        k, v = (_dequantize_kv(*_quantize_kv(t), x.dtype) for t in kv)
+    qc = _CHUNK["q_chunk"]
+    if qc is not None and kv_x is None and S > qc and S % qc == 0 \
+            and x.device.type == "cpu":
+        ctx = _chunked_self_attention(q, k, v, causal, window, qc)
+    else:
+        ctx = flash_attention(q, k, v, causal=causal, window=window)
     ctx = ctx.reshape(B, S, n_heads * d_head)
     out = torch.matmul(ctx, params["wo"]["kernel"].to(x.dtype))
-    return (out, (k, v)) if return_kv else out
+    return (out, kv) if return_kv else out
 
 
 # -------------------------------------------------------------- decode ----
 
 def init_cache(batch: int, max_len: int, n_kv: int, d_head: int,
-               dtype=torch.bfloat16, device=None):
-    """Zeroed KV buffers (B, max_len, n_kv, d_head)."""
+               dtype=torch.bfloat16, device=None, kv_int8: bool = False):
+    """Zeroed KV buffers (B, max_len, n_kv, d_head) of ``dtype``; with
+    ``kv_int8`` int8 ``k``/``v`` and float32 ``k_scale``/``v_scale`` of
+    (B, max_len, n_kv)."""
     shape = (batch, max_len, n_kv, d_head)
+    if kv_int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _quantize_kv(x: torch.Tensor):
+    """x (..., hd) -> (int8 payload (..., hd), float32 scale (...)), one
+    scale a token and head (``quantize_absmax``)."""
+    q, scale = quantize_absmax(x)
+    return q, scale[..., 0]
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def write_kv(cache, slots, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write k, v (B, T, KV, hd) at the T cache positions ``slots`` (a
-    slice or a (T,) index tensor), in place, cast to the cache dtype."""
+    slice or a (T,) index tensor), in place: cast to the cache dtype, or
+    quantized into an int8 cache's payloads and scales."""
+    if cache["k"].dtype == torch.int8:
+        for name, t in (("k", k), ("v", v)):
+            cache[name][:, slots], cache[name + "_scale"][:, slots] = \
+                _quantize_kv(t)
+        return
     cache["k"][:, slots] = k.to(cache["k"].dtype)
     cache["v"][:, slots] = v.to(cache["v"].dtype)
+
+
+def read_kv(cache, dtype: torch.dtype):
+    """The whole cache's k and v (B, T, KV, hd) in ``dtype``: an int8
+    cache's payloads times their scales, rounded to ``dtype``."""
+    if cache["k"].dtype == torch.int8:
+        return tuple(_dequantize_kv(cache[n], cache[n + "_scale"], dtype)
+                     for n in ("k", "v"))
+    return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
 def decode_qkv(params, x: torch.Tensor, pos: int, *, n_heads: int,
@@ -170,10 +275,10 @@ def mha_decode(params, x: torch.Tensor, cache: Any, cur_index: int, *,
                rope_theta: float = 1e4, window: Optional[int] = None,
                use_rope: bool = True, qk_norm: bool = False,
                cross_kv: Optional[Any] = None):
-    """Single-token decode. x: (B, 1, d); cache k/v: (B, Smax, KV, hd);
-    ``cur_index``: the Python int position being generated. Writes the
-    token's k, v at ``cur_index`` in place and returns (out (B, 1, d),
-    cache). With ``cross_kv`` (``precompute_cross_kv``'s encoder K/V,
+    """Single-token decode. x: (B, 1, d); cache k/v: (B, Smax, KV, hd)
+    (``init_cache``'s, bf16 or int8 with scales); ``cur_index``: the
+    Python int position being generated. Writes the token's k, v at
+    ``cur_index`` in place and returns (out (B, 1, d), cache). With ``cross_kv`` (``precompute_cross_kv``'s encoder K/V,
     each (B, T, KV, hd)) the query (qk-normed, never rotated) attends
     over every encoder position and ``cache`` is returned untouched."""
     if cross_kv is not None:
@@ -189,7 +294,7 @@ def mha_decode(params, x: torch.Tensor, cache: Any, cur_index: int, *,
         params, x, cur_index, n_heads=n_heads, n_kv=n_kv, d_head=d_head,
         rope_theta=rope_theta, use_rope=use_rope, qk_norm=qk_norm)
     write_kv(cache, slice(cur_index, cur_index + 1), k_new, v_new)
-    k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+    k_all, v_all = read_kv(cache, x.dtype)
     k_pos = torch.arange(k_all.shape[1], device=x.device)
     valid = k_pos <= cur_index
     if window is not None:

@@ -1,5 +1,5 @@
 """Primitive layers: truncated-normal init, dense, RMSNorm, LayerNorm,
-embeddings, small MLPs.
+embeddings, small MLPs, and the int8 absmax quantizer.
 
 Conventions (as in ``repro/nn/module.py``): params are nested dicts of
 tensors with the reference's key names and layouts — a dense kernel is
@@ -77,6 +77,21 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * params["scale"].float()
             + params["bias"].float()).to(x.dtype)
+
+
+def quantize_absmax(x: torch.Tensor):
+    """Symmetric int8 with one scale a row of the last axis, the
+    reference's rule wherever it quantizes (the KV cache, the MoE
+    dispatch, the 8-bit moments): x (..., n) -> (int8 payload (..., n),
+    float32 scale (..., 1)), the scale the row's amax over 127 floored at
+    1e-12, the payload x over it rounded half to even and clipped to
+    +-127. The int8 cast carries no gradient; through the scale the
+    gradient reaches x at the amax (split evenly between ties)."""
+    x32 = x.float()
+    scale = torch.clamp_min(
+        torch.amax(torch.abs(x32), dim=-1, keepdim=True) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def embedding_init(gen, vocab: int, dim: int, param_dtype=torch.float32,

@@ -27,6 +27,14 @@ its own capacity, and the expert GEMMs stay batched over all of them.
 The combine sums each token's kept slots in expert order, a fixed order,
 so a result does not depend on the device's atomics. The aux terms of a
 grouped call are taken over all its tokens.
+
+``moe_apply_sorted(int8_dispatch=True)`` is the reference's int8
+dispatch payload: each token is quantized with its own scale
+(``nn/module.py::quantize_absmax``) into an int8 ingest buffer, whose rows are dequantized to
+the activation type before the expert GEMMs. The router reads the
+unquantized tokens. As in the reference, the int8 cast cuts the
+gradient of the expert input: a token's gradient through the experts
+reaches it only through its scale's amax (split evenly between ties).
 """
 from __future__ import annotations
 
@@ -35,7 +43,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.nn.ffn import ACTS
-from repro_torch.nn.module import dense_init, truncated_normal_init
+from repro_torch.nn.module import (dense_init, quantize_absmax,
+                                   truncated_normal_init)
 
 
 class MoEOutput(NamedTuple):
@@ -122,7 +131,7 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def _dispatch(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, act: str, renorm_gates: bool,
-              groups: str, slot_major: bool):
+              groups: str, slot_major: bool, int8_dispatch: bool = False):
     """The dispatch both entry points share. Returns (y, router logits,
     probs, slots routed to each expert, kept-slot mask, tokens)."""
     xg = _grouped(x, groups)
@@ -155,8 +164,14 @@ def _dispatch(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     # row, and every dropped slot writes the overflow entry, never read
     src = torch.full((G * E * C + 1,), G * T, dtype=torch.long, device=dev)
     src[dest] = tok
-    xpad = torch.cat([xt, xt.new_zeros(1, d)])
-    xin = xpad[src[:-1]].reshape(G, E, C, d).transpose(0, 1)
+    if int8_dispatch:
+        xq, scale = quantize_absmax(xt)
+        qpad = torch.cat([xq, xq.new_zeros(1, d)])
+        spad = torch.cat([scale, scale.new_zeros(1, 1)])
+        xin = (qpad[src[:-1]].float() * spad[src[:-1]]).to(dt)
+    else:
+        xin = torch.cat([xt, xt.new_zeros(1, d)])[src[:-1]]
+    xin = xin.reshape(G, E, C, d).transpose(0, 1)
     yout = _expert_ffn(params, xin.reshape(E, G * C, d), act)
     yflat = yout.reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)
     ypad = torch.cat([yflat, yflat.new_zeros(1, d)])
@@ -207,16 +222,12 @@ def moe_apply_sorted(params, x: torch.Tensor, *, n_experts: int, top_k: int,
                      groups: str = "all") -> MoEOutput:
     """Sort-based dispatch, token-major queues: a stable sort of the
     slots by expert, gather into (E, C, d) buffers, batched GEMMs,
-    combine. The reference's ``int8_dispatch`` waits for ROADMAP.md
-    queue 1 item 12."""
-    if int8_dispatch:
-        raise NotImplementedError(
-            "int8_dispatch (the int8 expert all-to-all payload) is not "
-            "ported yet: ROADMAP.md queue 1 item 12")
+    combine. ``int8_dispatch``: the buffers are gathered from int8
+    tokens with per-token scales and dequantized (module docstring)."""
     y, logits, probs, counts, keep, T = _dispatch(
         params, x, n_experts=n_experts, top_k=top_k,
         capacity_factor=capacity_factor, act=act, renorm_gates=renorm_gates,
-        groups=groups, slot_major=False)
+        groups=groups, slot_major=False, int8_dispatch=int8_dispatch)
     me = torch.mean(probs, dim=0)
     # Switch aux loss: E * sum_e (tokens routed fraction) * (mean prob)
     frac = counts.float() / (T * top_k)

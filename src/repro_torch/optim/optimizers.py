@@ -90,6 +90,21 @@ def _chunks(*ts: torch.Tensor):
             for lo in range(0, n, IN_PLACE_CHUNK)] or [ts]
 
 
+def as_schedule(lr) -> Schedule:
+    """``lr`` itself when it is a schedule, else the constant ``lr``."""
+    return lr if callable(lr) else (
+        lambda s: torch.as_tensor(lr, dtype=torch.float32, device=s.device))
+
+
+def adam_coefficients(sched: Schedule, b1: float, b2: float, step, dev):
+    """(lr_t, bc1, bc2) of an Adam update at ``step``: the schedule at
+    ``step + 1`` and the bias corrections, float32 0-d tensors on
+    ``dev``."""
+    step = torch.as_tensor(step, dtype=torch.float32, device=dev) + 1.0
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return sched(step), 1.0 - f32(b1) ** step, 1.0 - f32(b2) ** step
+
+
 class AdamState(NamedTuple):
     mu: Params
     nu: Params
@@ -100,21 +115,13 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           moment_dtype: torch.dtype = torch.float32) -> Optimizer:
     """AdamW (Loshchilov & Hutter 2017). ``lr`` is a float or a schedule
     of the step (``optim/schedules.py``)."""
-    sched = lr if callable(lr) else (
-        lambda s: torch.as_tensor(lr, dtype=torch.float32, device=s.device))
+    sched = as_schedule(lr)
 
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype,
                                       device=p.device)
         return AdamState(mu=pytree.tree_map(zeros, params),
                          nu=pytree.tree_map(zeros, params))
-
-    def coefficients(step, dev):
-        """(lr_t, bc1, bc2): the schedule at ``step + 1`` and the bias
-        corrections, float32 0-d tensors on ``dev``."""
-        step = torch.as_tensor(step, dtype=torch.float32, device=dev) + 1.0
-        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
-        return sched(step), 1.0 - f32(b1) ** step, 1.0 - f32(b2) ** step
 
     def upd_mu(g, m):
         return (b1 * m.float() + (1 - b1) * g.float()).to(moment_dtype)
@@ -132,8 +139,8 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return -lr_t * step_dir
 
     def update(grads, state: AdamState, params, step):
-        lr_t, bc1, bc2 = coefficients(
-            step, pytree.tree_leaves(params)[0].device)
+        lr_t, bc1, bc2 = adam_coefficients(
+            sched, b1, b2, step, pytree.tree_leaves(params)[0].device)
         mu = pytree.tree_map(upd_mu, grads, state.mu)
         nu = pytree.tree_map(upd_nu, grads, state.nu)
         updates = pytree.tree_map(
@@ -154,7 +161,8 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} "
                              "parameter leaves")
-        lr_t, bc1, bc2 = coefficients(step, leaves[0].device)
+        lr_t, bc1, bc2 = adam_coefficients(sched, b1, b2, step,
+                                           leaves[0].device)
         with torch.no_grad():
             for i, (p, m, v) in enumerate(zip(
                     leaves, pytree.tree_leaves(state.mu),
@@ -183,8 +191,7 @@ class SgdState(NamedTuple):
 def sgd(lr, momentum: float = 0.0) -> Optimizer:
     """SGD with optional heavy-ball momentum (a float32 buffer). Unlike
     AdamW it reads the schedule at ``step``, as the reference does."""
-    sched = lr if callable(lr) else (
-        lambda s: torch.as_tensor(lr, dtype=torch.float32, device=s.device))
+    sched = as_schedule(lr)
 
     def init(params):
         if momentum == 0.0:

@@ -7,9 +7,10 @@ The climbs run on the reference's 16 x 16 mesh (``SINGLE_POD``, 256
 devices). On the H100 record every collective is priced at one NVLink 4
 rate, which holds only inside one 8-GPU node, so these climbs are
 what-ifs under that rate. Their changes are priced, not run: the port
-implements hypersolved depth (``models/cdepth.py``), while int8 MoE
-dispatch, EP-over-data placement, sequence-parallel residuals, the int8
-KV cache and int8 weights wait for ROADMAP item 12.
+implements hypersolved depth (``models/cdepth.py``), the int8 MoE
+dispatch and the int8 KV cache (``models/lm.py::set_perf_options``),
+while EP-over-data placement, sequence-parallel residuals and int8
+weights are not implemented.
 
     PYTHONPATH=src python -m repro_torch.roofline.hillclimb
 """

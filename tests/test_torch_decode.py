@@ -17,7 +17,10 @@ from numpy. Tolerance through matmuls: rtol 1e-4, atol 1e-5 (XLA and
 PyTorch sum in different orders; the port's prefill runs the
 full-sequence forward, the reference scans decode steps). Decode
 attention is plain ``jnp`` in the reference, so no Pallas kernel runs on
-the JAX side."""
+the JAX side. Under ``set_perf_options(kv_int8=True)`` (both packages,
+switched off again after) the int8 caches' payloads are held within one
+unit of the reference's and everything else to the same tolerance."""
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -382,6 +385,103 @@ def test_lm_prefill_from_later_position_matches_jax(arch):
                             start_index=5)
     _close(lt, lj)
     _close_tree(ct, cj)
+
+
+@contextlib.contextmanager
+def kv_int8():
+    """Both packages' ``kv_int8`` on while open, off again after."""
+    jlm.set_perf_options(kv_int8=True)
+    tlm.set_perf_options(kv_int8=True)
+    try:
+        yield
+    finally:
+        jlm.set_perf_options(kv_int8=False)
+        tlm.set_perf_options(kv_int8=False)
+
+
+def _int8_cache_close(t_tree, j_tree):
+    """An int8 cache against the reference's: the same tree, payloads
+    within one unit (k and v come from matmuls, so a value over its scale
+    may round the other way), scales and float leaves to the tolerance."""
+    flat_j = jax.tree_util.tree_flatten_with_path(j_tree)[0]
+    assert len(flat_j) == len(jax.tree_util.tree_leaves(t_tree))
+    for path, leaf in flat_j:
+        node = t_tree
+        for k in path:
+            node = node[k.key]
+        leaf = np.asarray(leaf)
+        assert tuple(node.shape) == leaf.shape, path
+        assert str(node.dtype).replace("torch.", "") == leaf.dtype.name, path
+        if leaf.dtype == np.int8:
+            diff = np.abs(node.numpy().astype(np.int32) - leaf)
+            assert diff.max() <= 1, (path, diff.max())
+        else:
+            _close(node, leaf)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "olmoe_1b_7b"])
+def test_int8_cache_prefill_and_decode_match_jax(arch):
+    """Under ``set_perf_options(kv_int8=True)`` on both sides: int8 caches
+    (payloads int8, scales float32 (n_groups, B, S, KV)), a prefill of 6
+    tokens from position 0 (the port: flash over the dequantized k and
+    v; the reference: a scan of decode steps), 4 more from position 6,
+    then 3 decode steps, logits and caches against the reference's at
+    each stage; and the port's ``greedy_generate`` under the option
+    equals the argmax chain of its own prefill and decode steps."""
+    cfg_j, cfg_t, pj, pt = model(arch)
+    first, second = tokens(cfg_j, (2, 6), seed=4), tokens(cfg_j, (2, 4))
+    with kv_int8():
+        cj, ct = jlm.init_lm_cache(cfg_j, 2, 16), tlm.init_lm_cache(
+            cfg_t, 2, 16)
+        g = ct["groups"]["b0"]
+        assert g["k"].dtype == torch.int8 and g["k_scale"].dtype == \
+            torch.float32 and g["k_scale"].shape == (
+                tlm.group_layout(cfg_t)[1], 2, 16, cfg_t.n_kv)
+        _int8_cache_close(ct, cj)
+        lj, cj = jlm.lm_prefill(pj, cfg_j, jnp.asarray(first), cj)
+        lt, ct = tlm.lm_prefill(pt, cfg_t, torch.from_numpy(first), ct)
+        _close(lt, lj)
+        _int8_cache_close(ct, cj)
+        lj, cj = jlm.lm_prefill(pj, cfg_j, jnp.asarray(second), cj,
+                                start_index=6)
+        lt, ct = tlm.lm_prefill(pt, cfg_t, torch.from_numpy(second), ct,
+                                start_index=6)
+        _close(lt, lj)
+        for t in range(10, 13):
+            tok = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+            lj, cj = jlm.lm_decode_step(pj, cfg_j, jnp.asarray(tok), cj,
+                                        jnp.asarray(t))
+            lt, ct = tlm.lm_decode_step(pt, cfg_t, torch.from_numpy(tok), ct,
+                                        t)
+            _close(lt, lj)
+        _int8_cache_close(ct, cj)
+        prompt = np.concatenate([first, second], axis=1)
+        out = teng.greedy_generate(pt, cfg_t, prompt, 4)
+        caches = tlm.init_lm_cache(cfg_t, 2, 14)
+        logits, caches = tlm.lm_prefill(pt, cfg_t, torch.from_numpy(prompt),
+                                        caches)
+        chain = [logits.argmax(-1)]
+        for t in range(10, 13):
+            logits, caches = tlm.lm_decode_step(pt, cfg_t, chain[-1], caches,
+                                                t)
+            chain.append(logits.argmax(-1))
+    np.testing.assert_array_equal(out.numpy(), torch.stack(chain, 1).numpy())
+
+
+def test_int8_cache_only_where_unwindowed():
+    """``kv_int8`` leaves a windowed (rotating) cache in the activation
+    type, as the reference's ``block_cache_init``: Griffin's local
+    attention keeps float32 caches; the option off, Qwen3's are float32."""
+    cfg_j, cfg_t, _, _ = model("recurrentgemma_2b")
+    with kv_int8():
+        ct, cj = tlm.init_lm_cache(cfg_t, 2, 20), jlm.init_lm_cache(
+            cfg_j, 2, 20)
+    _close_tree(ct, cj)
+    assert all(l.dtype != torch.int8 for l in
+               jax.tree_util.tree_leaves(ct))
+    _, cfg_q, _, _ = model("qwen3_4b")
+    assert tlm.init_lm_cache(cfg_q, 2, 8)["groups"]["b0"]["k"].dtype == \
+        torch.float32
 
 
 def test_prefill_longer_than_unwindowed_cache_raises():

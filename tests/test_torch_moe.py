@@ -290,13 +290,6 @@ def test_moe_bf16_within_one_ulp(name):
         _close(a, b, rtol=1e-5, atol=1e-6)
 
 
-def test_int8_dispatch_names_its_roadmap_item():
-    _, pt = _layer(4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tmoe.moe_apply_sorted(pt, torch.zeros(1, 4, D), n_experts=4,
-                              top_k=2, int8_dispatch=True)
-
-
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "llama4_maverick_400b_a17b"])
 def test_depth_field_rows_dispatch_alone(arch):
     """A (B,) depth on a MoE model, every row in one group, capacity

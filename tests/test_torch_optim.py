@@ -3,7 +3,7 @@ global-norm clip, the cosine and warmup-cosine schedules) and its shared
 fit step (core/train.py::make_fit_step) held against the JAX package's on
 the CPU; the counterparts of tests/test_optim.py for what the refinery,
 the flow-head fit and the trainer use (the int8 moments and gradient
-compression wait for ROADMAP.md queue 1 item 12). AdamW's in-place
+compression are held in tests/test_torch_quant.py). AdamW's in-place
 update, the trainer's, is held to its functional one in
 tests/test_torch_train.py.
 
