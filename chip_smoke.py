@@ -196,6 +196,8 @@ from repro_torch.launch.engine import (  # noqa: E402
 from repro_torch.launch.oracle import RooflineOracle  # noqa: E402
 from repro_torch.launch.refinery import (  # noqa: E402
     Refinery, RefineryConfig, ResidualLedger)
+from repro_torch.launch.mesh import (  # noqa: E402
+    ServingMesh, make_serving_mesh)
 from repro_torch.launch.scheduler import InflightScheduler  # noqa: E402
 from repro_torch.launch.workload import (  # noqa: E402
     latency_stats, poisson_trace, replay_scheduler)
@@ -212,7 +214,7 @@ from repro_torch.nn.module import (  # noqa: E402
     mlp_apply, mlp_init, truncated_normal_init)
 from repro_torch.optim import adamw, scaled  # noqa: E402
 from repro_torch.roofline.costmodel import (  # noqa: E402
-    H100, Mesh2D, cell_cost)
+    H100, Mesh2D, cell_cost, predicted)
 
 B, S, D = 8, 128, 2560          # the serving phases' batch of prompts
 GEN = 32                        # tokens each decode phase generates
@@ -1110,7 +1112,8 @@ def check_inflight(tag, sync_rep, over_rep, drain, limit):
                 rel_limit=limit)
 
 
-def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
+def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False,
+                   keep_records=False):
     """A main path: the in-flight scheduler serving ``INFLIGHT_REQUESTS``
     full-width prompts of a model on its serve phase's params and
     calibrated tolerance (euler, multi-rate over buckets 2,4,8, fused),
@@ -1122,7 +1125,8 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
     engine serves the same prompts (the reference for K, nfe and logits)
     and both loops run once more with their host syncs counted. A MoE
     model's counted runs also record the dropped fraction of every
-    dispatch (``moe_drops``)."""
+    dispatch (``moe_drops``). ``keep_records`` leaves the sync loop's
+    report in ``MEASURED["inflight_records"]`` for ``phase_mesh``."""
     torch.cuda.reset_peak_memory_stats(dev)
     prompts = inflight_prompts(cfg, prompt)
     ecfg = EngineConfig(buckets=tuple(int(b) for b in BUCKETS.split(",")),
@@ -1202,7 +1206,170 @@ def phase_inflight(dev, cfg, params, prompt, tol, via_cli=False):
          block_applications=blocks, **checked,
          moe_dropped=drop_summary(drops) if drops else None,
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    if keep_records:
+        MEASURED["inflight_records"][cfg.name] = sync_rep
     del drain, sync_rep, over_rep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def synchronize_all():
+    """Wait for every visible card (``torch.cuda.synchronize`` waits for
+    the current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_records_equal(tag, rep, ref):
+    """Raises unless ``rep``'s records equal ``ref``'s request for request
+    in completion order (uid, K, nfe, status, virtual stamps) with logits
+    ``torch.equal``."""
+    key = lambda r: (r.uid, r.K, r.nfe, r.status, r.t_submit, r.t_admit,
+                     r.t_done)
+    if [key(r) for r in rep.records] != [key(r) for r in ref.records]:
+        raise AssertionError(f"{tag}: records differ from the unsharded "
+                             f"pool's: {[key(r) for r in rep.records]} "
+                             f"against {[key(r) for r in ref.records]}")
+    for a, b in zip(rep.records, ref.records):
+        if not torch.equal(torch.from_numpy(a.outputs),
+                           torch.from_numpy(b.outputs)):
+            raise AssertionError(f"{tag}: request {a.uid}'s logits differ "
+                                 "from the unsharded pool's")
+
+
+def phase_mesh(dev, cfg, params, prompt, tol):
+    """A main path: the in-flight pool split over a serving mesh
+    (``launch/mesh.py``), serving ``phase_inflight``'s prompts, params,
+    tolerance, policy and Poisson trace: (a) ``make_serving_mesh`` of
+    every visible card, (b) two sub-pools of two rows sharing this card
+    (``ServingMesh((dev, dev))``), each with the sync and the overlap
+    loop, held to (c) the unsharded pool's sync replay from
+    ``phase_inflight``: request for request equal uid, K, nfe, status,
+    completion order and virtual stamps, logits ``torch.equal``. Then a
+    parametric g (hyper_euler, seeded) on the widest mesh, (a) on several
+    cards, else (b): the sync loop with the g swapped mid-flight held to
+    the unsharded pool's with the same swap. Every sub-pool's segment
+    step runs hyper_step once, every block application its kernel. Then
+    the serving CLI with ``--mesh 1`` serves the euler requests (held to
+    (c)), with ``--mesh <every card>`` and that g restored by
+    ``--g-ckpt`` serves the g's (held to the unsharded pool's without a
+    swap), and ``--mesh`` one above the visible count exits non-zero
+    naming that count. With one card the wall times are of the split on
+    one card, not a multi-GPU time."""
+    t_phase = time.perf_counter()
+    ref = MEASURED["inflight_records"].pop(cfg.name)
+    prompts = inflight_prompts(cfg, prompt)
+    ecfg = EngineConfig(buckets=tuple(int(b) for b in BUCKETS.split(",")),
+                        tol=tol, max_batch=B, solver="euler", fused=True)
+    model = lm_depth_model(params, cfg, solver="euler", fused=True)
+    count = torch.cuda.device_count()
+    meshes = {"all_cards": make_serving_mesh(count),
+              "two_on_one_card": ServingMesh((dev, dev))}
+    trace = poisson_trace(prompts, rate=ARRIVAL_RATE, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gp = lm_g_init(gen, cfg, rank=32, device=dev)
+    gp["w_out"] = truncated_normal_init(gen, gp["w_out"].shape, 0.02,
+                                        gp["w_out"].dtype, dev)
+    g_model = lm_depth_model(params, cfg, solver="hyper_euler",
+                             g_params=gp, fused=True, refinable=True)
+    g_ecfg = dataclasses.replace(ecfg, solver="hyper_euler")
+    g_name = "all_cards" if count > 1 else "two_on_one_card"
+    swapped = dict(gp, w_out=gp["w_out"] * 2)
+
+    def swap_at_3():
+        done = []
+
+        def on_tick(sched):
+            if sched.dispatches >= 3 and not done:
+                done.append(1)
+                sched.hot_swap_g(swapped)
+        return on_tick
+
+    cases, expected = [], 0
+    LAUNCHES.clear()
+    with count_blocks() as blocks:
+        for name, mesh in meshes.items():
+            for overlap in (False, True):
+                sched = InflightScheduler(model, ecfg, slots=SLOTS, seg=SEG,
+                                          mesh=mesh, overlap=overlap)
+                synchronize_all()
+                t0 = time.perf_counter()
+                rep = replay_scheduler(sched, trace)
+                synchronize_all()
+                wall = time.perf_counter() - t0
+                tag = f"{cfg.name} mesh {name} " \
+                    f"{'overlap' if overlap else 'sync'}"
+                mesh_records_equal(tag, own_outputs(rep), ref)
+                expected += sched.dispatches * SEG * mesh.size
+                cases.append(dict(mesh=name, devices=[str(d) for d in
+                                                      mesh.devices],
+                                  overlap=overlap, wall_s=wall,
+                                  segments=sched.dispatches,
+                                  equal_to_unsharded=True))
+                del sched, rep
+        g_reps = {}
+        for key, mesh, swap in (("ref", None, False), ("swap", None, True),
+                                ("swap_mesh", meshes[g_name], True)):
+            sched = InflightScheduler(g_model, g_ecfg, slots=SLOTS, seg=SEG,
+                                      mesh=mesh)
+            g_reps[key] = own_outputs(replay_scheduler(
+                sched, trace, on_tick=swap_at_3() if swap else None))
+            expected += sched.dispatches * SEG * (mesh.size if mesh else 1)
+            del sched
+        mesh_records_equal(f"{cfg.name} mesh {g_name} g swapped",
+                           g_reps["swap_mesh"], g_reps["swap"])
+        if all(np.array_equal(a.outputs, b.outputs) for a, b in zip(
+                g_reps["swap"].records, g_reps["ref"].records)):
+            raise AssertionError(f"{cfg.name} mesh: the g swap changed no "
+                                 "logits")
+    launches, blocks = dict(LAUNCHES), dict(blocks)
+    if launches.get("hyper_step", 0) != expected:
+        raise AssertionError(f"{cfg.name} mesh: hyper_step launched "
+                             f"{launches.get('hyper_step', 0)} times, the "
+                             f"sub-pool segments x seg were {expected}")
+    check_block_launches(launches, blocks, f"{cfg.name} mesh")
+
+    t0 = time.perf_counter()
+    cli = serve_cli(cfg.name, "--batch", str(INFLIGHT_REQUESTS), "--tol",
+                    repr(tol), "--inflight", "--arrival-trace", "poisson",
+                    "--mesh", "1")
+    mesh_records_equal(f"{cfg.name} mesh CLI", own_outputs(cli["report"]),
+                       ref)
+    cli_s = time.perf_counter() - t0
+    del cli
+    ckpt = os.path.join(BUILD, "mesh_g")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    CheckpointManager(ckpt).save(0, gp, wait=True)
+    cli = serve_cli(cfg.name, "--batch", str(INFLIGHT_REQUESTS), "--tol",
+                    repr(tol), "--inflight", "--arrival-trace", "poisson",
+                    "--solver", "hyper_euler", "--g-ckpt", ckpt,
+                    "--g-rank", "32", "--mesh", str(count))
+    shutil.rmtree(ckpt)
+    if (cli["sched"].model.g_apply is not None) != (count > 1):
+        raise AssertionError(f"--mesh {count}: a loaded g is served on the "
+                             "parametric path exactly when the mesh spans "
+                             "several cards")
+    mesh_records_equal(f"{cfg.name} mesh CLI --g-ckpt --mesh {count}",
+                       own_outputs(cli["report"]), g_reps["ref"])
+    del cli, g_reps
+    try:
+        serve_cli(cfg.name, "--inflight", "--mesh", str(count + 1))
+    except SystemExit as e:
+        refusal = str(e.code)
+    else:
+        raise AssertionError(f"--mesh {count + 1} served on {count} card(s)")
+    if not refusal or f"visible ({count})" not in refusal:
+        raise AssertionError(f"--mesh {count + 1} refusal does not name the "
+                             f"visible count: {refusal!r}")
+    emit(phase="mesh", arch=cfg.name, device_count=count,
+         requests=INFLIGHT_REQUESTS, slots=SLOTS, seg=SEG, cases=cases,
+         g_swapped_mesh=g_name, launches=launches,
+         expected_hyper_step_launches=expected, block_applications=blocks,
+         cli_mesh_1_s=cli_s, cli_refusal=refusal,
+         note="multi-GPU timing not taken: one card" if count == 1 else
+         f"{count} cards: wall times of one host thread driving them",
+         seconds=time.perf_counter() - t_phase)
+    del ref
     torch.cuda.empty_cache()
     return launches
 
@@ -1368,22 +1535,25 @@ def phase_roofline(dev, params, prompt, tol):
         raise AssertionError(f"roofline CLI: {cli_stats}, K {cli_K}; "
                              f"phase_inflight's {ref['K']}")
 
+    one = Mesh2D(1, 1, 1)
     cell = cell_cost(cfg, ShapeSpec(f"oracle_decode{S}_b{SLOTS}", "decode",
-                                    S, SLOTS), Mesh2D(1, 1, 1),
+                                    S, SLOTS), one,
                      depth_fraction=1.0 / oracle.n_groups)
-    predicted = oracle.segment_cost((S,), SEG, SLOTS, 1)
+    pred_us = oracle.segment_cost((S,), SEG, SLOTS, 1)
     measured = float(np.median(seg_us))
     segment = dict(row="inflight_segment_us", arch=cfg.name,
                    cell=f"decode ctx {S}, width {SLOTS}, 1/"
                         f"{oracle.n_groups} of depth, x {SEG} steps",
-                   predicted=predicted, measured=measured,
-                   ratio=measured / predicted, dominant=cell.dominant)
+                   predicted=pred_us, measured=measured,
+                   ratio=measured / pred_us,
+                   dominant=predicted(cell, one)[1],
+                   t_collective_us=cell.t_collective * 1e6 * SEG)
     emit(phase="roofline", arch=cfg.name, chip=H100.name, ctx=S,
          step_time_us=oracle.step_time(SLOTS), arrival_rate_per_us=rate,
          drain_cost_us=drain_us, segments=len(seg_us),
          segment_us=dict(median=measured, min=float(np.min(seg_us)),
                          max=float(np.max(seg_us))),
-         segment_cost_us=predicted,
+         segment_cost_us=pred_us,
          virtual=dict(p50_latency=stats["p50_latency"],
                       p99_latency=stats["p99_latency"],
                       throughput=stats["throughput"],
@@ -1404,31 +1574,41 @@ def report_roofline(segment, decode_archs=ROOFLINE_DECODE_ARCHS,
     ``decode_hbm_bytes(kv_int8=True)``), and each train phase's synced ms
     a step against the train cell of B x S tokens (remat none and one
     microbatch, the trainer's settings; ``phase_train_8bit``'s with
-    one-byte moments), all on one card of the H100 record. Raises if any measured time is below ROOFLINE_MIN_RATIO
+    one-byte moments), all on one card of the H100 record. One card
+    sends no collective, so each row predicts the larger of compute and
+    memory (``costmodel.predicted``) and prints ``t_collective_ms``
+    beside it. Raises if any measured time is below ROOFLINE_MIN_RATIO
     times its prediction."""
     one = Mesh2D(1, 1, 1)
+
+    def one_card(t):
+        pred, dominant = predicted(t, one)
+        return pred * 1e3, dominant
+
     rows = [segment] if segment is not None else []
     for arch in decode_archs:
         cfg = get(arch)
         m = MEASURED["decode_encdec" if cfg.is_encdec else "decode"][arch]
         t = cell_cost(cfg, ShapeSpec(f"decode_{B}x{S + GEN}", "decode",
                                      S + GEN, B), one)
-        pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
+        pred, dominant = one_card(t)
         rows.append(dict(row="decode_ms_per_token", arch=arch,
                          cell=f"decode B {B}, ctx {S + GEN}",
                          predicted=pred, measured=m["ms"],
-                         ratio=m["ms"] / pred, dominant=t.dominant,
+                         ratio=m["ms"] / pred, dominant=dominant,
+                         t_collective_ms=t.t_collective * 1e3,
                          weight_bytes_bound_ms=m["weight_bytes_bound_ms"]))
     for (arch, kv), ms in MEASURED["decode_long"].items():
         ctx = KV_PROMPT + GEN
         t = cell_cost(get(arch), ShapeSpec(f"decode_{B}x{ctx}", "decode",
                                            ctx, B), one,
                       kv_int8=kv == "int8")
-        pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
+        pred, dominant = one_card(t)
         rows.append(dict(row="decode_ms_per_token", arch=arch,
                          cell=f"decode B {B}, ctx {ctx}, {kv} KV cache",
                          predicted=pred, measured=ms, ratio=ms / pred,
-                         dominant=t.dominant,
+                         dominant=dominant,
+                         t_collective_ms=t.t_collective * 1e3,
                          decode_hbm_bytes=t.hbm_bytes_dev))
     train = [(arch, MEASURED["train"][arch], 4, "") for arch in train_archs]
     train += [(arch, ms, 1, ", int8 moments")
@@ -1438,11 +1618,12 @@ def report_roofline(segment, decode_archs=ROOFLINE_DECODE_ARCHS,
         t = cell_cost(cfg, ShapeSpec(f"train_{B}x{S}", "train", S, B), one,
                       remat="none", microbatches=1,
                       moment_bytes=moment_bytes)
-        pred = max(t.t_compute, t.t_memory, t.t_collective) * 1e3
+        pred, dominant = one_card(t)
         rows.append(dict(row="train_ms_per_step", arch=arch,
                          cell=f"train B {B} x S {S}, remat none{note}",
                          predicted=pred, measured=ms, ratio=ms / pred,
-                         dominant=t.dominant))
+                         dominant=dominant,
+                         t_collective_ms=t.t_collective * 1e3))
     emit(roofline_vs_measured=rows, chip=H100.name,
          min_ratio=ROOFLINE_MIN_RATIO)
     low = [r for r in rows if r["ratio"] < ROOFLINE_MIN_RATIO]
@@ -4933,7 +5114,8 @@ def main() -> int:
     served, params, prompt, tol = phase_serve(dev)
     launches.update(served)
     launches.update(phase_inflight(dev, get("qwen3_4b"), params, prompt, tol,
-                                   via_cli=True))
+                                   via_cli=True, keep_records=True))
+    launches.update(phase_mesh(dev, get("qwen3_4b"), params, prompt, tol))
     t_roof = time.perf_counter()
     roof_launches, roof_segment = phase_roofline(dev, params, prompt, tol)
     launches.update(roof_launches)

@@ -22,6 +22,7 @@ raises instead of carrying on in another precision.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
@@ -98,6 +99,45 @@ def with_initial(z0: Pytree, traj: Pytree) -> Pytree:
 
 def _stack(trees: Sequence[Pytree]) -> Pytree:
     return pytree.tree_map(lambda *ls: torch.stack(ls), *trees)
+
+
+# ------------------------------------------------------------ mesh shards ----
+# A mesh is a ``launch/mesh.py::ServingMesh``: its ``split``/``gather``
+# hold the partition rule (row block i on entry i, gathered in entry
+# order on entry 0); this module only drives the shards.
+
+def _on(device: Optional[torch.device]):
+    """Make ``device`` the current CUDA device while open (nothing on the
+    CPU or for None), so a shard's launches go to its own device's current
+    stream."""
+    return torch.cuda.device(device) \
+        if device is not None and device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def _check_slots(B: int, mesh) -> None:
+    """Refuse a ``B``-slot pool the mesh's ``"data"`` axis cannot split."""
+    n = mesh.shape["data"]
+    if B % n:
+        raise ValueError(
+            f"slot count {B} does not divide the 'data' mesh axis ({n}); "
+            "size the pool as a multiple of the axis "
+            "(launch/scheduler.py slots=)")
+
+
+def _advance(runs: Sequence, seg: int, s0, devices: Sequence) -> list:
+    """Advance each shard's ``(integrator, field, SegmentCarry)`` by
+    ``seg`` steps on its device; returns the carries. Step j runs on every
+    shard before step j+1 runs on any, so the host waits of one shard's
+    step (a field that reads its rows' depth on the host,
+    models/cdepth.py) overlap the steps already queued on the other
+    devices. Slots never interact, so the order changes no value."""
+    carries = [c for _, _, c in runs]
+    for _ in range(int(seg)):
+        for i, ((integ, f, _), d) in enumerate(zip(runs, devices)):
+            with _on(d):
+                carries[i], _ = integ.solve_segment(f, carries[i], 1, s0=s0)
+    return carries
 
 
 def _step_index(k: int, like) -> torch.Tensor:
@@ -351,7 +391,8 @@ class Integrator:
     # ------------------------------------------------------------ solve ----
     def solve(self, f: VectorField, z0: Pytree, grid, *,
               return_traj: bool = True, checkpoint: bool = False,
-              controller=None, first_stage: Optional[Pytree] = None):
+              controller=None, first_stage: Optional[Pytree] = None,
+              mesh=None):
         """Integrate z' = f(s, z) over ``grid`` (a FixedGrid; ``grid.eps``
         may carry a leading batch axis, and then ``f`` receives a batched
         ``s``: lift it with ``depth_like``). Returns the trajectory
@@ -365,7 +406,21 @@ class Integrator:
         the span; the controller probes z0 and picks per-sample mesh
         lengths, and the solve runs the masked multi-rate loop. Returns
         ``(result, SolveStats)``. ``first_stage`` is a precomputed
-        f(s0, z0) reused as stage 0 of the first step."""
+        f(s0, z0) reused as stage 0 of the first step.
+
+        ``mesh`` (a ``launch/mesh.py::ServingMesh``) solves data-parallel:
+        the leading batch rows of every state leaf (and a ``(B,)``
+        ``grid.eps``) split row-wise over the mesh's ``"data"`` axis, each
+        shard is solved on its entry's device, one shard after another,
+        and the result (stats too) is gathered on the first entry's
+        device. Batch rows share nothing, so the shards never exchange
+        data; ``f`` must accept a shard on any entry's device. The batch
+        must divide the axis."""
+        if mesh is not None:
+            return self._solve_sharded(
+                f, z0, grid, mesh, return_traj=return_traj,
+                checkpoint=checkpoint, controller=controller,
+                first_stage=first_stage)
         if controller is not None:
             return self._solve_controlled(f, z0, grid, controller,
                                           return_traj)
@@ -451,8 +506,47 @@ class Integrator:
         )
         return result, stats
 
+    def _solve_sharded(self, f, z0, grid, mesh, *, return_traj,
+                       checkpoint, controller, first_stage):
+        """Data-parallel solve: each row block of the batch is solved on
+        its mesh entry's device, then gathered on the first entry's (a
+        trajectory along its batch axis, 1). No shard reads another's
+        rows."""
+        B = pytree.tree_leaves(z0)[0].shape[0]
+        n = mesh.shape["data"]
+        if B % n:
+            raise ValueError(
+                f"batch {B} does not divide the 'data' mesh axis ({n}); "
+                "pad or re-bucket the request batch "
+                "(launch/engine.py max_batch)")
+        eps = grid.eps
+        if isinstance(eps, torch.Tensor) and eps.ndim:
+            eps_sh = mesh.split(eps)
+        elif isinstance(eps, torch.Tensor):
+            eps_sh = [eps.to(d) for d in mesh.devices]
+        else:
+            eps_sh = [eps] * n
+        outs = []
+        for d, z_i, e_i, fs_i in zip(mesh.devices, mesh.split(z0), eps_sh,
+                                     mesh.split(first_stage)):
+            with _on(d):
+                outs.append(self.solve(
+                    f, z_i, grid._replace(eps=e_i), return_traj=return_traj,
+                    checkpoint=checkpoint, controller=controller,
+                    first_stage=fs_i))
+        dim = 1 if return_traj else 0
+        if controller is None:
+            return mesh.gather(outs, dim)
+        stats = [st for _, st in outs]
+        return mesh.gather([res for res, _ in outs], dim), SolveStats(
+            nfe=mesh.gather([st.nfe for st in stats]),
+            K=mesh.gather([st.K for st in stats]),
+            err_probe=mesh.gather([st.err_probe for st in stats]),
+            probe_nfe=stats[0].probe_nfe)
+
     # ---------------------------------------------------------- segments ----
-    def solve_segment(self, f, carry: SegmentCarry, seg: int, *, s0=0.0):
+    def solve_segment(self, f, carry: SegmentCarry, seg: int, *, s0=0.0,
+                      mesh=None):
         """Advance every slot of ``carry`` by ``seg`` depth steps; returns
         ``(carry', finished)`` — the resumable core of in-flight batching
         (launch/scheduler.py).
@@ -470,7 +564,19 @@ class Integrator:
         ``finished`` is ``k >= Ks`` after the segment (True for empty
         slots too: callers keep their own occupancy). Each step is one
         eager call; on the fused path its update is one kernel launch
-        per state leaf."""
+        per state leaf.
+
+        ``mesh`` shards the SLOT axis as ``solve(mesh=)`` shards the batch
+        axis: every ``SegmentCarry`` field is slot-major, so the carry
+        splits row-wise over the mesh's ``"data"`` axis, each shard runs
+        its ``seg`` steps on its entry's device (step j on every shard
+        before step j+1), and ``(z', k', finished)`` are gathered on the
+        first entry's device (``Ks``, ``eps`` and ``first_stage`` pass
+        through). The slot count must divide the axis. ``f`` must be
+        slot-local: per-slot conditioning must split WITH the carry,
+        which ``launch/mesh.py::sharded_segment`` does."""
+        if mesh is not None:
+            return self._solve_segment_sharded(f, carry, seg, s0, mesh)
         z, k, Ks, eps, fs = carry
         for _ in range(int(seg)):
             active = k < Ks
@@ -492,7 +598,8 @@ class Integrator:
             k = torch.where(active, k + 1, k)
         return SegmentCarry(z, k, Ks, eps, fs), k >= Ks
 
-    def segment_cell(self, field_of, seg: int, *, s0=0.0, g_apply=None):
+    def segment_cell(self, field_of, seg: int, *, s0=0.0, g_apply=None,
+                     mesh=None):
         """The serving loop's segment call: ``run(xs, z, k, Ks, eps, fs)
         -> (z', fs', meta)`` (with ``g_apply``, a trailing ``gp``
         operand: ``g = g_apply(gp, eps, s, z, dz)`` is bound per call, so
@@ -510,27 +617,94 @@ class Integrator:
         state never gets a second pool-sized buffer between segments;
         ``fs'`` is ``fs`` itself, untouched. Any read of the old state (a
         readout gather, a refill scatter) must be enqueued before the
-        call, which stream order then keeps."""
+        call, which stream order then keeps.
 
-        def run(xs, z, k, Ks, eps, fs, *gp):
+        With ``mesh``, one cell per ``(shape, seg, mesh)`` drives one
+        sub-pool per mesh entry: ``xs``, ``z``, ``k``, ``Ks``, ``eps``
+        and ``fs`` (when not None) are sequences with one shard per
+        entry (rows ``[i*B/n, (i+1)*B/n)`` of the global pool, on entry
+        i's device), and so is ``gp``, one params tree per entry.
+        ``field_of`` is called on each shard's own conditioning rows (it
+        must build a field on their device), step j runs on every shard
+        before step j+1 runs on any (``_advance``), each shard's ``z`` is
+        written in place, and the ``(3, B)`` meta is gathered on the
+        first entry's device in global slot order."""
+
+        def shard(xs, z, k, Ks, eps, fs, gp):
             integ = self
             if g_apply is not None:
                 (params,) = gp
                 integ = dataclasses.replace(
                     self, g=lambda e, s, zz, dzz: g_apply(params, e, s, zz,
                                                           dzz))
-            carry = SegmentCarry(z, k.to(torch.int32), Ks.to(torch.int32),
-                                 eps, fs)
-            out, fin = integ.solve_segment(field_of(xs), carry, seg, s0=s0)
+            return integ, field_of(xs), SegmentCarry(
+                z, k.to(torch.int32), Ks.to(torch.int32), eps, fs)
+
+        def finish(z, out: SegmentCarry) -> torch.Tensor:
+            fin = out.k >= out.Ks
             bad = _nonfinite_rows(out.z, like=fin)
             meta = torch.stack([out.k.to(torch.int32), fin.to(torch.int32),
                                 bad.to(torch.int32)])
             for dst, src in zip(pytree.tree_leaves(z),
                                 pytree.tree_leaves(out.z)):
                 dst.copy_(src)
-            return z, out.first_stage, meta
+            return meta
 
-        return run
+        if mesh is None:
+            def run(xs, z, k, Ks, eps, fs, *gp):
+                (out,) = _advance([shard(xs, z, k, Ks, eps, fs, gp)], seg,
+                                  s0, [None])
+                return z, fs, finish(z, out)
+
+            return run
+        devices, n = mesh.devices, mesh.shape["data"]
+
+        def run_sharded(xs, z, k, Ks, eps, fs, *gp):
+            if any(len(a) != n for a in (xs, z, k, Ks, eps) + (
+                    () if fs is None else (fs,)) + gp):
+                raise ValueError(
+                    "a sharded segment takes one shard per entry of the "
+                    f"'data' mesh axis ({n})")
+            runs = []
+            for i, d in enumerate(devices):
+                with _on(d):
+                    runs.append(shard(xs[i], z[i], k[i], Ks[i], eps[i],
+                                      None if fs is None else fs[i],
+                                      tuple(g[i] for g in gp)))
+            metas = []
+            for d, z_i, out in zip(devices, z,
+                                   _advance(runs, seg, s0, devices)):
+                with _on(d):
+                    metas.append(finish(z_i, out))
+            with _on(devices[0]):
+                return z, fs, mesh.gather(metas, dim=1)
+
+        return run_sharded
+
+    def _solve_segment_sharded(self, f, carry, seg, s0, mesh, *,
+                               field_of=None, cond=None):
+        """Slot-parallel segment advance: split every carry field (and,
+        with ``field_of``/``cond`` from ``launch/mesh.py::
+        sharded_segment``, the per-slot conditioning rows ``cond``, each
+        shard's field rebuilt as ``field_of(cond_shard)``; ``f`` is then
+        ignored) over the mesh, advance the shards on their devices
+        (``_advance``), and gather ``(z', k', finished)`` on the first
+        entry's. Both entry points share this one plumbing, so their
+        divisibility policy cannot diverge."""
+        z, k, Ks, eps, fs = carry
+        k = torch.as_tensor(k, dtype=torch.int32)
+        _check_slots(int(k.shape[0]), mesh)
+        parts = zip(mesh.devices, *(mesh.split(t) for t in (
+            z, k, torch.as_tensor(Ks, dtype=torch.int32), eps, fs, cond)))
+        runs = []
+        for d, z_i, k_i, Ks_i, eps_i, fs_i, c_i in parts:
+            with _on(d):
+                runs.append((self, f if cond is None else field_of(c_i),
+                             SegmentCarry(z_i, k_i, Ks_i, eps_i, fs_i)))
+        outs = _advance(runs, seg, s0, mesh.devices)
+        return SegmentCarry(mesh.gather([o.z for o in outs]),
+                            mesh.gather([o.k for o in outs]), Ks, eps,
+                            fs), mesh.gather([o.k >= o.Ks for o in outs])
 
 
 def as_integrator(solver, g: Optional[Correction] = None,

@@ -144,19 +144,21 @@ class _Flash(torch.autograd.Function):
 def launch(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, causal: bool = True,
            window: Optional[int] = None) -> None:
-    """One launch of the CUDA kernel on the current stream, writing
-    ``out`` (operands already checked and aligned by ``flash_attention``;
-    benchmarks call this directly to time the kernel alone)."""
+    """One launch of the CUDA kernel on its operands' device and that device's
+    current stream, writing ``out`` (operands already checked and aligned by
+    ``flash_attention``; benchmarks call this directly to time the kernel
+    alone)."""
     B, Sq, H, hd = q.shape
     lib = _library()
     strides = [(ctypes.c_longlong * 3)(*t.stride()[:3])
                for t in (q, k, v, out)]
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], hd,
-        *strides,
-        int(causal), 0 if window is None else int(window), hd ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, Sq, k.shape[1], H, k.shape[2], hd,
+            *strides,
+            int(causal), 0 if window is None else int(window), hd ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())

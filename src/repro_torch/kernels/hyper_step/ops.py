@@ -139,10 +139,10 @@ def launch(out: torch.Tensor, z: torch.Tensor, stages: Sequence[torch.Tensor],
            g: Optional[torch.Tensor], eps_row: torch.Tensor,
            epsp_row: torch.Tensor, act_row: torch.Tensor,
            b: Tuple[float, ...]) -> None:
-    """One launch of the CUDA kernel on the current stream, writing ``out``
-    (contiguous operands; rows: float32 eps and eps**(order+1), int32
-    active). ``fused_rk_update`` validates and prepares the operands;
-    benchmarks call this directly to time the kernel alone."""
+    """One launch of the CUDA kernel on its operands' device and that device's
+    current stream, writing ``out`` (contiguous operands; rows: float32 eps and
+    eps**(order+1), int32 active). ``fused_rk_update`` validates and prepares
+    the operands; benchmarks call this directly to time the kernel alone."""
     B = eps_row.shape[0]
     n = z.numel() // B
     ops = [z, out, *stages] + ([g] if g is not None else [])
@@ -152,13 +152,14 @@ def launch(out: torch.Tensor, z: torch.Tensor, stages: Sequence[torch.Tensor],
     stage_ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in stages])
     stage_codes = (ctypes.c_int * k)(*[_DTYPE_CODE[t.dtype] for t in stages])
     b_arr = (ctypes.c_float * k)(*[float(bj) for bj in b])
-    err = lib.hyper_step_launch(
-        z.data_ptr(), out.data_ptr(), _DTYPE_CODE[z.dtype],
-        stage_ptrs, stage_codes, b_arr, len(stages),
-        g.data_ptr() if g is not None else None,
-        _DTYPE_CODE[g.dtype] if g is not None else 0,
-        eps_row.data_ptr(), epsp_row.data_ptr(), act_row.data_ptr(),
-        B, n, vec, torch.cuda.current_stream(z.device).cuda_stream)
+    with torch.cuda.device(z.device):
+        err = lib.hyper_step_launch(
+            z.data_ptr(), out.data_ptr(), _DTYPE_CODE[z.dtype],
+            stage_ptrs, stage_codes, b_arr, len(stages),
+            g.data_ptr() if g is not None else None,
+            _DTYPE_CODE[g.dtype] if g is not None else 0,
+            eps_row.data_ptr(), epsp_row.data_ptr(), act_row.data_ptr(),
+            B, n, vec, torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError("hyper_step launch failed: "
                            + lib.hyper_step_error_string(err).decode())

@@ -286,10 +286,13 @@ rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __res
   }
 }
 
+// devices whose per-device state (SM count, function attributes) is kept
+constexpr int RG_MAX_DEVICES = 64;
+
 static int sm_count() {
-  static int cached[64] = {};
+  static int cached[RG_MAX_DEVICES] = {};
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= RG_MAX_DEVICES) return 0;
   if (cached[dev] == 0) {
     int n = 0;
     if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
@@ -302,18 +305,27 @@ template <typename T, int DEPTH, int SB>
 static cudaError_t launch_t(const void* a, const void* b, float* h, int T_len, int W,
                             dim3 grid, int vec_in, int vec_out, cudaStream_t s) {
   constexpr int smem = rg_smem_bytes<DEPTH, SB>(sizeof(T));
-  // once per instantiation: admit the dynamic shared memory (above 48 KB
-  // for the deep ring) and ask for the largest shared-memory carveout, so
+  // once per instantiation and device (a function attribute belongs to
+  // the current device): admit the dynamic shared memory (above 48 KB for
+  // the deep ring) and ask for the largest shared-memory carveout, so
   // that 6 blocks of the shallow ring fit on an SM
-  static const cudaError_t attr = [] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rglru_scan_kernel<T, DEPTH, SB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(rglru_scan_kernel<T, DEPTH, SB>,
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxShared);
-  }();
-  if (attr != cudaSuccess) return attr;
+  static bool attr_set[RG_MAX_DEVICES] = {};
+  static cudaError_t attr[RG_MAX_DEVICES];
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return got;
+  if (dev < 0 || dev >= RG_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    attr[dev] = cudaFuncSetAttribute(rglru_scan_kernel<T, DEPTH, SB>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr[dev] == cudaSuccess) {
+      attr[dev] = cudaFuncSetAttribute(rglru_scan_kernel<T, DEPTH, SB>,
+                                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+    }
+    attr_set[dev] = true;
+  }
+  if (attr[dev] != cudaSuccess) return attr[dev];
   rglru_scan_kernel<T, DEPTH, SB><<<grid, 32 * (1 + RG_PRODUCERS), smem, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), h, T_len, W, vec_in, vec_out);
   return cudaGetLastError();

@@ -95,14 +95,16 @@ class _RGLRUScan(torch.autograd.Function):
 
 
 def launch(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
-    """One launch of the CUDA kernel on the current stream, writing the
-    fp32 ``h`` (contiguous operands). ``rglru_scan`` validates and
-    prepares them; benchmarks call this directly to time the kernel."""
+    """One launch of the CUDA kernel on its operands' device and that device's
+    current stream, writing the fp32 ``h`` (contiguous operands).
+    ``rglru_scan`` validates and prepares them; benchmarks call this directly
+    to time the kernel."""
     B, T, W = a.shape
     lib = _library()
-    err = lib.rglru_scan_launch(
-        a.data_ptr(), b.data_ptr(), h.data_ptr(), _DTYPE_CODE[a.dtype], B, T,
-        W, torch.cuda.current_stream(a.device).cuda_stream)
+    with torch.cuda.device(a.device):
+        err = lib.rglru_scan_launch(
+            a.data_ptr(), b.data_ptr(), h.data_ptr(), _DTYPE_CODE[a.dtype],
+            B, T, W, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError("rglru_scan launch failed: "
                            + lib.rglru_scan_error_string(err).decode())

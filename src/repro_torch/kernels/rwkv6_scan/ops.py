@@ -139,24 +139,25 @@ class _WKV6(torch.autograd.Function):
 def launch(o: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
            v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
            S0: Optional[torch.Tensor], S_T: Optional[torch.Tensor]) -> None:
-    """One launch of the CUDA kernel on the current stream, writing the
-    contiguous fp32 ``o`` and, if given, ``S_T``. r, k, v, w are read
-    through their strides (last axis contiguous), u and S0 contiguous.
-    ``wkv6`` validates and prepares them; benchmarks call this directly
-    to time the kernel."""
+    """One launch of the CUDA kernel on its operands' device and that device's
+    current stream, writing the contiguous fp32 ``o`` and, if given, ``S_T``.
+    r, k, v, w are read through their strides (last axis contiguous), u and S0
+    contiguous. ``wkv6`` validates and prepares them; benchmarks call this
+    directly to time the kernel."""
     B, T, H, D = r.shape
     strides = (ctypes.c_longlong * 12)(*(s for t in (r, k, v, w)
                                          for s in t.stride()[:3]))
     codes = (ctypes.c_int * 5)(*(_DTYPE_CODE[t.dtype]
                                  for t in (r, k, v, w, u)))
     lib = _library()
-    err = lib.rwkv6_scan_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        None if S0 is None else S0.data_ptr(), o.data_ptr(),
-        None if S_T is None else S_T.data_ptr(),
-        ctypes.cast(strides, ctypes.c_void_p),
-        ctypes.cast(codes, ctypes.c_void_p), B, T, H, D,
-        torch.cuda.current_stream(r.device).cuda_stream)
+    with torch.cuda.device(r.device):
+        err = lib.rwkv6_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            None if S0 is None else S0.data_ptr(), o.data_ptr(),
+            None if S_T is None else S_T.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p),
+            ctypes.cast(codes, ctypes.c_void_p), B, T, H, D,
+            torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
         raise RuntimeError("rwkv6_scan launch failed: "
                            + lib.rwkv6_scan_error_string(err).decode())

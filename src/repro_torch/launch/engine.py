@@ -49,6 +49,7 @@ from repro_torch.core.controllers import (EmbeddedErrorController,
                                           HypersolverResidualController,
                                           TierRouter)
 from repro_torch.core.integrate import Integrator, OneTimeWarning
+from repro_torch.launch.mesh import moved
 from repro_torch.models.cdepth import lm_flow_init, lm_g_init, lm_integrator
 from repro_torch.models.lm import (dtype_of, init_lm_cache, lm_decode_step,
                                   lm_prefill, readout_weight)
@@ -114,7 +115,10 @@ class DepthModel:
     plus ``g_params`` (parametric: the serving loops pass the params at
     call time, so ``hot_swap_g`` replaces them between calls).
     ``flow_apply(fp, eps, s, z, dz) -> z(s + eps)`` with ``flow_params``
-    is the optional K=0 flow tier, swappable the same way."""
+    is the optional K=0 flow tier, swappable the same way.
+    ``replicate(device)`` rebuilds the same model over its params moved
+    to ``device``: the in-flight scheduler's sub-pool on another device
+    of a mesh serves that replica."""
 
     embed: Callable[[Any], Any]
     field_of: Callable[[Any], Callable]
@@ -125,6 +129,7 @@ class DepthModel:
     g_params: Any = None
     flow_apply: Optional[Callable] = None  # flow_apply(fp, eps, s, z, dz)
     flow_params: Any = None
+    replicate: Optional[Callable[[torch.device], "DepthModel"]] = None
 
 
 def bound_integrator(model: DepthModel, gp=None) -> Integrator:
@@ -213,6 +218,10 @@ def lm_depth_model(params, cfg: ArchConfig, solver: str = "euler",
         field_of=lambda toks: f,
         readout=lambda toks, h: apply_tail(params, cfg, h),
         integ=integ,
+        replicate=lambda d: lm_depth_model(
+            moved(params, d), cfg, solver, moved(g_params, d), fused,
+            refinable=refinable, rank=rank,
+            flow_params=moved(flow_params, d), device=d),
         **kw,
     )
 
@@ -252,6 +261,9 @@ def node_depth_model(node, params, solver: str = "euler",
         readout=lambda x, zT: node.hy_apply(params, zT),
         integ=make_integrator(base, g_apply, g_params, None, fused=fused),
         span=tuple(node.s_span),
+        replicate=lambda d: node_depth_model(
+            node, moved(params, d), solver, g_apply, moved(g_params, d),
+            fused),
     )
 
 

@@ -33,7 +33,8 @@ from typing import Dict, Optional, Protocol, Tuple, runtime_checkable
 
 from repro_torch.configs import ArchConfig, ShapeSpec
 from repro_torch.models.lm import group_layout
-from repro_torch.roofline.costmodel import H100, Chip, Mesh2D, cell_cost
+from repro_torch.roofline.costmodel import (H100, Chip, Mesh2D, cell_cost,
+                                          predicted)
 
 #: Unit tag for REAL-clock measurements (``time.perf_counter``, in
 #: microseconds). ``sequential_evals`` and ``device_us`` are predictions
@@ -124,7 +125,8 @@ class RooflineOracle:
     def step_time(self, width: int) -> float:
         """Predicted device-us of ONE vector-field evaluation over
         ``width`` rows: the dominant roofline term of a decode cell at
-        ``depth_fraction = 1/n_groups`` (no overlap assumed). Increasing
+        ``depth_fraction = 1/n_groups`` (no overlap assumed; on one
+        device the collective term is left out, ``costmodel.predicted``). Increasing
         in width but sublinear — the per-group weight read is shared by
         every row."""
         width = max(int(width), 1)
@@ -135,8 +137,7 @@ class RooflineOracle:
             t = cell_cost(self.cfg, spec, self.mesh,
                           depth_fraction=1.0 / self.n_groups,
                           chip=self.chip)
-            self._step_us[width] = 1e6 * max(
-                t.t_compute, t.t_memory, t.t_collective)
+            self._step_us[width] = 1e6 * predicted(t, self.mesh)[0]
         return self._step_us[width]
 
     def probe_cost(self, shape, width: int, probe_nfe: int) -> float:

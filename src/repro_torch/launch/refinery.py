@@ -178,7 +178,8 @@ class ResidualLedger:
         scheduler's retire hook): one pool-width pass of the cell at each
         row's current ``s = s0 + k*eps``, then the rows ``rows``. The
         pool's buffers are read, never written, before the next segment
-        is launched."""
+        is launched. A pool split over a mesh is read across its
+        sub-pools, gathered in slot order on its first device."""
         if len(rows) == 0 or not self._fires():
             return 0
         s0 = self.model.span[0]
@@ -186,10 +187,10 @@ class ResidualLedger:
              * pool.eps.astype(np.float64)).astype(np.float32)
         eps = np.asarray(pool.eps, np.float32)
         dev = pool.device
-        dz, R = self._cell(pool._xs_dev, pool.z,
-                           torch.as_tensor(s, device=dev),
+        xs, z = pool.gathered()
+        dz, R = self._cell(xs, z, torch.as_tensor(s, device=dev),
                            torch.as_tensor(eps, device=dev))
-        return self._ingest(s, eps, pool.z, dz, R, rows)
+        return self._ingest(s, eps, z, dz, R, rows)
 
     def _ingest(self, s, eps, z, dz, R, rows) -> int:
         """Bring the captured rows to the host (a gathered snapshot,

@@ -45,8 +45,24 @@ dict between segments; the next launch reads the new one, a segment
 already queued keeps the tensors it was launched with (one stream), and
 no resident tensor is written in place.
 
-The slot pool over several GPUs (``mesh=``) waits for ROADMAP.md queue 1
-item 10 and raises ``NotImplementedError`` naming it.
+Multi-device slot pools (``mesh=``, a ``launch/mesh.py::ServingMesh``):
+``slots`` is the global pool width, split row-wise into one sub-pool of
+``slots / n`` rows per mesh entry, each with its own carry on its own
+device (entry i holds rows ``[i*slots/n, (i+1)*slots/n)``). Admission
+stays one FIFO queue and one pool-width probe on the mesh's first device;
+admitted rows are scattered to their owners. The host rows (uid, k, Ks,
+eps, stamps) stay global, so retire, refill, quarantine, deadline
+eviction, the retry ladder, the flow tier and the ledger work on them
+exactly as on one device: the segment's ``[k'; finished; nonfinite]``
+meta is gathered in global slot order on the first device, and retiring
+rows (and a ledger capture's rows) are gathered there too before the
+readout, which runs on the first device as on one. Each mesh device gets
+its own replica of the model (``DepthModel.replicate``, one per distinct
+device: a repeated entry shares it) and of the correction's params. On
+the virtual clock a segment of the global pool costs what it costs on
+one device, once per pool and tick. Without ``mesh=`` a pool's mesh is
+the one device its model probes on, with one sub-pool: both run the
+same code.
 """
 from __future__ import annotations
 
@@ -66,13 +82,11 @@ from repro_torch.launch.engine import (
     make_controller, next_bucket_above, prepare_model, probe_net_nfe,
     screen_probe_errors, snap_to_buckets, swap_params, take_rows,
 )
+from repro_torch.launch.mesh import ServingMesh
 from repro_torch.launch.oracle import SequentialEvalOracle
 
 __all__ = ["InflightScheduler", "InflightCompleted", "TickReport",
            "STATUSES", "QueueFull", "RetryPolicy", "FaultInjector"]
-
-_MESH = "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)"
-
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host row on ``device``: on a card through a pinned buffer and a
@@ -97,7 +111,7 @@ class _Readback:
             self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self.host.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(t.device))
         else:
             self.host = t
 
@@ -226,10 +240,14 @@ class _RetireStats:
 
 
 class _SlotPool:
-    """Fixed-width slot pool for one request (shape, dtype): the carry on
-    the model's device (``z`` and ``fs`` pytrees, allocated at the first
-    admission and written in place from then on) and the host rows (k,
-    Ks, eps, uid, timestamps)."""
+    """Fixed-width slot pool for one request (shape, dtype): the carry
+    (``z`` and ``fs`` pytrees, allocated at the first admission and
+    written in place from then on) and the host rows (k, Ks, eps, uid,
+    timestamps). The carry and the device mirror of ``xs`` are tuples
+    with one sub-pool's rows per entry of the pool's mesh, each on its
+    entry's device; without a scheduler mesh the pool's mesh is the one
+    device the model probes on, and its one sub-pool is the whole pool.
+    ``device`` is the first entry's."""
 
     def __init__(self, sched: "InflightScheduler", shape: Tuple[int, ...],
                  dtype: np.dtype):
@@ -252,9 +270,10 @@ class _SlotPool:
         self.escalated = np.zeros((n,), bool)   # flow-escalation provenance
         self.xs = np.zeros((n,) + shape, dtype)
         self.device: Optional[torch.device] = None    # set on first admit
+        self.mesh: Optional[ServingMesh] = sched.mesh  # set on first admit
         self._xs_dev = None     # device mirror of xs, refreshed on admit
-        self.z: Any = None                            # device pytree
-        self.fs: Any = None                           # probe dz rows or None
+        self.z: Any = None                      # per-sub-pool pytrees
+        self.fs: Any = None                     # probe dz rows or None
         self._pending: Optional[_PendingSegment] = None
         self._staged: List[_RetireBatch] = []
         self._staged_flow: List[_FlowBatch] = []
@@ -275,9 +294,41 @@ class _SlotPool:
         (shape, seg), built at the first launch."""
         if self._segment_fn is None:
             m, sched = self.sched.model, self.sched
+            # the served field over a sub-pool's conditioning rows, built
+            # by the model on their device (the cell holds no reference
+            # to the scheduler: no cycle through its pools)
+            models = sched._replicas
             self._segment_fn = m.integ.segment_cell(
-                m.field_of, sched.seg, s0=m.span[0], g_apply=m.g_apply)
+                lambda xs: models.get(xs.device, m).field_of(xs), sched.seg,
+                s0=m.span[0], g_apply=m.g_apply, mesh=self.mesh)
         return self._segment_fn
+
+    # ------------------------------------------------------- sub-pools ----
+    def _up(self, a: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """A host row array split into the sub-pools' rows, each on its
+        entry's device."""
+        return tuple(_upload(b, d) for b, d in
+                     zip(np.split(a, self.mesh.size), self.mesh.devices))
+
+    def _rows(self, shards, rows: np.ndarray):
+        """Rows ``rows`` (global slot indices, in that order) of
+        per-sub-pool trees, on the first device."""
+        parts, at = [], []
+        for i, pos, loc in self.mesh.owners(rows, self.sched.slots):
+            j = _upload(loc.astype(np.int64), self.mesh.devices[i])
+            parts.append(pytree.tree_map(lambda leaf: leaf[j], shards[i]))
+            at.append(pos)
+        out = self.mesh.gather(parts)
+        if len(parts) == 1:   # one owner: already in the order asked
+            return out
+        back = _upload(np.argsort(np.concatenate(at)), self.device)
+        return pytree.tree_map(lambda leaf: leaf[back], out)
+
+    def gathered(self):
+        """``(xs, z)`` of every slot on the first device, in slot order:
+        the pool's own buffers with one sub-pool, a gathered copy with
+        several (a ledger capture reads it)."""
+        return self.mesh.gather(self._xs_dev), self.mesh.gather(self.z)
 
     # ------------------------------------------------------- occupancy ----
     @property
@@ -372,23 +423,10 @@ class _SlotPool:
         # scatter: host rows directly, device leaves in place. On the
         # pool's first admission the padded probe output becomes the
         # pool's own buffers.
-        n = len(reqs)
         if self.z is None:
-            own = lambda t: pytree.tree_map(lambda l: l.clone(), t)
-            self.z = own(z0)
-            self.fs = None if dz0 is None else own(dz0)
-            self.device = pytree.tree_leaves(self.z)[0].device
+            self._own(z0, dz0)
         else:
-            jidx = _upload(idx.astype(np.int64), self.device)
-
-            def upd(old, new):
-                for o, nl in zip(pytree.tree_leaves(old),
-                                 pytree.tree_leaves(new)):
-                    o[jidx] = nl[:n]
-
-            upd(self.z, z0)
-            if self.fs is not None:
-                upd(self.fs, dz0)
+            self._scatter(idx, z0, dz0, xs_new)
         span = sched.model.span
         for j, i in enumerate(idx):
             r = reqs[j]
@@ -407,10 +445,41 @@ class _SlotPool:
         # device mirror of xs: only the refilled rows go up after the
         # first admission
         if self._xs_dev is None:
-            self._xs_dev = _upload(self.xs, self.device)
-        else:
-            self._xs_dev[jidx] = _upload(xs_new, self.device)
+            self._xs_dev = self._up(self.xs)
         return probe_cost, probe_nonfinite
+
+    def _own(self, z0, dz0) -> None:
+        """The first admission: the padded probe output is split into the
+        sub-pools' own buffers, each on its entry's device (the one
+        sub-pool's a copy of it, without a scheduler mesh)."""
+        self.device = pytree.tree_leaves(z0)[0].device
+        if self.mesh is None:
+            self.mesh = ServingMesh((self.device,))
+        elif self.device != self.mesh.devices[0]:
+            raise ValueError(
+                f"the model probes on {self.device}, but the mesh's first "
+                f"entry is {self.mesh.devices[0]}: build the model on the "
+                "mesh's first device")
+        self.z = tuple(self.mesh.split(z0, copy=True))
+        self.fs = None if dz0 is None else tuple(
+            self.mesh.split(dz0, copy=True))
+
+    def _scatter(self, idx: np.ndarray, z0, dz0, xs_new) -> None:
+        """A refill: admitted row j (probe row j, on the first device)
+        goes to slot ``idx[j]`` of the sub-pool that owns it, with its
+        conditioning row. ``idx`` ascends (free slots in order), so each
+        sub-pool's rows are one run of the probe's rows."""
+        for i, at, loc in self.mesh.owners(idx, self.sched.slots):
+            d = self.mesh.devices[i]
+            run = slice(int(at[0]), int(at[-1]) + 1)
+            assert run.stop - run.start == len(at), idx
+            jloc = _upload(loc.astype(np.int64), d)
+            for own, new in ((self.z[i], z0),) + (
+                    () if self.fs is None else ((self.fs[i], dz0),)):
+                for o, nl in zip(pytree.tree_leaves(own),
+                                 pytree.tree_leaves(new)):
+                    o[jloc] = nl[run].to(d, non_blocking=True)
+            self._xs_dev[i][jloc] = _upload(xs_new[at], d)
 
     def _stage_flow(self, reqs: List[Request], flow_sel: np.ndarray,
                     xs_new: np.ndarray, z0, dz0, errs: np.ndarray,
@@ -456,11 +525,9 @@ class _SlotPool:
         assert self._xs_dev is not None  # a busy pool has admitted
         k_old = self.k.copy()
         occ = self.occupied.copy()
-        dev = self.device
         z, fs, meta = self._segment()(
-            self._xs_dev, self.z, _upload(self.k, dev),
-            _upload(self.Ks, dev), _upload(self.eps, dev), self.fs,
-            *self.sched._g_args())
+            self._xs_dev, self.z, self._up(self.k), self._up(self.Ks),
+            self._up(self.eps), self.fs, *self.sched._g_args(self.mesh))
         self.z, self.fs = z, fs
         self._pending = _PendingSegment(meta=_Readback(meta), k_old=k_old,
                                         occ=occ, t_done=t_done)
@@ -575,10 +642,8 @@ class _SlotPool:
         pad = idx if w == len(idx) else np.concatenate(
             [idx, np.repeat(idx[:1], w - len(idx))])
         self._readout_widths.add(int(w))
-        jidx = _upload(pad.astype(np.int64), self.device)
-        z_rows = pytree.tree_map(lambda l: l[jidx], self.z)
-        return _Readback(self.sched.model.readout(self._xs_dev[jidx],
-                                                  z_rows))
+        return _Readback(self.sched.model.readout(
+            self._rows(self._xs_dev, pad), self._rows(self.z, pad)))
 
     def finalize_retired(self) -> List[InflightCompleted]:
         """Materialize staged completions — the only place readout rows
@@ -666,7 +731,13 @@ class InflightScheduler:
     every busy pool one segment. ``overlap=True`` swaps the synchronous
     tick for the pipelined one (segment N+1 launched before segment N's
     meta is read); completions, virtual stamps and totals are identical
-    to the synchronous loop, the oracle it is pinned against."""
+    to the synchronous loop, the oracle it is pinned against.
+
+    ``mesh`` (a ``launch/mesh.py::ServingMesh``) grows the pool past one
+    device: ``slots`` is the global width, split row-wise into one
+    sub-pool per mesh entry, and must be a multiple of the axis size.
+    The model must live on the mesh's first device; another device gets
+    a replica (``DepthModel.replicate``)."""
 
     def __init__(self, model: DepthModel,
                  engine_cfg: Optional[EngineConfig] = None,
@@ -678,8 +749,6 @@ class InflightScheduler:
                  retry: Optional[RetryPolicy] = None,
                  fault_injector: Optional[FaultInjector] = None,
                  ledger=None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {_MESH}")
         engine_cfg = engine_cfg or EngineConfig()
         if overload_policy not in ("shed", "degrade", "block"):
             raise ValueError(
@@ -695,7 +764,39 @@ class InflightScheduler:
             raise ValueError(f"seg must be >= 1, got {seg}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if mesh is not None:
+            n = mesh.shape["data"]
+            if slots % n:
+                raise ValueError(
+                    f"slots={slots} does not divide the 'data' mesh axis "
+                    f"({n}); the pool shards row-wise — size slots as a "
+                    "multiple of the axis (e.g. "
+                    f"slots={n * max(1, slots // n)})")
+        self.mesh = mesh
         self.model = model
+        # the served model on every other device of the mesh (the first
+        # device serves ``model`` itself), and the correction's params
+        # per pool mesh (dropped at each hot_swap_g)
+        self._replicas: Dict[torch.device, DepthModel] = {}
+        self._g_replicas: Dict[ServingMesh, Tuple] = {}
+        if mesh is not None:
+            for d in mesh.devices[1:]:
+                if d == mesh.devices[0] or d in self._replicas:
+                    continue
+                if model.replicate is None:
+                    raise ValueError(
+                        f"the mesh spans {d}, but the model cannot be "
+                        "rebuilt there: give the DepthModel a replicate "
+                        "(launch/engine.py lm_depth_model and "
+                        "node_depth_model do)")
+                if model.integ.g is not None:
+                    raise ValueError(
+                        "a closure correction (integ.g) binds its params "
+                        "on one device; serve a mesh of several devices "
+                        "with a parametric one (DepthModel g_apply/"
+                        "g_params)")
+                self._replicas[d] = prepare_model(model.replicate(d),
+                                                  engine_cfg)
         self.ecfg = engine_cfg
         self.slots = int(slots)
         self.seg = int(seg)
@@ -754,10 +855,15 @@ class InflightScheduler:
         (the reused stage feeds the flow combine), zero solver steps."""
         return self.probe_nfe + 1
 
-    def _g_args(self) -> Tuple:
+    def _g_args(self, mesh: ServingMesh) -> Tuple:
         """Trailing segment-call operand of a parametric correction, read
-        at launch time."""
-        return () if self.model.g_apply is None else (self.g_params,)
+        at launch time: one params tree per sub-pool of a pool on
+        ``mesh``, on its device (copied once per swap)."""
+        if self.model.g_apply is None:
+            return ()
+        if mesh not in self._g_replicas:
+            self._g_replicas[mesh] = mesh.replicas(self.g_params)
+        return (self._g_replicas[mesh],)
 
     def hot_swap_g(self, gp):
         """Install new correction params between segments: every segment
@@ -772,6 +878,7 @@ class InflightScheduler:
                 "to make the correction swappable")
         old, self.g_params = self.g_params, swap_params(self.g_params, gp,
                                                         "hot_swap_g")
+        self._g_replicas = {}
         return old
 
     def hot_swap_flow(self, fp):

@@ -33,7 +33,10 @@ depth steps per scheduling round, finished requests retire and refill
 between segments. ``--arrival-trace poisson|bursty`` replays a seeded
 arrival trace (``--arrival-rate`` requests per cost unit) and prints the
 ``[inflight <trace>]`` latency line (``launch/workload.py``); ``none``
-submits the whole batch at once.
+submits the whole batch at once. ``--mesh N`` splits the slot pool over
+N devices (``launch/mesh.py::make_serving_mesh``: ``cuda:0 .. cuda:N-1``,
+or N CPU entries with ``--device cpu``): ``--slots`` is the global pool
+width, a multiple of N, under one admission queue.
 
 ``--cost-oracle`` picks the virtual clock both serving loops stamp
 (``launch/oracle.py``): ``sequential`` (default) counts sequential field
@@ -71,9 +74,6 @@ candidate step and the promotions; a graceful drain flushes the ledger
 ``--profile-dir DIR`` wraps the serving loop of every mode (decode,
 drain, in-flight) in ``torch.profiler`` (CPU activity, and CUDA on a
 card) and writes a Chrome trace, ``DIR/serve.pt.trace.json``.
-
-A flag of a slice not ported yet exits non-zero naming its ROADMAP.md
-item: ``--mesh``.
 """
 from __future__ import annotations
 
@@ -96,11 +96,6 @@ from repro_torch.launch.engine import (EngineConfig, MultiRateEngine,
 from repro_torch.launch.oracle import make_oracle
 from repro_torch.models.lm import (discrete_nfe, group_layout, init_lm,
                                    lm_forward)
-
-_ITEM = {
-    "mesh": "ROADMAP.md queue 1 item 10 (the multi-GPU slot pool)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
@@ -159,7 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arrival-rate", type=float, default=0.25,
                     help="poisson arrival rate / bursty burst pacing, in "
                          "requests per virtual cost unit")
-    ap.add_argument("--mesh", type=int, default=0, help=_ITEM["mesh"])
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="split the slot pool over N devices (--inflight "
+                         "only): --slots is the GLOBAL pool width and must "
+                         "be a multiple of N; with --device cpu the mesh "
+                         "has N CPU entries")
     ap.add_argument("--cost-oracle", default="sequential",
                     choices=["sequential", "roofline"],
                     help="virtual-clock pricing (launch/oracle.py): "
@@ -225,21 +224,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    """Exit non-zero, naming the ROADMAP.md item, for any flag of a slice
-    that is not ported yet (a silently ignored flag would mislabel a run)."""
-    waits = []
-    if args.mesh:
-        waits.append(("--mesh", "mesh"))
-    if waits:
-        raise SystemExit("not ported to repro_torch yet: " + "; ".join(
-            f"{flag} waits for {_ITEM[item]}" for flag, item in waits))
-
-
 def _check_flags(args) -> None:
     """The reference CLI's flag checks: a knob of the scheduler, the
     refinery or the flow tier without what it needs exits with the
     reference's message."""
+    if args.mesh and not args.inflight:
+        raise SystemExit("--mesh shards the in-flight slot pool; pass "
+                         "--inflight with it (the drain engine has no "
+                         "slot pool to shard)")
     if args.overlap and not args.inflight:
         raise SystemExit("--overlap pipelines the in-flight segment loop; "
                          "pass --inflight with it (the drain engine has "
@@ -401,9 +393,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     with the tokens of the discrete path, or the engine or scheduler and
     the results of a solver) for programmatic callers."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     _check_flags(args)
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_serving_mesh
+        try:
+            mesh = make_serving_mesh(args.mesh, device=args.device)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
 
     cfg = get(args.arch)
     if args.reduced:
@@ -460,10 +458,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         fused=args.fused,
         flow_threshold=args.flow_threshold,
     )
+    # a mesh of several devices serves a loaded correction on the
+    # parametric path: each device gets its own copy of its params
+    spread = mesh is not None and len(set(mesh.devices)) > 1
     model = lm_depth_model(params, cfg, solver=args.solver,
                            g_params=g_params, fused=args.fused,
-                           refinable=args.refine, rank=args.g_rank,
-                           flow_params=flow_params)
+                           refinable=args.refine or (
+                               spread and g_params is not None),
+                           rank=args.g_rank, flow_params=flow_params)
     mode = "multirate" if args.multirate else f"K={K_fixed}"
     # the roofline clock prices the served arch at the prompt's context;
     # reported latency and wait switch to its unit (device-us) with it
@@ -486,7 +488,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                     capture_rate=args.capture_rate,
                                     seed=args.seed)
         sched = InflightScheduler(model, ecfg, slots=args.slots,
-                                  seg=args.seg, overlap=args.overlap,
+                                  seg=args.seg, mesh=mesh,
+                                  overlap=args.overlap,
                                   deadline=args.deadline or None,
                                   queue_cap=args.queue_cap or None,
                                   overload_policy=args.overload_policy,
@@ -524,8 +527,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                                       == full_top[r.uid - 1]))
                  for r in results if r.outputs is not None}
         nfes = [r.nfe for r in results if r.outputs is not None]
+        where = device if mesh is None else \
+            f"mesh of {mesh.size}: " + ",".join(map(str, mesh.devices))
         print(f"[{args.solver} {mode} inflight slots={args.slots} "
-              f"seg={args.seg} {device}] scored {len(agree)}/{args.batch} "
+              f"seg={args.seg} {where}] scored {len(agree)}/{args.batch} "
               f"of {args.batch}x{args.prompt_len} in {dt:.3f}s; mean NFE "
               f"{np.mean(nfes) if nfes else 0.0:.2f}/{n_groups} (probe "
               f"{sched.probe_nfe}); mean argmax agreement vs full depth: "

@@ -21,9 +21,9 @@
 The sharding settings (``zero_opt``, ``seq_shard``, ``fsdp``) are kept
 with the reference's defaults; on one device they change no number, as
 on the reference's (1, 1) mesh. Their multi-device meaning waits for
-ROADMAP.md queue 1 item 10. Not ported: ``abstract_params``,
-``input_specs``, ``data_shardings`` and ``cache_pspec``, which serve the
-dry run and sharding (item 12). The 8-bit moments
+ROADMAP.md queue 1 item 12, as do ``abstract_params``, ``input_specs``,
+``data_shardings`` and ``cache_pspec``, which serve the dry run and
+sharding. The 8-bit moments
 (``optim/quantized_state.py::adamw8bit``) carry the same
 ``update_in_place``, so a step composed of ``_value_and_grad``, the clip
 and that update trains with int8 moments; the reference sets no step

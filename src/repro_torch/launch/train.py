@@ -11,7 +11,8 @@ request, never as a fallback) and its settings (``remat="none"``,
 ``zero_opt=False``). Loop skeleton: restore the latest step -> skip the
 data stream ahead to it -> each step under a watchdog -> periodic
 checkpoints -> on failure, a bounded restore-and-retry. The reference's
-``mesh`` argument is gone: a multi-GPU mesh is ROADMAP.md queue 1 item 10.
+``mesh`` argument is gone: a training mesh over several GPUs is ROADMAP.md
+queue 1 item 12.
 
 An encoder-decoder config (``whisper_base``) trains through
 ``train_loop`` on batches of ``frames``, ``tokens`` and ``targets``. The

@@ -157,11 +157,21 @@ def lm_g_apply(gp, eps, s, x, h, dh):
     """Correction net: rank-r MLP over (h, dh, s)."""
     del eps, x
     nf = (gp["w_s"].shape[0] - 1) // 2  # w_s: (2*n_fourier + 1, rank)
-    sf = _fourier(s, nf, h.dtype, device=h.device) @ gp["w_s"].to(h.dtype)
-    if sf.ndim > 1:
-        # batched depth row: (B, r) -> (B, 1..., r) against h's token axes
+    fs = _fourier(s, nf, h.dtype, device=h.device)
+    w_s = gp["w_s"].to(h.dtype)
+    if fs.ndim > 1:
+        # batched depth row: the (B, 2F+1) @ (2F+1, r) product summed
+        # feature by feature, so every row sums in one order whatever the
+        # batch (a matmul picks its order by the batch, a gemv at one
+        # row) and a slot pool split over a mesh serves what it serves
+        # whole; then (B, r) -> (B, 1..., r) against h's token axes
+        sf = fs[..., :1] * w_s[0]
+        for j in range(1, w_s.shape[0]):
+            sf = sf + fs[..., j:j + 1] * w_s[j]
         sf = sf.reshape(tuple(sf.shape[:-1]) + (1,) * (h.ndim - sf.ndim)
                         + tuple(sf.shape[-1:]))
+    else:
+        sf = fs @ w_s
     pre = (h @ gp["w_h"].to(h.dtype)
            + dh.to(h.dtype) @ gp["w_dh"].to(h.dtype) + sf)
     return (torch.tanh(pre) @ gp["w_out"].to(h.dtype)).to(h.dtype)

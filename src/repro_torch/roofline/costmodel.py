@@ -22,7 +22,7 @@ Conventions:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import ArchConfig, ShapeSpec
 from repro_torch.models.lm import block_pattern
@@ -398,6 +398,20 @@ class RooflineTerms:
         non-compute term were fully overlapped: t_compute / max(all)."""
         t = max(self.t_compute, self.t_memory, self.t_collective)
         return self.t_compute / t if t > 0 else 0.0
+
+
+def predicted(t: RooflineTerms, mesh: Mesh2D) -> Tuple[float, str]:
+    """The seconds a cell is predicted to take on ``mesh``, and the term
+    that sets them. At (1, 1, 1) ``cell_cost`` still prices the
+    tensor-parallel all-reduces, the MoE all-to-all and the gradient
+    reduce-scatter, as the reference does; one device sends none of
+    them, so there the prediction is the larger of compute and memory
+    and ``t_collective`` is only reported beside it."""
+    terms = {"compute": t.t_compute, "memory": t.t_memory}
+    if mesh.devices > 1:
+        terms["collective"] = t.t_collective
+    dominant = max(terms, key=terms.get)
+    return terms[dominant], dominant
 
 
 def cell_cost(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh2D,

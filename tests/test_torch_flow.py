@@ -2,9 +2,9 @@
 TierRouter, the flow branches of launch/engine.py and launch/scheduler.py,
 models/cdepth.py::lm_flow_init/apply, core/train.py::train_flowhead,
 launch/engine.py::load_flow_params) held against the JAX package's on the
-CPU; the counterparts of tests/test_flow.py (its benchmark gate and its
-sharded-pool subprocess wait for the benchmark and ROADMAP.md queue 1
-item 10).
+CPU; the counterparts of tests/test_flow.py (its benchmark gate waits
+for the benchmark; the flow tier on a sharded pool is held in
+tests/test_torch_mesh.py).
 
 Toy cases serve the reference's toy flow classifier (d = 12; its head
 and both nets' first layers drawn by JAX and carried across). The LM

@@ -32,7 +32,7 @@ from repro.roofline import experiments_md as jmd
 from repro.roofline import hillclimb as jhc
 from repro.roofline import params as jpa
 from repro.roofline import report as jrp
-from repro_torch.configs import ARCH_IDS, SHAPES, get
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeSpec, get
 from repro_torch.launch import autotune as tat
 from repro_torch.launch import oracle as tor
 from repro_torch.models.encdec import init_encdec
@@ -191,6 +191,47 @@ def test_roofline_oracle_costs_equal_reference(arch):
         assert port.solve_cost(shape, 4, w, 2) == \
             want.solve_cost(shape, 4, w, 2)
         assert port.flow_cost(shape, w) == want.flow_cost(shape, w)
+
+
+@pytest.mark.parametrize("arch", ("qwen3_8b",) + SERVED)
+def test_one_card_oracle_prices_what_the_reference_prices(arch):
+    """On one device the oracle leaves the collective term out; at every
+    width and context the parity tests price (and the tuned cells' 32k
+    context), that term stays below compute or memory, so each step time
+    is still the reference's max of the three terms."""
+    one = tcm.Mesh2D(1, 1, 1)
+    for chip in (V5E, H100):
+        o = tor.RooflineOracle(get(arch), ctx=4096, chip=chip)
+        for ctx in (4096, 32768):
+            for w in range(1, 33):
+                t = tcm.cell_cost(
+                    get(arch), ShapeSpec(f"oracle_decode{ctx}_b{w}",
+                                         "decode", ctx, w), one,
+                    depth_fraction=1.0 / o.n_groups, chip=chip)
+                assert t.t_collective < max(t.t_compute, t.t_memory), \
+                    (chip.name, ctx, w)
+                if ctx == 4096:
+                    assert o.step_time(w) == 1e6 * max(
+                        t.t_compute, t.t_memory, t.t_collective)
+
+
+def test_one_card_train_row_is_memory_bound():
+    """OLMoE-1B-7B's 8-bit train step (8 x 128, one microbatch, one-byte
+    moments) on one card: ``cell_cost`` still prices the interconnect
+    (its collective term is the largest, as the reference's), but one
+    card sends none, so ``predicted`` names memory and reports the
+    collective term beside it. On a mesh of several devices the
+    prediction stays the max of the three terms."""
+    cfg = get("olmoe_1b_7b")
+    spec = ShapeSpec("train_8x128", "train", 128, 8)
+    kw = dict(remat="none", microbatches=1, moment_bytes=1)
+    t = tcm.cell_cost(cfg, spec, tcm.Mesh2D(1, 1, 1), **kw)
+    assert t.dominant == "collective" and t.t_collective > t.t_memory
+    assert tcm.predicted(t, tcm.Mesh2D(1, 1, 1)) == (t.t_memory, "memory")
+    wide = tcm.Mesh2D(1, 2, 1)
+    tw = tcm.cell_cost(cfg, spec, wide, **kw)
+    assert tcm.predicted(tw, wide) == (
+        max(tw.t_compute, tw.t_memory, tw.t_collective), tw.dominant)
 
 
 def test_make_oracle_and_unit_tags_match_reference():

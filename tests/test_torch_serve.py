@@ -12,9 +12,8 @@ with ``--flow-threshold`` serves part of the traffic at K=0 from a head
 the port fitted and saved itself, ``--profile-dir`` writes a trace in
 every mode, it never falls back to the CPU silently (no CUDA and no
 ``--device cpu`` exits non-zero), ``--cost-oracle roofline`` serves
-what the sequential clock serves with latencies in ``device_us``, and
-the flag of a slice not ported yet (``--mesh``) exits non-zero naming
-its ROADMAP.md item."""
+what the sequential clock serves with latencies in ``device_us``
+(``--mesh`` is tested in tests/test_torch_mesh.py)."""
 import ast
 import json
 import os
@@ -78,15 +77,6 @@ def test_serves_fixed_k_on_cpu(capsys, arch):
     out = serve.main(_cpu_run(arch) + ["--solver", "euler", "--nfe", "2"])
     assert "[euler K=2 cpu]" in capsys.readouterr().out
     assert [r.K for r in out["results"]] == [2, 2, 2]
-
-
-@pytest.mark.parametrize("extra", [
-    ["--solver", "euler", "--mesh", "2"],
-])
-def test_unported_flags_exit_naming_roadmap_item(extra):
-    with pytest.raises(SystemExit) as e:
-        serve.main(CPU_RUN + extra)
-    assert "ROADMAP.md queue 1 item 10" in str(e.value.code)
 
 
 @pytest.mark.parametrize("mode", ["drain", "inflight"])
