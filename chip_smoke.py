@@ -152,6 +152,7 @@ import itertools
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -189,7 +190,7 @@ from repro_torch.distributed.fault import (  # noqa: E402
     WatchdogConfig, _hash01)
 from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
-    StepSettings, make_train_step)
+    StepSettings, make_train_step, shard_state)
 from repro_torch.launch.engine import (  # noqa: E402
     EngineConfig, MultiRateEngine, greedy_generate, lm_depth_model,
     load_flow_params, load_g_params, snap_to_buckets)
@@ -213,6 +214,10 @@ from repro_torch.nn.cnf import (  # noqa: E402
 from repro_torch.nn.module import (  # noqa: E402
     mlp_apply, mlp_init, truncated_normal_init)
 from repro_torch.optim import adamw, scaled  # noqa: E402
+from repro_torch.optim.grad_compress import (  # noqa: E402
+    compressed_allreduce_mean)
+from repro_torch.optim.quantized_state import (  # noqa: E402
+    dequantize_blockwise, quantize_blockwise)
 from repro_torch.roofline.costmodel import (  # noqa: E402
     H100, Mesh2D, cell_cost, predicted)
 
@@ -5070,6 +5075,166 @@ def phase_whisper(dev, bandwidth):
     return launches
 
 
+# The sharded train step on one card: full-width
+# Qwen3-4B cut to 4 layers (width 2560, GQA 32/8), 2 steps of 8 x 128
+# tokens through make_train_step(mesh=) over a (1, 1) mesh of a world-1
+# nccl group, held to make_train_step() on the same weights and batches:
+# the loss and grad norm to a relative TRAIN_MESH_RTOL (a bf16 ulp is
+# 3.9e-3; the first runs' gaps were below one), each leaf's step-0
+# gradient to a relative L2 error of TRAIN_MESH_GRAD_RTOL.
+TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS = 4, 2
+TRAIN_MESH_RTOL, TRAIN_MESH_GRAD_RTOL = 1e-3, 1e-2
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in float32."""
+    b = b.float()
+    return float(torch.linalg.vector_norm(a.float() - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def phase_train_mesh(dev):
+    """``make_train_step(mesh=)`` on the card, over a (data 1, model 1)
+    ``DeviceMesh`` of a world-1 nccl group (``tcp://127.0.0.1`` and a free
+    port): full-width Qwen3-4B cut to TRAIN_MESH_LAYERS layers, its params
+    and moments DTensors (``shard_state``, ``zero_opt``), two steps on the
+    same seeded weights and batches as ``make_train_step()`` without a
+    mesh. The loss, grad norm and every param are expected
+    ``torch.equal``: on one device every placement is the whole tensor
+    and every collective an identity, so the sharded step runs the same
+    ops on the same tensors (the kernels under ``local_map`` on their
+    local blocks, here the whole). Where one is not equal it is held to
+    the bounds above and the phase says so: the metrics to
+    TRAIN_MESH_RTOL, and step 0's gradients (``make_value_and_grad``,
+    the step's own gradient half, with and without the mesh) leaf by
+    leaf to TRAIN_MESH_GRAD_RTOL. Each param is held within one bf16
+    ulp plus 4x the summed learning rates; the first steps' rates
+    (lr/200, lr/100) are below half a bf16 ulp of almost every weight,
+    so that check sees little and the gradients' does the work. Flash
+    launches inside the sharded
+    step are counted (the kernel ran on its shards), and
+    ``compressed_allreduce_mean`` over the one-rank 'data' group equals
+    dequantize(quantize(x)). The group is destroyed at the end. Returns
+    the sharded step's launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.optim import linear_warmup_cosine
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get("qwen3_4b"), n_layers=TRAIN_MESH_LAYERS)
+    settings = StepSettings(remat="none", zero_opt=True)
+    batches = [{"tokens": t, "targets": y} for t, y in itertools.islice(
+        token_batches(cfg.vocab, B, S, seed=0, device=dev),
+        TRAIN_MESH_STEPS)]
+    params0 = init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    _, _, g1 = make_value_and_grad(cfg, settings)(params0, batches[0])
+    step1, opt = make_train_step(cfg, settings)
+    p1 = pytree.tree_map(torch.clone, params0)
+    s1 = opt.init(p1)
+    want = []
+    for i, b in enumerate(batches):
+        p1, s1, m = step1(p1, s1, i, b)
+        want.append({k: m[k].clone() for k in ("loss", "grad_norm")})
+    del s1
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        stepn, _ = make_train_step(cfg, settings, mesh=mesh)
+        pn, sn = shard_state(mesh, settings, params0, opt)
+        del params0
+        _, _, gn = make_value_and_grad(cfg, settings, mesh=mesh)(
+            pn, batches[0])
+        grad_err = {name: rel_l2(b.full_tensor(), a) for name, a, b in
+                    zip(leaf_names(p1), g1, gn)}
+        del g1, gn
+        LAUNCHES.clear()
+        got = []
+        for i, b in enumerate(batches):
+            pn, sn, m = stepn(pn, sn, i, b)
+            got.append({k: m[k].clone() for k in ("loss", "grad_norm")})
+        torch.cuda.synchronize(dev)
+        counted = dict(LAUNCHES)
+        if counted.get("flash_attention", 0) != \
+                TRAIN_MESH_STEPS * TRAIN_MESH_LAYERS:
+            raise AssertionError(f"train_mesh: flash launches {counted} in "
+                                 f"{TRAIN_MESH_STEPS} steps of "
+                                 f"{TRAIN_MESH_LAYERS} layers")
+        unequal, off = {}, {}
+        for i, (w, g) in enumerate(zip(want, got)):
+            for k in w:
+                if not torch.equal(w[k], g[k]):
+                    unequal[f"step{i}/{k}"] = r = float(
+                        (g[k] - w[k]).abs() / w[k].abs())
+                    if r > TRAIN_MESH_RTOL:
+                        off[f"step{i}/{k}"] = r
+        worst_grad = max(grad_err, key=grad_err.get)
+        if grad_err[worst_grad] > TRAIN_MESH_GRAD_RTOL:
+            off[f"grad/{worst_grad}"] = grad_err[worst_grad]
+        # AdamW moves a weight by at most ~2 lr_t a step (the normalised
+        # step of its first updates), in its gradient's direction; where
+        # a reordered sum flips a near-zero gradient the two runs part by
+        # at most twice that
+        lr_sum = sum(float(linear_warmup_cosine(
+            settings.lr, settings.lr * 0.1, 200, 10_000)(
+                torch.tensor(i + 1.0))) for i in range(TRAIN_MESH_STEPS))
+        equal = total = 0
+        for name, a, b in zip(leaf_names(p1), pytree.tree_leaves(p1),
+                              pytree.tree_leaves(pn)):
+            b = b.full_tensor()
+            same = a == b
+            equal, total = equal + int(same.sum()), total + a.numel()
+            if not bool(same.all()):
+                d = (a.float() - b.float()).abs()
+                ulp = torch.maximum(a.float().abs(), b.float().abs()) \
+                    * 2.0 ** -7
+                unequal[name] = float(d.max())
+                if bool((d > 4 * lr_sum + ulp).any()):
+                    off[name] = float(d.max())
+        if off:
+            raise AssertionError(f"train_mesh: sharded step off the "
+                                 f"unsharded one: {off}")
+        x = torch.randn(4096, 256, generator=torch.Generator(
+            device=dev).manual_seed(3), device=dev)
+        red = compressed_allreduce_mean(x, mesh, axis="data")
+        if not torch.equal(red, dequantize_blockwise(quantize_blockwise(x),
+                                                     x.shape)):
+            raise AssertionError("train_mesh: compressed_allreduce_mean over "
+                                 "one rank is not x's own int8 round trip")
+    finally:
+        dist.destroy_process_group()
+    emit(phase="train_mesh", layers=TRAIN_MESH_LAYERS,
+         steps=TRAIN_MESH_STEPS, batch=[B, S], mesh=[1, 1],
+         loss=[float(g["loss"]) for g in got],
+         grad_norm=[float(g["grad_norm"]) for g in got],
+         bit_equal=not unequal, params_equal_share=equal / total,
+         unequal=unequal or None,
+         grad_max_rel_l2=grad_err[worst_grad], grad_worst_leaf=worst_grad,
+         grads_bit_equal=not any(grad_err.values()),
+         why_unequal=None if not unequal else (
+             "the sharded path sums some gradients in another order (its "
+             "kernels' blocks and their gradients are made contiguous, so "
+             "a GEMM may take another layout); metrics (relative gap "
+             "shown) held to TRAIN_MESH_RTOL, step 0's gradients leaf by "
+             "leaf to TRAIN_MESH_GRAD_RTOL, params (max abs diff shown) "
+             "to one bf16 ulp plus 4x the summed learning rates"),
+         launches=counted, seconds=time.perf_counter() - t0)
+    del p1, pn, sn
+    release_card()
+    return counted
+
+
+
 def release_card():
     """Frees what the dropped models held: a collector pass, then the
     allocator's cache. Some serving objects form reference cycles, which
@@ -5174,6 +5339,7 @@ def main() -> int:
     launches.update(phase_train_cli(dev))
     launches.update(phase_train(dev))
     launches.update(phase_train_faults(dev))
+    launches.update(phase_train_mesh(dev))
     emit(phase="train_total", seconds=time.perf_counter() - t_train)
     report_roofline(roof_segment)
 

@@ -19,6 +19,16 @@ touches a CUDA tensor and a caller may change its tensors the moment
 makes publish + GC and pick + read atomic against each other across
 manager instances of one process; ``restore_latest`` rescans when a
 writer in another process deletes the step it picked.
+
+Elastic restore (the reference's re-shard to whatever mesh is live):
+a tree of DTensors (a train step over a device mesh) is saved as whole
+tensors, each leaf gathered (``full_tensor()``, a collective every rank
+of the mesh joins) and written by rank 0 alone, synchronously, the ranks
+then meeting at a barrier, so no rank can pick a step another has not
+finished. ``restore`` distributes each leaf onto the placements of the
+``like`` tree's DTensor at the same position, so a checkpoint written on
+a (2, 2) mesh restores onto (4, 1), or as plain tensors onto one device,
+unchanged.
 """
 from __future__ import annotations
 
@@ -80,6 +90,22 @@ def _host_leaf(t) -> Tuple[bytes, str, List[int]]:
         arr = t.cpu().numpy()
         name = str(arr.dtype)
     return np.ascontiguousarray(arr).tobytes(), name, shape
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def flatten_sorted(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
@@ -163,6 +189,13 @@ class CheckpointManager:
         host here, on the caller's thread; with ``async_save`` (and not
         ``wait``) the write then runs on the saver thread."""
         flat, _ = flatten_sorted(tree)
+        sharded = any(_is_dtensor(l) for l in flat)
+        if sharded:     # every rank gathers; rank 0 writes, synchronously
+            flat = [l.full_tensor() if _is_dtensor(l) else l for l in flat]
+            if _rank() != 0:
+                _barrier()
+                return
+            wait = True
         host = [_host_leaf(l) for l in flat]
         structure = treedef_str(tree)
 
@@ -200,6 +233,8 @@ class CheckpointManager:
         else:
             self.wait()
             write()
+        if sharded:
+            _barrier()
 
     def wait(self) -> None:
         """Block until the pending async save, if any, is on disk."""
@@ -220,7 +255,9 @@ class CheckpointManager:
     def restore(self, step: int, like: Any, device=None) -> Any:
         """``like``: a tree with the target structure whose leaves have
         ``.shape`` (tensors). Returns the same tree of tensors on
-        ``device``, each in the dtype the checkpoint stored."""
+        ``device``, each in the dtype the checkpoint stored; where a
+        ``like`` leaf is a DTensor, a DTensor on its mesh and placements
+        (each rank reads the whole leaf and keeps its block)."""
         d = os.path.join(self.dir, f"step_{step}")
         with self._lock:   # hold off a concurrent publish/GC over the reads
             with open(os.path.join(d, "manifest.json")) as f:
@@ -241,7 +278,13 @@ class CheckpointManager:
                     raise ValueError(f"leaf {i}: checkpoint shape "
                                      f"{tuple(t.shape)}, target "
                                      f"{tuple(l.shape)}")
-                out.append(t.to(device) if device is not None else t)
+                if _is_dtensor(l):
+                    from torch.distributed.tensor import distribute_tensor
+                    t = distribute_tensor(t.to(l.device), l.device_mesh,
+                                          l.placements, src_data_rank=None)
+                elif device is not None:
+                    t = t.to(device)
+                out.append(t)
         return unflatten(out)
 
     def restore_latest(self, like: Any, device=None, retries: int = 3):

@@ -8,6 +8,10 @@ becomes a target ``device``: a CPU tensor is pinned and copied with
 ``non_blocking=True`` (the counterpart of ``jax.device_put``), a tensor
 already on the device passes through untouched (``token_batches`` places
 its batches itself), and ``device=None`` hands batches on as they come.
+With ``mesh`` (a ``DeviceMesh``; every rank iterating the same global
+batches) each tensor becomes a DTensor over the mesh's batch axes
+(``"data"``, and ``"pod"`` outside it) where they divide its first dim,
+each rank keeping its own rows: the reference's global-batch sharding.
 """
 from __future__ import annotations
 
@@ -18,10 +22,14 @@ from typing import Any, Iterator, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.distributed import sharding as shd
+
 
 class ShardedLoader:
-    def __init__(self, it: Iterator[Any], device=None, prefetch: int = 2):
+    def __init__(self, it: Iterator[Any], device=None, prefetch: int = 2,
+                 mesh=None):
         self._it = it
+        self._mesh = mesh
         self._device = None if device is None else torch.device(device)
         self._q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
         self._err: Optional[BaseException] = None
@@ -41,9 +49,18 @@ class ShardedLoader:
         return x.to(self._device)
 
     def _place(self, batch):
-        if self._device is None:
-            return batch
-        return pytree.tree_map(self._place_leaf, batch)
+        if self._device is not None:
+            batch = pytree.tree_map(self._place_leaf, batch)
+        if self._mesh is not None:
+            batch = pytree.tree_map(self._over_mesh, batch)
+        return batch
+
+    def _over_mesh(self, x):
+        from torch.distributed.tensor import distribute_tensor
+        if not isinstance(x, torch.Tensor) or shd.is_dtensor(x):
+            return x
+        return distribute_tensor(x, self._mesh, shd.shard_layout(
+            self._mesh, x.shape, 0, None), src_data_rank=None)
 
     def _fill(self):
         try:

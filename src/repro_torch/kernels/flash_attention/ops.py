@@ -11,6 +11,11 @@ launch either way. Keys may be longer or shorter than the queries
 call is non-causal and unwindowed, and a causal or windowed one raises.
 ``LAUNCHES["flash_attention"]`` counts kernel launches, and nothing else.
 
+DTensors (a train step over a device mesh) run per shard
+(``on_head_shards``): batch over the batch axes, heads over ``"model"``,
+sequence whole, so the kernel on a card and the plain version on the CPU
+each see one device's local block, and every shard's launch counts.
+
 Gradients: the kernel has no backward. Where autograd needs one (an LM
 trained on the card), the forward is the kernel and the backward
 differentiates the plain version at the same inputs (``_Flash``), which
@@ -25,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -89,6 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes(q, k, v, causal, window)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    if shd.is_dtensor(q):
+        return on_head_shards(functools.partial(
+            flash_attention, causal=causal, window=window), q, k, v)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -113,6 +122,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Flash.apply(q, k, v, causal, window)
     return _forward(q, k, v, causal, window)
+
+
+def on_head_shards(attend, q, k, v):
+    """``attend(q, k, v)`` (an attention of (B, S, H, hd) blocks) run on
+    each device's local blocks of the DTensors q, k, v: batch over the
+    batch axes and heads over ``"model"`` where they divide, the sequence
+    whole. When the query heads divide the model axis and the key/value
+    heads do not (Qwen3-8B's 8 over 16), k and v stay whole over
+    ``"model"`` (a small tensor; each block's gradient for them is then a
+    partial sum) and each block attends over the key/value heads its
+    query heads read."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qp = shd.shard_layout(mesh, q.shape, 0, 2)
+    q_split = shd.shard_index(mesh, qp, 2)[1] > 1
+    kvp = shd.shard_layout(mesh, k.shape, 0, 2 if q_split else None)
+    kv_whole = q_split and shd.shard_index(mesh, kvp, 2)[1] == 1
+    group = H // KV
+
+    def local(q, k, v):
+        if kv_whole:    # the key/value heads this block of queries reads
+            i, n = shd.shard_index(mesh, qp, 2)
+            hl = H // n
+            if hl % group and group % hl:
+                raise ValueError(f"flash_attention: {H} query heads over "
+                                 f"{n} shards do not map onto {KV} "
+                                 "key/value heads")
+            lo, hi = i * hl // group, ((i + 1) * hl - 1) // group + 1
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        return attend(q, k, v)
+
+    kvg = tuple(Partial() if p == Shard(2) else r for p, r in zip(qp, kvp))
+    return shd.on_local_shards(
+        local, (qp,), (qp, kvp, kvp), mesh,
+        in_grad_placements=(qp, kvg, kvg) if kv_whole else None)(q, k, v)
 
 
 def _forward(q, k, v, causal, window) -> torch.Tensor:

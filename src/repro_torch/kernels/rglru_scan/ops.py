@@ -13,6 +13,10 @@ needs one — grad enabled and ``a`` or ``b`` requiring it — the wrapper
 goes through ``_RGLRUScan``: the kernel's forward, and in the backward
 the plain version differentiated at the saved inputs (one launch per
 forward, none in the backward).
+
+DTensors (a train step over a device mesh) run per shard: batch over the
+batch axes and width over ``"model"``; time is never sharded, so each
+shard's recurrence is whole and every shard's launch counts.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import functools
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
@@ -52,6 +57,10 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.ndim != 3 or a.shape != b.shape:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} must be one (B, T, W) shape")
+    if shd.is_dtensor(a):
+        pl = shd.shard_layout(a.device_mesh, a.shape, 0, 2)
+        return shd.on_local_shards(rglru_scan, (pl,), (pl, pl),
+                                   a.device_mesh)(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":

@@ -19,6 +19,11 @@ the wrapper goes through ``_WKV6``: the kernel's forward, and in the
 backward the plain version differentiated at the saved inputs, through
 ``o`` and, with ``want_state``, ``S_T`` (one launch per forward, none in
 the backward).
+
+DTensors (a train step over a device mesh) run per shard: batch over the
+batch axes and heads over ``"model"`` (u and the state with them); time
+is never sharded, so each shard's recurrence is whole and every shard's
+launch counts.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
 
@@ -65,6 +71,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if S0 is not None and S0.shape != (B, H, D, D):
         raise ValueError(f"wkv6: S0 {tuple(S0.shape)} is not (B, H, D, D) = "
                          f"{(B, H, D, D)}")
+    if shd.is_dtensor(r):
+        return _sharded(r, k, v, w, u, S0, want_state)
     tensors = [t for t in (r, k, v, w, u, S0) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         o, S_T = wkv6_scan_ref(r, k, v, w, u, S0)
@@ -87,6 +95,27 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _WKV6.apply(want_state, r, k, v, w, u, S0)
     return _forward(want_state, r, k, v, w, u, S0)
+
+
+def _sharded(r, k, v, w, u, S0, want_state):
+    """``wkv6`` of DTensors on each device's local shards."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = r.device_mesh
+    x = shd.shard_layout(mesh, r.shape, 0, 2)
+    up = shd.shard_layout(mesh, u.shape, None, 0)
+    sp = shd.shard_layout(mesh, (r.shape[0], r.shape[2]), 0, 1)
+    outs = (x, sp) if want_state else (x,)
+
+    def local(r, k, v, w, u, S0):
+        return wkv6(r, k, v, w, u, S0, want_state=want_state)
+
+    # u is whole over the batch axes, so each batch shard's gradient for
+    # it is a partial sum over them
+    ug = tuple(Partial() if p == Shard(0) else q for p, q in zip(x, up))
+    ins = (x, x, x, x, up, None if S0 is None else sp)
+    return shd.on_local_shards(
+        local, outs, ins, mesh, in_grad_placements=ins[:4] + (ug, ins[5]),
+    )(r, k, v, w, u, S0)
 
 
 def _forward(want_state, r, k, v, w, u, S0):

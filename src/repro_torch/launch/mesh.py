@@ -1,9 +1,9 @@
-"""Serving meshes — the port of ``repro/launch/mesh.py``.
+"""Serving and training meshes — the port of ``repro/launch/mesh.py``.
 
-The reference's serving mesh is a jax ``Mesh`` of n devices on one
-``"data"`` axis, over which ``shard_map`` splits a solve's batch rows or
-the in-flight slot pool row-wise, with no collective (the depth scan is
-local to each row). Its PyTorch counterpart is a ``ServingMesh``: an
+Serving: the reference's serving mesh is a jax ``Mesh`` of n devices on
+one ``"data"`` axis, over which ``shard_map`` splits a solve's batch rows
+or the in-flight slot pool row-wise, with no collective (the depth scan
+is local to each row). Its PyTorch counterpart is a ``ServingMesh``: an
 ordered tuple of ``torch.device`` entries on that axis. One host loop
 drives one shard per entry, each launched on its own device's current
 stream (``core/integrate.py``'s ``mesh=`` paths, the sub-pools of
@@ -12,10 +12,17 @@ entry's device. An entry may repeat a device: the shards then share the
 card and one replica of the weights, which runs the partition, the
 per-shard launches and the gather at full width on one card.
 
-``make_production_mesh``, ``make_debug_mesh`` and ``mesh_context`` build
-the reference's training meshes (a model axis, several pods). They wait
-for ROADMAP.md queue 1 item 12, the sharded train step over process
-groups.
+Training: the reference's ``jax.make_mesh`` with axes ``("data",
+"model")`` (and an outer ``"pod"``) becomes a
+``torch.distributed.device_mesh.DeviceMesh`` over the default process
+group, one process per device (``nccl`` on the cards, ``gloo`` on the
+CPU, the *fake* group of ``launch/dryrun.py``). ``make_production_mesh``
+is the reference's 256- or 512-device mesh, ``make_debug_mesh`` a small
+one for the tests and the four-card tool; the step builders of
+``launch/steps.py`` take the mesh as ``mesh=`` (the reference's ambient
+``mesh_context`` has no counterpart: nothing here needs one). The caller
+initialises the process group (``torch.distributed.init_process_group``
+with an address, the world size and its rank).
 """
 from __future__ import annotations
 
@@ -143,9 +150,52 @@ def make_serving_mesh(n_devices: int, device=None) -> ServingMesh:
                              for i in range(n_devices)))
 
 
+def axis_names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names: a ``DeviceMesh``'s ``mesh_dim_names``, or the
+    ``axis_names`` of a ``ServingMesh`` (or a stand-in)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
 def batch_axes(mesh) -> tuple:
     """Mesh axes the global batch dimension shards over."""
-    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
+
+
+def _device_type() -> str:
+    """The device type of the default process group's backend: ``cuda``
+    under nccl, else ``cpu`` (gloo, the fake group)."""
+    import torch.distributed as dist
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """Single pod: (data=16, model=16) = 256 devices.
+    Multi-pod: (pod=2, data=16, model=16) = 512 devices; the 'pod' axis is
+    an outer data-parallel axis (only gradient all-reduce). The default
+    process group must hold exactly that many ranks (the dry run's fake
+    group does)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type or _device_type(), shape,
+                            mesh_dim_names=axes)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 4, device_type=None):
+    """A (data, model) mesh over the live default group (gloo on the CPU
+    in the tests, nccl on the cards); its world size must be
+    ``n_data * n_model``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size()
+    if n_data * n_model != world:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh needs "
+                         f"{n_data * n_model} ranks; the process group "
+                         f"has {world}")
+    return init_device_mesh(device_type or _device_type(),
+                            (n_data, n_model),
+                            mesh_dim_names=("data", "model"))
 
 
 def sharded_solve(integ, f, z0, grid, *, mesh, **solve_kwargs):

@@ -1,5 +1,5 @@
 """Train, prefill and serve step functions — the port of
-``repro/launch/steps.py`` for one device.
+``repro/launch/steps.py``, on one device or over a device mesh.
 
   * train step   = one optimizer update: value and gradient of
     ``lm_loss`` (``encdec_loss`` for an encoder-decoder config; a batch's
@@ -18,29 +18,54 @@
     ``encdec_decode_step``), which updates the caches in place (the
     reference donates them).
 
-The sharding settings (``zero_opt``, ``seq_shard``, ``fsdp``) are kept
-with the reference's defaults; on one device they change no number, as
-on the reference's (1, 1) mesh. Their multi-device meaning waits for
-ROADMAP.md queue 1 item 12, as do ``abstract_params``, ``input_specs``,
-``data_shardings`` and ``cache_pspec``, which serve the dry run and
-sharding. The 8-bit moments
+Over a device mesh (``mesh=``): the
+params, the moments and the gradients are DTensors on a ``DeviceMesh``
+(``launch/mesh.py``), placed by the name rules of
+``distributed/sharding.py``, and the model runs on them unchanged, with
+the ``constrain`` hooks on (the residual over the batch axes, and over
+``"model"`` along the sequence under ``seq_shard``; the logits' vocabulary
+over ``"model"``) and the kernels on each device's local shards. The
+step's settings take the reference's multi-device meaning:
+  * ``zero_opt``: the moments (and the gradients) further sharded over
+    ``"data"`` (``opt_state_shardings``, ``grad_shardings``); the update
+    runs on each device's block of them and all-gathers the params'
+    blocks back (ZeRO-1/2);
+  * ``fsdp``: the params themselves ZeRO-sharded; each group's slice is
+    gathered to its tensor-parallel placements inside the group loop and
+    its gradient reduce-scattered there (``constrain_group_params``);
+  * ``seq_shard``: sequence parallelism of the residual between blocks.
+Gradients leave the backward in their ZeRO placements (a DTensor
+gradient otherwise comes out as a full-size partial sum on every
+device), and the microbatch accumulator in ``acc_dtype`` lives there too.
+``shard_state`` places a param tree and a fresh optimizer state for a
+step. Every device takes the same global batch (``token_batches`` with
+one seed), each microbatch is split from it exactly as on one device
+(rows ``[i·B/m, (i+1)·B/m)``) and placed over the batch axes, so the
+sharded step computes the unsharded step's values up to the order of
+floating-point sums. ``abstract_params`` (meta tensors), ``input_specs``,
+``data_shardings`` and ``cache_pspec`` serve the dry run
+(``launch/dryrun.py``). The 8-bit moments
 (``optim/quantized_state.py::adamw8bit``) carry the same
-``update_in_place``, so a step composed of ``_value_and_grad``, the clip
-and that update trains with int8 moments; the reference sets no step
-setting for them, and neither does the port.
+``update_in_place`` on one device, so a step composed of
+``_value_and_grad``, the clip and that update trains with int8 moments;
+they have no sharded update (ROADMAP.md item 12's leftovers), and the
+reference's ``TRAIN_SETTINGS`` never pairs them with a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ArchConfig, ShapeSpec
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import encdec
-from repro_torch.models.lm import (dtype_of, lm_decode_step, lm_forward,
-                                   lm_loss)
+from repro_torch.models.lm import (dtype_of, init_lm, init_lm_cache,
+                                   lm_decode_step, lm_forward, lm_loss)
 from repro_torch.optim import (Optimizer, adamw, clip_scale, global_norm,
                                linear_warmup_cosine)
 
@@ -63,6 +88,227 @@ def make_optimizer(s: StepSettings) -> Optimizer:
                  weight_decay=0.1, moment_dtype=dtype_of(s.moment_dtype))
 
 
+# -------------------------------------------------------------- specs ----
+
+def abstract_params(cfg: ArchConfig):
+    """The param tree of ``cfg`` as meta tensors (shapes and dtypes, no
+    storage): the counterpart of ``jax.eval_shape(init)``."""
+    init = encdec.init_encdec if cfg.is_encdec else init_lm
+    return init(torch.Generator(), cfg, device="meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for every model input of the cell, with the
+    reference's shapes and dtypes (int32 tokens)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg.dtype)
+    i32 = torch.int32
+    if cfg.is_encdec:
+        L = cfg.max_target_len
+        if shape.kind == "train":
+            return {"frames": _meta((B, S, cfg.d_model), dt),
+                    "tokens": _meta((B, L), i32),
+                    "targets": _meta((B, L), i32)}
+        if shape.kind == "prefill":
+            return {"frames": _meta((B, S, cfg.d_model), dt),
+                    "tokens": _meta((B, L), i32)}
+        # decode: cross KV over S encoder frames, self cache of max_target
+        kv = lambda n: {"k": _meta((cfg.dec_layers, B, n, cfg.n_kv,
+                                    cfg.d_head), dt),
+                        "v": _meta((cfg.dec_layers, B, n, cfg.n_kv,
+                                    cfg.d_head), dt)}
+        return {"token": _meta((B,), i32),
+                "caches": {"self": kv(L), "cross": kv(S)},
+                "cur_index": _meta((), i32)}
+    # decoder-only families
+    fe = None
+    if cfg.frontend == "patches":
+        fe = _meta((B, cfg.n_frontend_tokens, cfg.d_model), dt)
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": _meta((B, S), i32)}
+        if shape.kind == "train":
+            out["targets"] = _meta((B, S), i32)
+        if fe is not None:
+            out["frontend"] = fe
+        return out
+    return {"token": _meta((B,), i32),
+            "caches": init_lm_cache(cfg, B, S, device="meta"),
+            "cur_index": _meta((), i32)}
+
+
+# ---------------------------------------------------------- shardings ----
+
+def _batch_spec(mesh, B: int, extra_dims: int) -> tuple:
+    ba = batch_axes(mesh)
+    sizes = shd.axis_sizes(mesh)
+    n = 1
+    for a in ba:
+        n *= sizes[a]
+    first = (ba if len(ba) > 1 else ba[0]) if B % n == 0 else None
+    return (first, *([None] * extra_dims))
+
+
+def data_specs(mesh, cfg: ArchConfig, specs) -> Any:
+    """The spec of every leaf of an ``input_specs`` tree: batch over the
+    batch axes where they divide it, caches by ``cache_pspec``."""
+    def one(path, leaf):
+        ps = shd.path_str(path)
+        B = leaf.shape[0] if leaf.ndim else 1
+        if ps in ("tokens", "targets", "token", "frames", "frontend"):
+            return _batch_spec(mesh, B, leaf.ndim - 1)
+        if ps == "cur_index":
+            return ()
+        return cache_pspec(mesh, ps, leaf)
+    return pytree.tree_map_with_path(one, specs)
+
+
+def data_shardings(mesh, cfg: ArchConfig, specs) -> Any:
+    """Placements for the ``input_specs`` tree (``data_specs``)."""
+    return pytree.tree_map(lambda s: shd.to_placements(mesh, s),
+                           data_specs(mesh, cfg, specs), is_leaf=shd.is_layout)
+
+
+def cache_pspec(mesh, path: str, leaf) -> tuple:
+    """Cache sharding: batch over data axes when divisible, else the
+    longest non-head axis; head/width axes over 'model'."""
+    ba = batch_axes(mesh)
+    sizes = shd.axis_sizes(mesh)
+    n_b = 1
+    for a in ba:
+        n_b *= sizes[a]
+    ba = ba if len(ba) > 1 else ba[0]
+    n_m = sizes["model"]
+    shape = leaf.shape
+    spec = [None] * leaf.ndim
+
+    def try_axis(i, axes, size_needed):
+        if spec[i] is None and shape[i] % size_needed == 0 \
+                and shape[i] >= size_needed:
+            spec[i] = axes
+            return True
+        return False
+
+    if path.endswith("/k") or path.endswith("/v"):
+        # (G?, B, S, KV, hd): model on KV if divisible else hd else S
+        kv_i, hd_i = leaf.ndim - 2, leaf.ndim - 1
+        s_i, b_i = leaf.ndim - 3, leaf.ndim - 4
+        (try_axis(kv_i, "model", n_m) or try_axis(hd_i, "model", n_m)
+         or try_axis(s_i, "model", n_m))
+        (try_axis(b_i, ba, n_b) or try_axis(s_i, ba, n_b))
+        return tuple(spec)
+    if path.endswith("_scale"):
+        # int8 KV scales (G?, B, S, KV)
+        kv_i, s_i, b_i = leaf.ndim - 1, leaf.ndim - 2, leaf.ndim - 3
+        (try_axis(kv_i, "model", n_m) or try_axis(s_i, "model", n_m))
+        (try_axis(b_i, ba, n_b) or try_axis(s_i, ba, n_b))
+        return tuple(spec)
+    nd = leaf.ndim  # tail-layer caches lack the leading group axis
+    if path.endswith("/S"):          # (G?, B, H, hd, hd)
+        try_axis(nd - 3, "model", n_m)
+        try_axis(nd - 4, ba, n_b)
+        return tuple(spec)
+    if path.endswith("x_tmix") or path.endswith("x_cmix"):  # (G?, B, d)
+        try_axis(nd - 1, "model", n_m)
+        try_axis(nd - 2, ba, n_b)
+        return tuple(spec)
+    if path.endswith("/conv"):       # (G?, B, 3, W)
+        try_axis(nd - 1, "model", n_m)
+        try_axis(nd - 3, ba, n_b)
+        return tuple(spec)
+    if path.endswith("/h"):          # (G?, B, W)
+        try_axis(nd - 1, "model", n_m)
+        try_axis(nd - 2, ba, n_b)
+        return tuple(spec)
+    return tuple(spec)
+
+
+def param_placements(mesh, settings: StepSettings, params):
+    """The params' placements: their rules', or the ZeRO spec's under
+    ``fsdp``."""
+    if settings.fsdp:
+        return shd.grad_shardings(mesh, params, zero=True)
+    return shd.param_shardings(mesh, params)
+
+
+def _placed(tree, placements, mesh, src_data_rank):
+    from torch.distributed.tensor import distribute_tensor
+    return pytree.tree_map(
+        lambda t, p: distribute_tensor(t, mesh, p,
+                                       src_data_rank=src_data_rank),
+        tree, placements, is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def shard_state(mesh, settings: StepSettings, params, opt: Optimizer,
+                src_data_rank: Optional[int] = 0):
+    """(params as DTensors in ``param_placements``, a fresh optimizer
+    state whose moments are zero DTensors in ``opt_state_shardings``).
+    ``params`` holds the whole tree on every rank; with
+    ``src_data_rank=0`` rank 0's values are scattered (every rank then
+    holds the same weights whatever its own copy), with None each rank
+    cuts its blocks from its own copy, with no communication. A placed
+    leaf may share storage with its ``params`` leaf (a replicated one is
+    that tensor), and the step updates it in place: pass a copy to keep
+    ``params``."""
+    from torch.distributed.tensor import zeros as dzeros
+    dparams = _placed(params, param_placements(mesh, settings, params),
+                      mesh, src_data_rank)
+    state = opt.init(pytree.tree_map(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+        params))
+    o_pl = shd.opt_state_shardings(mesh, state, zero=settings.zero_opt)
+    dstate = pytree.tree_map(
+        lambda t, p: dzeros(t.shape, dtype=t.dtype, device_mesh=mesh,
+                            placements=p),
+        state, o_pl, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    return dparams, dstate
+
+
+def place_batch(mesh, batch):
+    """Each tensor of ``batch`` (the global batch, the same on every
+    rank) as a DTensor over the batch axes where they divide its first
+    dim, cut locally from each rank's copy."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(x):
+        if not isinstance(x, torch.Tensor) or shd.is_dtensor(x):
+            return x
+        return distribute_tensor(
+            x, mesh, shd.shard_layout(mesh, x.shape, 0 if x.ndim else None),
+            src_data_rank=None)
+    return pytree.tree_map(one, batch)
+
+
+@contextlib.contextmanager
+def sharded_context(mesh, settings: StepSettings, kind: str = "train"):
+    """The model hooks of a step over ``mesh``: the activation
+    constraints (sequence-parallel under ``seq_shard`` for a non-decode
+    step), FSDP's in-loop resharding under ``fsdp``, and plain tensors
+    made in model code (positions, masks, zeros) taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    seq = "model" if settings.seq_shard and kind != "decode" else None
+    shd.set_activation_sharding(batch_axes(mesh), seq_axis=seq)
+    if settings.fsdp:
+        shd.set_param_resharding(mesh)
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        shd.clear_activation_sharding()
+        shd.clear_param_resharding()
+
+
+def _plain(x):
+    """A replicated DTensor's value as a plain tensor (no communication);
+    anything else as is."""
+    return x.full_tensor() if shd.is_dtensor(x) else x
+
+
+# --------------------------------------------------------------- steps ----
+
 def split_microbatches(batch: Dict[str, torch.Tensor], m: int):
     """Each leaf (B, ...) as (m, B // m, ...): microbatch i is ``[i]``."""
     return pytree.tree_map(
@@ -84,16 +330,12 @@ def _value_and_grad(loss_fn: Callable, params, batch
     return loss.detach(), pytree.tree_map(torch.Tensor.detach, metrics), grads
 
 
-def make_train_step(cfg: ArchConfig, settings: StepSettings):
-    """Returns ``(train_step, opt)``. ``train_step(params, opt_state, step,
-    batch) -> (params, opt_state, metrics)`` updates ``params`` and
-    ``opt_state`` in place and returns them; ``batch``: ``tokens`` and
-    ``targets`` (B, S) int, and ``frames`` (B, T, d) for an
-    encoder-decoder config or an optional ``frontend`` (B, N, d);
-    ``metrics``: the loss's (``ce``, MoE aux) with ``loss`` and
-    ``grad_norm`` (before clipping), 0-d tensors on the params' device
-    (reading one is the caller's host sync)."""
-    opt = make_optimizer(settings)
+def _step_parts(cfg: ArchConfig, settings: StepSettings, mesh):
+    """``(hooks, grads_of)`` of a train step: ``hooks()`` the context the
+    step runs in (``sharded_context`` over ``mesh``, else none), and
+    ``grads_of(params, batch) -> (loss, metrics, grads)`` its gradient
+    half, run inside it. Without a mesh every hook is an identity, so
+    both paths run one body."""
     acc_dt = dtype_of(settings.acc_dtype)
 
     def loss_fn(p, mb):
@@ -103,42 +345,113 @@ def make_train_step(cfg: ArchConfig, settings: StepSettings):
         return lm_loss(p, cfg, mb["tokens"], mb["targets"],
                        frontend=mb.get("frontend"), remat=settings.remat)
 
-    def train_step(params, opt_state, step, batch):
+    if mesh is None:
+        hooks = contextlib.nullcontext
+        layouts = lambda params: [None] * len(pytree.tree_leaves(params))
+        place = lambda batch: batch
+    else:
+        hooks = lambda: sharded_context(mesh, settings)
+        layouts = lambda params: pytree.tree_leaves(
+            shd.grad_shardings(mesh, params, zero=settings.zero_opt),
+            is_leaf=shd.is_layout)
+        place = lambda batch: place_batch(mesh, batch)
+
+    def placed(grads, pl):
+        # ZeRO-2: each gradient reduce-scattered out of its partial sum at
+        # once, never kept as a full-size replica
+        return [g if p is None else g.redistribute(placements=p)
+                for g, p in zip(grads, pl)]
+
+    def zeros(leaf, p):
+        if p is None:
+            return torch.zeros(leaf.shape, dtype=acc_dt, device=leaf.device)
+        from torch.distributed.tensor import zeros as dzeros
+        return dzeros(leaf.shape, dtype=acc_dt, device_mesh=mesh,
+                      placements=p)
+
+    def grads_of(params, batch):
+        pl = layouts(params)
         m = settings.microbatches
         if m == 1:
-            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
-        else:
-            mbs = split_microbatches(batch, m)
-            grads = [torch.zeros(l.shape, dtype=acc_dt, device=l.device)
-                     for l in pytree.tree_leaves(params)]
-            loss, mets = 0.0, []
-            for i in range(m):
-                l, met, g = _value_and_grad(
-                    loss_fn, params, pytree.tree_map(lambda x: x[i], mbs))
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi)
-                del g
-                loss = loss + l
-                mets.append(met)
-            grads = [g / m for g in grads]
-            loss = loss / m
-            metrics = pytree.tree_map(lambda *a: torch.mean(torch.stack(a), 0),
-                                      *mets)
-        with torch.no_grad():
-            gnorm = global_norm(grads)
-            opt.update_in_place(grads, opt_state, params, step,
-                                clip_scale(gnorm, settings.grad_clip))
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+            loss, metrics, grads = _value_and_grad(loss_fn, params,
+                                                   place(batch))
+            return loss, metrics, placed(grads, pl)
+        mbs = split_microbatches(pytree.tree_map(_plain, batch), m)
+        grads = [zeros(l, p) for l, p in zip(pytree.tree_leaves(params), pl)]
+        loss, mets = 0.0, []
+        for i in range(m):
+            l, met, g = _value_and_grad(
+                loss_fn, params, place(pytree.tree_map(lambda x: x[i], mbs)))
+            for acc, gi in zip(grads, placed(g, pl)):
+                acc.add_(gi)
+            del g
+            loss = loss + l
+            mets.append(met)
+        grads = [g / m for g in grads]
+        loss = loss / m
+        metrics = pytree.tree_map(
+            lambda *a: torch.mean(torch.stack(a), 0), *mets)
+        return loss, metrics, grads
+
+    return hooks, grads_of
+
+
+def make_value_and_grad(cfg: ArchConfig, settings: StepSettings, mesh=None):
+    """``value_and_grad(params, batch) -> (loss, metrics, grads)``: the
+    gradient half of ``make_train_step``'s step, the same code. ``grads``
+    in ``pytree.tree_leaves(params)`` order, averaged over the
+    microbatches, before clipping; over ``mesh`` DTensors in
+    ``grad_shardings``' placements (the loss and metrics plain tensors,
+    the same on every rank)."""
+    hooks, grads_of = _step_parts(cfg, settings, mesh)
+
+    def value_and_grad(params, batch):
+        with hooks():
+            loss, metrics, grads = grads_of(params, batch)
+        return _plain(loss), pytree.tree_map(_plain, metrics), grads
+
+    return value_and_grad
+
+
+def make_train_step(cfg: ArchConfig, settings: StepSettings, mesh=None):
+    """Returns ``(train_step, opt)``. ``train_step(params, opt_state, step,
+    batch) -> (params, opt_state, metrics)`` updates ``params`` and
+    ``opt_state`` in place and returns them; ``batch``: ``tokens`` and
+    ``targets`` (B, S) int, and ``frames`` (B, T, d) for an
+    encoder-decoder config or an optional ``frontend`` (B, N, d);
+    ``metrics``: the loss's (``ce``, MoE aux) with ``loss`` and
+    ``grad_norm`` (before clipping), 0-d tensors on the params' device
+    (reading one is the caller's host sync).
+
+    Over ``mesh``: ``params`` and ``opt_state`` are ``shard_state``'s
+    DTensors; ``batch`` is the global batch on every rank (plain tensors,
+    or DTensors over the batch axes, which a microbatched step gathers
+    back first: tokens are small); the metrics are plain tensors, the
+    same on every rank."""
+    opt = make_optimizer(settings)
+    hooks, grads_of = _step_parts(cfg, settings, mesh)
+
+    def train_step(params, opt_state, step, batch):
+        with hooks():
+            loss, metrics, grads = grads_of(params, batch)
+            with torch.no_grad():
+                gnorm = global_norm(grads)
+                opt.update_in_place(grads, opt_state, params, step,
+                                    clip_scale(gnorm, settings.grad_clip))
+        metrics = pytree.tree_map(_plain, dict(metrics, loss=loss,
+                                                grad_norm=gnorm))
         return params, opt_state, metrics
 
     return train_step, opt
 
 
-def make_prefill_step(cfg: ArchConfig, settings: StepSettings):
+def make_prefill_step(cfg: ArchConfig, settings: StepSettings, mesh=None):
     """``prefill(params, batch) -> logits``: the full-sequence forward of
     ``batch["tokens"]`` (float32 (B, S, V); with a ``frontend`` (B, N +
     S, V)), without gradient; for an encoder-decoder config the decoder's
-    teacher-forced logits over ``encode(batch["frames"])``."""
+    teacher-forced logits over ``encode(batch["frames"])``. Over ``mesh``
+    the params are DTensors (``param_placements``), the batch is placed
+    over the batch axes, and the logits are a DTensor."""
 
     def prefill(params, batch):
         with torch.no_grad():
@@ -152,18 +465,37 @@ def make_prefill_step(cfg: ArchConfig, settings: StepSettings):
                                    remat=settings.remat)
         return logits
 
-    return prefill
+    if mesh is None:
+        return prefill
+
+    def sharded_prefill(params, batch):
+        with sharded_context(mesh, settings, "prefill"):
+            return prefill(params, place_batch(mesh, batch))
+
+    return sharded_prefill
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, mesh=None,
+                    settings: Optional[StepSettings] = None):
     """``serve(params, token, caches, cur_index) -> (logits, caches)``: one
     cached decode step (``lm_decode_step``; ``encdec_decode_step`` over
     ``init_dec_cache``'s caches for an encoder-decoder config), the caches
-    updated in place."""
+    updated in place. Over ``mesh`` the params and caches are DTensors
+    (``param_placements``, ``data_shardings``), the token is placed over
+    the batch axes, and the logits are a DTensor."""
+    settings = settings or StepSettings()
     step = encdec.encdec_decode_step if cfg.is_encdec else lm_decode_step
 
     def serve(params, token, caches, cur_index):
         with torch.no_grad():
             return step(params, cfg, token, caches, cur_index)
 
-    return serve
+    if mesh is None:
+        return serve
+
+    def sharded_serve(params, token, caches, cur_index):
+        with sharded_context(mesh, settings, "decode"):
+            return serve(params, place_batch(mesh, token), caches,
+                         int(cur_index))
+
+    return sharded_serve

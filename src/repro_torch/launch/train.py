@@ -1,18 +1,28 @@
-"""Fault-tolerant training loop and CLI — the port of ``repro/launch/train.py``
-for one device.
+"""Fault-tolerant training loop and CLI — the port of
+``repro/launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \\
         --steps 50 --batch 8 --seq 128 [--ckpt-dir DIR]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \\
         --reduced --device cpu --steps 3 --batch 2 --seq 16
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3_8b --mesh 2x2 --steps 3 --batch 8 --seq 128
 
 The reference's flags, plus ``--device`` (default ``cuda``; ``cpu`` on
-request, never as a fallback) and its settings (``remat="none"``,
-``zero_opt=False``). Loop skeleton: restore the latest step -> skip the
-data stream ahead to it -> each step under a watchdog -> periodic
-checkpoints -> on failure, a bounded restore-and-retry. The reference's
-``mesh`` argument is gone: a training mesh over several GPUs is ROADMAP.md
-queue 1 item 12.
+request, never as a fallback), ``--mesh DxM`` and its settings
+(``remat="none"``, ``zero_opt=False``). Loop skeleton: restore the
+latest step -> skip the data stream ahead to it -> each step under a
+watchdog -> periodic checkpoints -> on failure, a bounded
+restore-and-retry.
+
+``--mesh DxM`` trains over a (data D, model M) ``DeviceMesh``, one
+process per device under ``torchrun`` (which sets ``RANK``,
+``WORLD_SIZE`` and ``LOCAL_RANK``, and the rendezvous address): nccl and
+``cuda:LOCAL_RANK`` on the cards, gloo with ``--device cpu``. D·M must be
+the world size. Every rank draws the same global batch from
+``token_batches`` (one seed) and ``data/loader.py`` places it over the
+batch axes; the params and moments are DTensors (``launch/steps.py``).
+Only rank 0 logs; every rank joins a checkpoint (rank 0 writes it).
 
 An encoder-decoder config (``whisper_base``) trains through
 ``train_loop`` on batches of ``frames``, ``tokens`` and ``targets``. The
@@ -45,7 +55,9 @@ from repro_torch.configs import get
 from repro_torch.data import token_batches
 from repro_torch.distributed.fault import (FailureInjector, StepFailure,
                                            StepWatchdog, WatchdogConfig)
-from repro_torch.launch.steps import StepSettings, make_train_step
+from repro_torch.data.loader import ShardedLoader
+from repro_torch.launch.steps import (StepSettings, make_train_step,
+                                      shard_state)
 from repro_torch.models.encdec import init_encdec
 from repro_torch.models.lm import init_lm
 
@@ -75,22 +87,28 @@ def train_loop(cfg, settings: StepSettings, steps: int, batch_iter,
                ckpt_every: int = 25,
                injector: Optional[FailureInjector] = None,
                watchdog: Optional[StepWatchdog] = None, seed: int = 0,
-               device=None):
+               device=None, mesh=None):
     """Returns (params, opt_state, history of ``{step, loss,
     grad_norm}``). Params are ``init_lm``'s (``init_encdec``'s for an
     encoder-decoder config) from a generator seeded ``seed`` on
     ``resolve_device(device)``. Restartable: if ``ckpt`` has a
     latest step, resumes from it (params, optimizer state, step index).
     ``batch_iter`` must restart its stream on each ``iter()`` (a rewind
-    after a failure replays it from the start)."""
+    after a failure replays it from the start). Over ``mesh`` (a
+    ``DeviceMesh``, ``launch/mesh.py``) every rank calls this with the
+    same arguments and the same global batches; params and moments are
+    DTensors placed by ``shard_state`` from rank 0's draw."""
     dev = resolve_device(device)
-    step_fn, opt = make_train_step(cfg, settings)
+    step_fn, opt = make_train_step(cfg, settings, mesh=mesh)
     watchdog = watchdog or StepWatchdog(WatchdogConfig())
 
     init = init_encdec if cfg.is_encdec else init_lm
     params = init(torch.Generator(device=dev).manual_seed(seed), cfg,
                   device=dev)
-    opt_state = opt.init(params)
+    if mesh is None:
+        opt_state = opt.init(params)
+    else:
+        params, opt_state = shard_state(mesh, settings, params, opt)
     start = 0
     if ckpt is not None:
         latest = ckpt.latest_step()
@@ -151,7 +169,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu; a missing card is an "
                          "error, never a fallback")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: train over a (data D, model M) mesh, one "
+                         "process per device under torchrun")
     return ap
+
+
+def init_mesh(spec: str, device):
+    """The (data, model) ``DeviceMesh`` of ``--mesh DxM`` over a process
+    group made from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``): nccl with this
+    rank's card, gloo on the CPU. Returns (mesh, this rank's device).
+    A product D·M that is not the world size is refused."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {spec!r}: want DxM, e.g. 2x2") from None
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if d * m != world:
+        raise SystemExit(f"--mesh {spec} asks for {d * m} devices; the run "
+                         f"has {world} processes (WORLD_SIZE): launch it "
+                         f"with torchrun --nproc-per-node {d * m}")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            rank=int(os.environ.get("RANK", "0")), world_size=world,
+            **({"device_id": device} if device.type == "cuda" else {}))
+    return make_debug_mesh(d, m, device_type=device.type), device
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -168,25 +218,32 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "tokens and targets, and this CLI streams tokens and targets "
             "only; call train_loop with batches that carry frames")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        mesh, device = init_mesh(args.mesh, device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
     settings = StepSettings(microbatches=args.microbatches, remat="none",
                             lr=args.lr, zero_opt=False)
 
     batches = ({"tokens": t, "targets": y}
                for t, y in token_batches(cfg.vocab, args.batch, args.seq,
                                          device=device))
+    if mesh is not None:     # every rank draws the same global batches
+        batches = ShardedLoader(batches, mesh=mesh)
     ckpt = CheckpointManager(args.ckpt_dir, keep=3, async_save=True) \
         if args.ckpt_dir else None
 
     t0 = time.time()
     params, _, hist = train_loop(cfg, settings, args.steps, batches, ckpt,
-                                 args.ckpt_every, device=device)
-    for h in hist[::args.log_every] + hist[-1:]:
-        print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
-              f"gnorm {h['grad_norm']:.3f}")
+                                 args.ckpt_every, device=device, mesh=mesh)
     seconds = time.time() - t0
-    print(f"total {seconds:.1f}s; final loss {hist[-1]['loss']:.4f}")
+    if lead:
+        for h in hist[::args.log_every] + hist[-1:]:
+            print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
+                  f"gnorm {h['grad_norm']:.3f}")
+        print(f"total {seconds:.1f}s; final loss {hist[-1]['loss']:.4f}")
     return dict(cfg=cfg, params=params, history=hist, seconds=seconds,
-                device=device)
+                device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

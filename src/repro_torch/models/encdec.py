@@ -23,7 +23,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.lm import _rematerialised, dtype_of
+from repro_torch.models.lm import (_rematerialised, _residual, dtype_of,
+                                   gold_logits)
 from repro_torch.nn.attention import (attention_init, mha, mha_decode,
                                      precompute_cross_kv)
 from repro_torch.nn.ffn import ffn_apply, ffn_init
@@ -94,13 +95,14 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor,
            remat: str = "none") -> torch.Tensor:
     """frames: (B, T, d) stub embeddings -> encoder states (B, T, d)."""
     dt = dtype_of(cfg.dtype)
-    h = frames.to(dt) + params["enc_pos"][:frames.shape[1]].to(dt)
+    h = _residual(frames.to(dt) + params["enc_pos"][:frames.shape[1]].to(dt))
 
     def body(h, i):
         bp = _layer(params["enc_blocks"], i)
-        h = h + mha(bp["attn"], layernorm(bp["ln1"], h), causal=False,
-                    **_attn_kw(cfg))
-        return h + ffn_apply(bp["ffn"], layernorm(bp["ln2"], h), act=cfg.act)
+        h = _residual(h + mha(bp["attn"], layernorm(bp["ln1"], h),
+                              causal=False, **_attn_kw(cfg)))
+        return _residual(h + ffn_apply(bp["ffn"], layernorm(bp["ln2"], h),
+                                       act=cfg.act))
 
     body = _rematerialised(body, remat)
     for i in range(cfg.enc_layers):
@@ -114,15 +116,16 @@ def decode_train(params, cfg: ArchConfig, enc: torch.Tensor,
     (B, L, V)."""
     dt = dtype_of(cfg.dtype)
     h = embedding_lookup(params["embed"], tokens, dt)
-    h = h + params["dec_pos"][:tokens.shape[1]].to(dt)
+    h = _residual(h + params["dec_pos"][:tokens.shape[1]].to(dt))
 
     def body(h, i):
         bp = _layer(params["dec_blocks"], i)
-        h = h + mha(bp["self_attn"], layernorm(bp["ln1"], h), causal=True,
-                    **_attn_kw(cfg))
-        h = h + mha(bp["cross_attn"], layernorm(bp["ln_x"], h), kv_x=enc,
-                    causal=False, **_attn_kw(cfg))
-        return h + ffn_apply(bp["ffn"], layernorm(bp["ln2"], h), act=cfg.act)
+        h = _residual(h + mha(bp["self_attn"], layernorm(bp["ln1"], h),
+                              causal=True, **_attn_kw(cfg)))
+        h = _residual(h + mha(bp["cross_attn"], layernorm(bp["ln_x"], h),
+                              kv_x=enc, causal=False, **_attn_kw(cfg)))
+        return _residual(h + ffn_apply(bp["ffn"], layernorm(bp["ln2"], h),
+                                       act=cfg.act))
 
     body = _rematerialised(body, remat)
     for i in range(cfg.dec_layers):
@@ -137,8 +140,7 @@ def encdec_loss(params, cfg: ArchConfig, frames, tokens, targets,
     enc = encode(params, cfg, frames, remat)
     logits = decode_train(params, cfg, enc, tokens, remat).float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
+    ce = torch.mean(logz - gold_logits(logits, targets.long()))
     return ce, {"ce": ce}
 
 

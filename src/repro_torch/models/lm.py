@@ -48,6 +48,7 @@ over.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -58,6 +59,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.nn.attention import (NEG_INF, attention_init,
                                      decode_attend, decode_qkv, init_cache,
                                      mha, mha_decode, read_kv, write_kv)
@@ -65,7 +67,7 @@ from repro_torch.nn.ffn import (ffn_apply, ffn_init, rwkv_channel_mix,
                                 rwkv_channel_mix_init)
 from repro_torch.nn.moe import moe_apply, moe_apply_sorted, moe_init
 from repro_torch.nn.module import (dense, dense_init, embedding_init,
-                                   rmsnorm, rmsnorm_init,
+                                   embedding_rows, rmsnorm, rmsnorm_init,
                                    truncated_normal_init)
 from repro_torch.nn.rglru import (causal_conv1d, griffin_recurrent_apply,
                                   griffin_recurrent_init, rglru_decode_step)
@@ -197,6 +199,16 @@ def _moe_ffn(p: Params, cfg: ArchConfig, xn: torch.Tensor, *,
     return y, out
 
 
+def _residual(h: torch.Tensor) -> torch.Tensor:
+    """The residual stream after a block's sub-layer, held to the
+    ``"residual"`` placements over a device mesh (``constrain``; a no-op
+    otherwise). The reference constrains only between groups and lets
+    GSPMD carry the layout through each block; DTensor chooses each op's
+    output placements locally (a tensor-parallel sum may come out
+    sharded along the sequence), so the port pins every residual add."""
+    return shd.constrain(h, "residual")
+
+
 def _add_aux(aux, out):
     """``aux`` (a ``ZERO_AUX`` tree when None) with a dispatch's terms
     added, ``moe_dropped`` as a max."""
@@ -229,7 +241,7 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
         tm, (x_tmix, S) = rwkv6_time_mix(
             p["tmix"], rmsnorm(p["ln1"], h), cfg.rwkv_heads, state=state,
             want_state=cache is not None)
-        h = h + tm
+        h = _residual(h + tm)
         xn = rmsnorm(p["ln2"], h)
         first = torch.zeros_like(xn[:, :1]) if cache is None \
             else cache["x_cmix"][:, None].to(xn.dtype)
@@ -238,7 +250,7 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
             cache["x_tmix"].copy_(x_tmix)
             cache["S"].copy_(S)
             cache["x_cmix"].copy_(xn[:, -1])
-        return h + rwkv_channel_mix(p["cmix"], xn, x_prev), aux
+        return _residual(h + rwkv_channel_mix(p["cmix"], xn, x_prev)), aux
     if kind == "rec":
         state = None if cache is None else (cache["conv"].to(h.dtype),
                                             cache["h"])
@@ -247,7 +259,7 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
         if cache is not None:
             cache["conv"].copy_(conv)
             cache["h"].copy_(h_T)
-        h = h + y
+        h = _residual(h + y)
     else:   # dense, attn, moe
         kwargs = _attn_kwargs(cfg, kind)
         a = mha(p["attn"], rmsnorm(p["ln1"], h),
@@ -257,13 +269,13 @@ def block_apply(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
         if cache is not None:
             a, (k, v) = a
             _prefill_kv(cache, k, v, kwargs["window"])
-        h = h + a
+        h = _residual(h + a)
     xn = rmsnorm(p["ln2"], h)
     if kind == "moe":
         y, out = _moe_ffn(p, cfg, xn, decode_rule=cache is not None,
                           per_row=per_row)
-        return h + y, _add_aux(aux, out)
-    return h + ffn_apply(p["ffn"], xn, act=cfg.act), aux
+        return _residual(h + y), _add_aux(aux, out)
+    return _residual(h + ffn_apply(p["ffn"], xn, act=cfg.act)), aux
 
 
 def _prefill_kv(cache, k: torch.Tensor, v: torch.Tensor, window) -> None:
@@ -335,25 +347,25 @@ def block_decode(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
     if kind in ("dense", "attn", "moe"):
         a, cache = _rotating_decode_attn(p, cfg, kind, rmsnorm(p["ln1"], h),
                                          cache, cur_index)
-        h = h + a
+        h = _residual(h + a)
         xn = rmsnorm(p["ln2"], h)
         if kind == "moe":
             y, _ = _moe_ffn(p, cfg, xn, decode_rule=True, per_row=False)
-            return h + y, cache
-        return h + ffn_apply(p["ffn"], xn, act=cfg.act), cache
+            return _residual(h + y), cache
+        return _residual(h + ffn_apply(p["ffn"], xn, act=cfg.act)), cache
     if kind == "rwkv":
         xn = rmsnorm(p["ln1"], h)[:, 0]
         tm, (x_tmix, S) = rwkv6_decode_step(
             p["tmix"], xn, (cache["x_tmix"].to(xn.dtype), cache["S"]),
             cfg.rwkv_heads)
-        h = h + tm[:, None]
+        h = _residual(h + tm[:, None])
         xn2 = rmsnorm(p["ln2"], h)[:, 0]
         cm = rwkv_channel_mix(p["cmix"], xn2[:, None],
                               cache["x_cmix"][:, None].to(xn2.dtype))
         cache["x_tmix"].copy_(x_tmix)
         cache["S"].copy_(S)
         cache["x_cmix"].copy_(xn2)
-        return h + cm, cache
+        return _residual(h + cm), cache
     # rec
     xn = rmsnorm(p["ln1"], h)
     gp = p["griffin"]
@@ -361,10 +373,11 @@ def block_decode(p: Params, cfg: ArchConfig, kind: str, h: torch.Tensor,
     g = F.gelu(dense(gp["in_gate"], xn), approximate="tanh")
     u, conv = causal_conv1d(gp["conv"], u, cache["conv"].to(u.dtype))
     y_t, h_state = rglru_decode_step(gp["rglru"], u[:, 0], cache["h"])
-    h = h + dense(gp["out"], y_t[:, None] * g)
+    h = _residual(h + dense(gp["out"], y_t[:, None] * g))
     cache["conv"].copy_(conv)
     cache["h"].copy_(h_state)
-    return h + ffn_apply(p["ffn"], rmsnorm(p["ln2"], h), act=cfg.act), cache
+    y = ffn_apply(p["ffn"], rmsnorm(p["ln2"], h), act=cfg.act)
+    return _residual(h + y), cache
 
 
 # -------------------------------------------------------------- model ----
@@ -404,7 +417,7 @@ def group_params(params, g: int) -> Params:
 
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     dt = dtype_of(cfg.dtype)
-    h = params["embed"]["table"][tokens.long()].to(dt)
+    h = embedding_rows(params["embed"]["table"], tokens.long()).to(dt)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=h.device)
     return h
@@ -450,7 +463,7 @@ def _readout(params, cfg: ArchConfig, h: torch.Tensor,
     h = rmsnorm(params["ln_f"], h)
     if w is None:
         w = readout_weight(params, cfg, h.dtype)
-    return torch.matmul(h.float(), w)
+    return torch.matmul(shd.matmul_ready(h.float(), w), w)
 
 
 REMAT_POLICIES = ("none", "dots", "full")
@@ -498,7 +511,7 @@ def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None,
     total = ZERO_AUX(h.device)
 
     def group(h, g):
-        gp = group_params(params, g)
+        gp = shd.constrain_group_params(group_params(params, g))
         gc = None if caches is None else _group_caches(caches, g)
         aux = None
         for i, kind in enumerate(pattern):
@@ -507,8 +520,10 @@ def _blocks(params, cfg: ArchConfig, h: torch.Tensor, caches=None,
         return h, aux
 
     group_fn = group if caches is not None else _rematerialised(group, remat)
+    h = shd.constrain(h, "residual")
     for g in range(n_groups):
         h, aux = group_fn(h, g)
+        h = shd.constrain(h, "residual")
         if aux is not None:
             total = {k: total[k] + aux[k] for k in total}
     for i in range(tail):
@@ -529,7 +544,42 @@ def lm_forward(params, cfg: ArchConfig, tokens: torch.Tensor, frontend=None,
     h = add_positions(params, cfg, embed_inputs(params, cfg, tokens,
                                                 frontend))
     h, aux = _blocks(params, cfg, h, remat=remat)
-    return _readout(params, cfg, h), aux
+    return shd.constrain(_readout(params, cfg, h), "logits"), aux
+
+
+def gold_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``logits[..., targets]``: each position's target logit. Over a
+    vocabulary sharded across a mesh axis (a DTensor), each device picks
+    the targets its shard holds and the rest count zero, a partial sum
+    over that axis: the full logits are never gathered."""
+    if not shd.is_dtensor(logits):
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    lp = logits.placements
+    vocab_axes = [i for i, p in enumerate(lp) if p == Shard(vdim)]
+    if not vocab_axes:
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    tp = tuple(Replicate() if p == Shard(vdim) else p for p in lp)
+    out = tuple(Partial() if p == Shard(vdim) else p for p in lp)
+    V = logits.shape[-1]
+
+    def local(lg, t):
+        lo = 0
+        for i in vocab_axes:      # this device's first vocabulary row
+            n = mesh.size(i)
+            lo = lo * n + mesh.get_local_rank(i)
+        lo *= lg.shape[-1]
+        t = t - lo
+        hit = (t >= 0) & (t < lg.shape[-1])
+        g = torch.gather(lg, -1, torch.where(hit, t, 0)[..., None])[..., 0]
+        return torch.where(hit, g, torch.zeros((), dtype=g.dtype))
+
+    assert V % math.prod(mesh.size(i) for i in vocab_axes) == 0, V
+    return local_map(local, out_placements=(out,), in_placements=(lp, tp),
+                     device_mesh=mesh)(logits, targets)
 
 
 def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -545,8 +595,7 @@ def lm_loss(params, cfg: ArchConfig, tokens: torch.Tensor,
         logits = logits[:, -tokens.shape[1]:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    ce = torch.mean(logz - gold)
+    ce = torch.mean(logz - gold_logits(logits, targets.long()))
     loss = ce
     if cfg.n_experts:
         loss = loss + moe_aux_weight * aux["moe_aux"] + \
@@ -589,7 +638,8 @@ def lm_decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches,
     h = add_positions(params, cfg, _embed(params, cfg, token[:, None]),
                       cur_index)
     for g in range(n_groups):
-        gp, gc = group_params(params, g), _group_caches(caches, g)
+        gp = shd.constrain_group_params(group_params(params, g))
+        gc = _group_caches(caches, g)
         for i, kind in enumerate(pattern):
             h, _ = block_decode(gp[f"b{i}"], cfg, kind, h, gc[f"b{i}"],
                                 cur_index)

@@ -41,11 +41,14 @@ v, which is what the reference's decode steps attend over.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     on_head_shards)
 from repro_torch.nn.module import (dense_init, quantize_absmax, rmsnorm,
                                    rmsnorm_init, truncated_normal_init)
 
@@ -98,7 +101,9 @@ def attention_init(gen, d_model: int, n_heads: int, n_kv: int, d_head: int,
 
 
 def _proj(w, x: torch.Tensor, n: int, d_head: int) -> torch.Tensor:
-    y = torch.matmul(x, w["kernel"].to(x.dtype))
+    k = w["kernel"]
+    y = shd.grad_like(shd.splittable(
+        torch.matmul(shd.matmul_ready(x, k), k.to(x.dtype)), -1, n))
     return y.reshape(*x.shape[:-1], n, d_head)
 
 
@@ -173,11 +178,14 @@ def mha(params, x: torch.Tensor, *, n_heads: int, n_kv: int, d_head: int,
     qc = _CHUNK["q_chunk"]
     if qc is not None and kv_x is None and S > qc and S % qc == 0 \
             and x.device.type == "cpu":
-        ctx = _chunked_self_attention(q, k, v, causal, window, qc)
+        chunked = functools.partial(_chunked_self_attention, causal=causal,
+                                    window=window, qc=qc)
+        ctx = on_head_shards(chunked, q, k, v) if shd.is_dtensor(q) \
+            else chunked(q, k, v)
     else:
         ctx = flash_attention(q, k, v, causal=causal, window=window)
-    ctx = ctx.reshape(B, S, n_heads * d_head)
-    out = torch.matmul(ctx, params["wo"]["kernel"].to(x.dtype))
+    ctx = shd.grad_like(ctx.reshape(B, S, n_heads * d_head))
+    out = shd.grad_like(torch.matmul(ctx, params["wo"]["kernel"].to(x.dtype)))
     return (out, kv) if return_kv else out
 
 
@@ -261,13 +269,24 @@ def decode_attend(params, q: torch.Tensor, k_all: torch.Tensor,
     probabilities rounded to ``dtype`` for P.V, then the output
     projection. Returns (B, 1, d)."""
     B, _, H, hd = q.shape
+    attend = functools.partial(_decode_ctx, bias=bias, dtype=dtype)
+    ctx = on_head_shards(attend, q, k_all, v_all) if shd.is_dtensor(q) \
+        else attend(q, k_all, v_all)
+    ctx = ctx.reshape(B, 1, H * hd)
+    return torch.matmul(ctx, params["wo"]["kernel"].to(dtype))
+
+
+def _decode_ctx(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``decode_attend``'s attention before the output projection:
+    (B, 1, H, hd)."""
+    B, _, H, hd = q.shape
     KV = k_all.shape[2]
     qg = q.reshape(B, 1, KV, H // KV, hd)
     scores = torch.einsum("bsngh,btnh->bngst", qg.float(), k_all.float())
     probs = torch.softmax(scores * (hd ** -0.5) + bias, dim=-1).to(dtype)
     ctx = torch.einsum("bngst,btnh->bsngh", probs, v_all.to(dtype))
-    ctx = ctx.reshape(B, 1, H * hd)
-    return torch.matmul(ctx, params["wo"]["kernel"].to(dtype))
+    return ctx.reshape(B, 1, H, hd)
 
 
 def mha_decode(params, x: torch.Tensor, cache: Any, cur_index: int, *,

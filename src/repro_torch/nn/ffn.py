@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.nn.module import dense, dense_init
 
 ACTS = {
@@ -57,8 +58,8 @@ def rwkv_channel_mix(params, x: torch.Tensor,
                      x_prev: torch.Tensor) -> torch.Tensor:
     """RWKV channel mix: token-shift interpolation + squared-ReLU key net,
     sigmoid receptance gate (Peng et al., arXiv:2404.05892)."""
-    mk = params["mix_k"].to(x.dtype)
-    mr = params["mix_r"].to(x.dtype)
+    mk = shd.whole(params["mix_k"]).to(x.dtype)
+    mr = shd.whole(params["mix_r"]).to(x.dtype)
     xk = x * mk + x_prev * (1 - mk)
     xr = x * mr + x_prev * (1 - mr)
     k = torch.square(F.relu(dense(params["wk"], xk)))

@@ -17,6 +17,8 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch.distributed import sharding as shd
+
 Params = Any
 
 
@@ -45,7 +47,8 @@ def dense_init(gen, in_dim: int, out_dim: int,
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, params["kernel"].to(x.dtype))
+    w = params["kernel"]
+    return shd.grad_like(torch.matmul(shd.matmul_ready(x, w), w.to(x.dtype)))
 
 
 def rmsnorm_init(dim: int, param_dtype=torch.float32, lead=(), device=None):
@@ -102,7 +105,44 @@ def embedding_init(gen, vocab: int, dim: int, param_dtype=torch.float32,
 
 def embedding_lookup(params, ids: torch.Tensor,
                      dtype=torch.float32) -> torch.Tensor:
-    return params["table"][ids.long()].to(dtype)
+    return embedding_rows(params["table"], ids.long()).to(dtype)
+
+
+def embedding_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``. A DTensor table (vocabulary rows over the 'model'
+    axis, ids over the batch axes) is read on each device's local
+    blocks: each device takes the rows its block of the vocabulary
+    holds and the rest count zero, a partial sum over the vocabulary's
+    axes (the table gathered over any other axis first, FSDP's gather);
+    its gradient is the local rows' own, summed over the batch axes."""
+    if not shd.is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+    mesh = table.device_mesh
+    if not shd.is_dtensor(ids):
+        ids = distribute_tensor(ids, mesh, (Replicate(),) * mesh.ndim,
+                                src_data_rank=None)
+    vocab = [i for i, p in enumerate(table.placements)
+             if p == Shard(0) and mesh.size(i) > 1]
+    tp = tuple(Shard(0) if i in vocab else Replicate()
+               for i in range(mesh.ndim))
+    ip = tuple(Replicate() if i in vocab else p
+               for i, p in enumerate(ids.placements))
+    out = tuple(Partial() if i in vocab else p for i, p in enumerate(ip))
+    grad = tuple(Partial() if p == Shard(0) else q for p, q in zip(ip, tp))
+
+    def local(t, ids):
+        if not vocab:
+            return t[ids]
+        ids = ids - shd.shard_index(mesh, tp, 0)[0] * t.shape[0]
+        hit = (ids >= 0) & (ids < t.shape[0])
+        rows = t[torch.where(hit, ids, 0)]
+        return torch.where(hit[..., None], rows,
+                           torch.zeros((), dtype=t.dtype))
+
+    return shd.on_local_shards(local, (out,), (tp, ip), mesh,
+                               in_grad_placements=(grad, ip))(table, ids)
 
 
 def embedding_logits(params, x: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.nn.ffn import ACTS
 from repro_torch.nn.module import (dense_init, quantize_absmax,
                                    truncated_normal_init)
@@ -131,9 +132,14 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def _dispatch(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, act: str, renorm_gates: bool,
-              groups: str, slot_major: bool, int8_dispatch: bool = False):
-    """The dispatch both entry points share. Returns (y, router logits,
-    probs, slots routed to each expert, kept-slot mask, tokens)."""
+              groups: str, slot_major: bool, int8_dispatch: bool = False,
+              experts: slice = slice(None), aux_share: float = 1.0
+              ) -> MoEOutput:
+    """The dispatch both entry points share. ``experts``: the experts
+    whose stacks ``params`` holds (all by default; a device's block under
+    expert parallelism, whose output is then that block's share of the
+    combine); ``aux_share`` scales the aux terms the same way (each of n
+    devices reporting 1/n of them)."""
     xg = _grouped(x, groups)
     G, T, d = xg.shape
     E, k = n_experts, top_k
@@ -164,17 +170,27 @@ def _dispatch(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     # row, and every dropped slot writes the overflow entry, never read
     src = torch.full((G * E * C + 1,), G * T, dtype=torch.long, device=dev)
     src[dest] = tok
+    # the slots of ``experts`` (E_l of them from ``lo``) only
+    ex = range(E)[experts]
+    lo, E_l = ex.start, len(ex)
+    rows = src[:-1].reshape(G, E, C)[:, experts].reshape(-1)
     if int8_dispatch:
         xq, scale = quantize_absmax(xt)
         qpad = torch.cat([xq, xq.new_zeros(1, d)])
         spad = torch.cat([scale, scale.new_zeros(1, 1)])
-        xin = (qpad[src[:-1]].float() * spad[src[:-1]]).to(dt)
+        xin = (qpad[rows].float() * spad[rows]).to(dt)
     else:
-        xin = torch.cat([xt, xt.new_zeros(1, d)])[src[:-1]]
-    xin = xin.reshape(G, E, C, d).transpose(0, 1)
-    yout = _expert_ffn(params, xin.reshape(E, G * C, d), act)
-    yflat = yout.reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)
+        xin = torch.cat([xt, xt.new_zeros(1, d)])[rows]
+    xin = xin.reshape(G, E_l, C, d).transpose(0, 1)
+    yout = _expert_ffn(params, xin.reshape(E_l, G * C, d), act)
+    yflat = yout.reshape(E_l, G, C, d).transpose(0, 1).reshape(
+        G * E_l * C, d)
     ypad = torch.cat([yflat, yflat.new_zeros(1, d)])
+    if E_l != E:   # another device's expert's slot reads the zero row
+        e = dest // C % E
+        mine = keep & (e >= lo) & (e < lo + E_l)
+        dest = torch.where(mine, (dest // (E * C) * E_l + e - lo) * C
+                           + dest % C, G * E_l * C)
 
     # combine: each token's k slots, summed in float32 in expert order
     slot_dest = dest.reshape(G, k, T).transpose(1, 2) if slot_major \
@@ -189,13 +205,82 @@ def _dispatch(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     y = torch.zeros((G * T, d), dtype=torch.float32, device=dev)
     for j in range(k):
         y = y + ys[:, j].float() * w[:, j, None]
-    y = _ungrouped(y.to(dt).reshape(G, T, d), x.shape, groups)
+    y = _ungrouped(y.reshape(G, T, d), x.shape, groups)
+    if experts == slice(None):
+        y = y.to(dt)
     counts = _counts(expert.reshape(-1), E)
-    return y, logits, probs, counts, keep, G * T
+    n_tok = G * T
+    me = torch.mean(probs, dim=0)
+    if slot_major:
+        # Switch aux load-balance loss: E * sum_e f_e * p_e
+        aux = n_experts * torch.sum(me * (counts.float() / n_tok)) / top_k
+    else:
+        # Switch aux loss: E * sum_e (tokens routed fraction) * (mean prob)
+        aux = n_experts * torch.sum(counts.float() / (n_tok * top_k) * me)
+    dropped = 1.0 - torch.sum(keep.float()) / (n_tok * top_k)
+    return MoEOutput(y=y, aux_loss=aux * aux_share,
+                     router_z_loss=_z_loss(logits) * aux_share,
+                     fraction_dropped=dropped)
+
+
+def _dispatch_sharded(params, x: torch.Tensor, **kw) -> MoEOutput:
+    """``_dispatch`` under expert parallelism (the expert stacks are
+    DTensors, E over the EP axis, under ``set_ep_axis("data")`` f over
+    ``"model"`` too). Every device routes the whole batch, replicated
+    over every axis (x gathered over the batch axes: the dispatch's
+    queues and capacities are the global batch's, as the reference's),
+    and runs its own experts' GEMMs on its own f block; the combine is a
+    partial sum over the axes that shard the stacks, reduced back into
+    x's placements. The aux terms come out of every device as a 1/n
+    share of that sum, so their gradients are not counted n times. The
+    router's sort and the queues' scatters run on local tensors, as no
+    DTensor rule covers them. Correct before fast: an all-to-all dispatch
+    of each device's own tokens is later work (ROADMAP.md)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    wi = params["wi"]
+    mesh = wi.device_mesh
+    ep = [i for i, p in enumerate(wi.placements) if p == Shard(0)]
+    split = [i for i, p in enumerate(wi.placements) if isinstance(p, Shard)]
+    share = 1
+    for i in split:
+        share *= mesh.size(i)
+    rep = tuple(Replicate() for _ in wi.placements)
+    part = tuple(Partial() if i in split else Replicate()
+                 for i in range(len(wi.placements)))
+    stacks = sorted(k for k in params if k != "router")
+    E = kw["n_experts"]
+
+    def local(x, router, *leaves):
+        i, n = 0, 1
+        for m in ep:
+            i = i * mesh.size(m) + mesh.get_local_rank(m)
+            n *= mesh.size(m)
+        p = {"router": {"kernel": router}, **dict(zip(stacks, leaves))}
+        out = _dispatch(p, x, experts=slice(i * E // n, (i + 1) * E // n),
+                        aux_share=1.0 / share, **kw)
+        return out.y, out.aux_loss, out.router_z_loss, out.fraction_dropped
+
+    leaves = [params[k] for k in stacks]
+    y, aux, z, dropped = shd.on_local_shards(
+        local, (part, part, part, rep),
+        (rep, rep) + tuple(l.placements for l in leaves), mesh,
+        in_grad_placements=(part, part) + tuple(l.placements
+                                                for l in leaves),
+    )(x, params["router"]["kernel"], *leaves)
+    back = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return MoEOutput(y=y.redistribute(placements=back).to(x.dtype),
+                     aux_loss=aux, router_z_loss=z,
+                     fraction_dropped=dropped)
 
 
 def _z_loss(logits: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+
+
+def _apply(params, x, **kw) -> MoEOutput:
+    if shd.is_dtensor(params["wi"]):
+        return _dispatch_sharded(params, x, **kw)
+    return _dispatch(params, x, **kw)
 
 
 def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -203,17 +288,9 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               renorm_gates: bool = True, groups: str = "all") -> MoEOutput:
     """x: (B, S, d) -> MoEOutput with y: (B, S, d); slot-major queues
     (the reference's einsum dispatch)."""
-    y, logits, probs, counts, keep, T = _dispatch(
-        params, x, n_experts=n_experts, top_k=top_k,
-        capacity_factor=capacity_factor, act=act, renorm_gates=renorm_gates,
-        groups=groups, slot_major=True)
-    # Switch aux load-balance loss: E * sum_e f_e * p_e
-    me = torch.mean(probs, dim=0)
-    ce = counts.float() / T
-    aux = n_experts * torch.sum(me * ce) / top_k
-    dropped = 1.0 - torch.sum(keep.float()) / (T * top_k)
-    return MoEOutput(y=y, aux_loss=aux, router_z_loss=_z_loss(logits),
-                     fraction_dropped=dropped)
+    return _apply(params, x, n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor, act=act,
+                  renorm_gates=renorm_gates, groups=groups, slot_major=True)
 
 
 def moe_apply_sorted(params, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -224,17 +301,10 @@ def moe_apply_sorted(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     slots by expert, gather into (E, C, d) buffers, batched GEMMs,
     combine. ``int8_dispatch``: the buffers are gathered from int8
     tokens with per-token scales and dequantized (module docstring)."""
-    y, logits, probs, counts, keep, T = _dispatch(
-        params, x, n_experts=n_experts, top_k=top_k,
-        capacity_factor=capacity_factor, act=act, renorm_gates=renorm_gates,
-        groups=groups, slot_major=False, int8_dispatch=int8_dispatch)
-    me = torch.mean(probs, dim=0)
-    # Switch aux loss: E * sum_e (tokens routed fraction) * (mean prob)
-    frac = counts.float() / (T * top_k)
-    aux = n_experts * torch.sum(frac * me)
-    dropped = 1.0 - torch.sum(keep.float()) / (T * top_k)
-    return MoEOutput(y=y, aux_loss=aux, router_z_loss=_z_loss(logits),
-                     fraction_dropped=dropped)
+    return _apply(params, x, n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor, act=act,
+                  renorm_gates=renorm_gates, groups=groups, slot_major=False,
+                  int8_dispatch=int8_dispatch)
 
 
 def moe_apply_reference(params, x: torch.Tensor, *, n_experts: int,

@@ -24,6 +24,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: F401
 from repro_torch.nn.module import dense, dense_init, truncated_normal_init
@@ -78,23 +79,26 @@ def _token_shift(x: torch.Tensor, x_prev_last: torch.Tensor) -> torch.Tensor:
 
 def _mix_inputs(p, x: torch.Tensor, x_shift: torch.Tensor):
     xx = x_shift - x
-    xxx = x + xx * p["mu_x"].to(x.dtype)
-    m = torch.tanh(torch.matmul(xxx, p["lora_a1"].to(x.dtype)))  # (B,S,5r)
+    xxx = x + xx * shd.whole(p["mu_x"]).to(x.dtype)
+    # (B,S,5r); over a mesh the LoRA's partial sums are reduced whole
+    # (``constrain``), as the tiny rank cannot be split over 'model'
+    m = torch.tanh(shd.constrain(torch.matmul(
+        xxx, p["lora_a1"].to(x.dtype)), "batch"))
     B, S, _ = m.shape
     r = p["lora_a2"].shape[1]
     m = m.reshape(B, S, len(MIXES), r)
     delta = torch.einsum("bsnr,nrd->nbsd", m, p["lora_a2"].to(x.dtype))
     out = {}
     for i, name in enumerate(MIXES):
-        mu = p["mu"][i].to(x.dtype) + delta[i]
+        mu = shd.whole(p["mu"][i]).to(x.dtype) + delta[i]
         out[name] = x + xx * mu
     return out
 
 
 def _decay(p, xw: torch.Tensor) -> torch.Tensor:
     """Per-channel fp32 decay w_t in (0, 1): exp(-exp(w0 + lora(xw)))."""
-    lo = torch.matmul(torch.tanh(torch.matmul(xw, p["w_lora1"].to(xw.dtype))),
-                      p["w_lora2"].to(xw.dtype))
+    lo = torch.matmul(torch.tanh(shd.constrain(torch.matmul(
+        xw, p["w_lora1"].to(xw.dtype)), "batch")), p["w_lora2"].to(xw.dtype))
     logw = p["w0"].float() + lo.float()
     return torch.exp(-torch.exp(logw))
 
@@ -126,19 +130,21 @@ def rwkv6_time_mix(p, x: torch.Tensor, n_heads: int, state: Any = None,
         x_last, S_wkv = state
     x_shift = _token_shift(x, x_last)
     mixed = _mix_inputs(p, x, x_shift)
-    r = dense(p["wr"], mixed["r"]).reshape(B, S, n_heads, D)
-    k = dense(p["wk"], mixed["k"]).reshape(B, S, n_heads, D)
-    v = dense(p["wv"], mixed["v"]).reshape(B, S, n_heads, D)
+    heads = lambda t: shd.splittable(t, -1, n_heads).reshape(
+        *t.shape[:-1], n_heads, D)
+    r = heads(dense(p["wr"], mixed["r"]))
+    k = heads(dense(p["wk"], mixed["k"]))
+    v = heads(dense(p["wv"], mixed["v"]))
     g = F.silu(dense(p["wg"], mixed["g"]))
-    w = _decay(p, mixed["w"]).reshape(B, S, n_heads, D)
-    u = p["u"].reshape(n_heads, D)
+    w = heads(_decay(p, mixed["w"]))
+    u = heads(p["u"])
 
     if want_state:
         o, S_new = wkv6(r, k, v, w, u, S_wkv, want_state=True)
     else:
         o, S_new = wkv6(r, k, v, w, u, S_wkv), None
     o = _group_norm(p, o.to(x.dtype))
-    o = o.reshape(B, S, d) * g
+    o = shd.grad_like(o.reshape(B, S, d)) * g
     out = dense(p["wo"], o)
     return out, (x[:, -1, :], S_new)
 

@@ -5,9 +5,12 @@
 to int8 blocks (``quantized_state.quantize_blockwise``), hands the
 dequantized gradient to the optimizer and carries the residual into the
 next step, so the scheme is unbiased in the long run.
-``compressed_allreduce_mean``, the reference's collective across
-devices (int8 payloads all-gathered over a mesh axis), waits for the
-multi-device port (ROADMAP.md queue 1 item 12).
+``compressed_allreduce_mean`` is the reference's collective across
+devices: each device quantizes its copy to int8 blocks, the payloads and
+their float32 scales are all-gathered over one axis of a ``DeviceMesh``
+(explicit ``torch.distributed`` collectives on that axis's group, the
+reference's ``shard_map`` body), and every device dequantizes, sums and
+divides by the axis size.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Any, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.optim.quantized_state import (dequantize_blockwise,
                                                quantize_blockwise)
 
@@ -43,8 +47,26 @@ def init_error_feedback(params: Any) -> Any:
 
 
 def compressed_allreduce_mean(x: torch.Tensor, mesh, axis: str = "data"):
-    """Mean over the mesh axis ``axis`` with int8 payloads: a collective
-    across devices, not ported yet."""
-    raise NotImplementedError(
-        "compressed_allreduce_mean (an int8 all-gather across a device "
-        "mesh) is not ported yet: ROADMAP.md queue 1 item 12")
+    """Mean of every device's ``x`` over the mesh axis ``axis`` with int8
+    payloads (a 4x smaller all-gather than float32, at 1/127 of each
+    block's amax). ``x``: a plain tensor or a DTensor (its local tensor
+    is this device's copy); the result has ``x``'s type, dtype and
+    placements."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    xl = x.to_local() if shd.is_dtensor(x) else x
+    qt = quantize_blockwise(xl)
+    blocks = qt.q.shape[0]     # gathered along the block axis: (n·blocks, .)
+    qs = qt.q.new_empty((n * blocks, qt.q.shape[1]))
+    ss = qt.scale.new_empty((n * blocks, 1))
+    dist.all_gather_into_tensor(qs, qt.q.contiguous(), group=group)
+    dist.all_gather_into_tensor(ss, qt.scale.contiguous(), group=group)
+    deq = (qs.float() * ss).reshape(n, blocks, -1)
+    total = torch.sum(deq, dim=0).reshape(-1)
+    out = (total[:xl.numel()] / n).reshape(xl.shape).to(xl.dtype)
+    if not shd.is_dtensor(x):
+        return out
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              shape=x.shape, stride=x.stride())

@@ -16,6 +16,15 @@ new moments, the float32 updates and the new params beside the old ones,
 which a 4 B-parameter model cannot afford on one 80 GB card. Its values
 equal ``update`` followed by ``apply_updates`` bit for bit.
 
+Over a device mesh (``launch/steps.py``) the leaves are DTensors.
+``global_norm`` and ``clip_scale`` then run as DTensor ops, so a leaf
+replicated over an axis counts once, not once per device, and the norm
+comes out replicated. ``update_in_place`` runs on each device's local
+block (``to_local()``) of the gradient and moments; where the params'
+placements differ from the moments' (ZeRO-1: params replicated over
+``"data"``, moments sharded over it) it updates the params' block the
+moments cover and all-gathers the params back into place.
+
 The arithmetic is the reference's, step for step: the schedule is read
 at ``step + 1``, the moments stay float32, the bias corrections are
 float32 powers of the step, and the weight decay is added to the
@@ -25,10 +34,13 @@ its own step count.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.distributed import sharding as shd
 
 Params = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -147,6 +159,18 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             lambda p, m, v: upd(p, m, v, lr_t, bc1, bc2), params, mu, nu)
         return updates, AdamState(mu=mu, nu=nu)
 
+    def one_leaf(g, p, m, v, lr_t, bc1, bc2, scale) -> None:
+        for gc, pc, mc, vc in _chunks(g, p, m, v):
+            if scale is not None:
+                gc = scaled(gc, scale)
+            mu, nu = upd_mu(gc, mc), upd_nu(gc, vc)
+            del gc
+            u = upd(pc, mu, nu, lr_t, bc1, bc2)
+            mc.copy_(mu)
+            vc.copy_(nu)
+            del mu, nu
+            pc.add_(u.to(pc.dtype))
+
     def update_in_place(grads: List[Optional[torch.Tensor]],
                         state: AdamState, params, step,
                         scale: Optional[torch.Tensor] = None) -> None:
@@ -156,32 +180,49 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         ``pytree.tree_leaves(params)`` order, each multiplied by ``scale``
         (``scaled``) when one is given; the list is consumed, each entry
         set to None once used, so a leaf's gradient is freed before the
-        next leaf's temporaries exist."""
+        next leaf's temporaries exist. DTensor leaves update their local
+        blocks (``_local_blocks``)."""
         leaves = pytree.tree_leaves(params)
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} "
                              "parameter leaves")
         lr_t, bc1, bc2 = adam_coefficients(sched, b1, b2, step,
                                            leaves[0].device)
+        if shd.is_dtensor(scale):
+            scale = scale.to_local()
         with torch.no_grad():
             for i, (p, m, v) in enumerate(zip(
                     leaves, pytree.tree_leaves(state.mu),
                     pytree.tree_leaves(state.nu))):
                 g, grads[i] = grads[i], None
-                for gc, pc, mc, vc in _chunks(g, p, m, v):
-                    if scale is not None:
-                        gc = scaled(gc, scale)
-                    mu, nu = upd_mu(gc, mc), upd_nu(gc, vc)
-                    del gc
-                    u = upd(pc, mu, nu, lr_t, bc1, bc2)
-                    mc.copy_(mu)
-                    vc.copy_(nu)
-                    del mu, nu
-                    pc.add_(u.to(pc.dtype))
+                if shd.is_dtensor(p):
+                    with _local_blocks(g, p, m, v) as blocks:
+                        one_leaf(*blocks, lr_t, bc1, bc2, scale)
+                else:
+                    one_leaf(g, p, m, v, lr_t, bc1, bc2, scale)
                 del g
 
     return Optimizer(init=init, update=update,
                      update_in_place=update_in_place)
+
+
+@contextlib.contextmanager
+def _local_blocks(g, p, m, v):
+    """The local blocks ``(g, p, m, v)`` of DTensor leaves to update in
+    place, in the moments' placements: the gradient redistributed there
+    (a no-op when it already is), the params' block cut out of them when
+    their placements differ and gathered back into the params on exit."""
+    g = g.redistribute(placements=m.placements).to_local()
+    same = p.placements == m.placements
+    pl = p.to_local() if same else \
+        p.redistribute(placements=m.placements).to_local().clone()
+    yield g, pl, m.to_local(), v.to_local()
+    if not same:
+        from torch.distributed.tensor import DTensor
+        new = DTensor.from_local(pl, m.device_mesh, m.placements,
+                                 shape=p.shape, stride=p.stride())
+        p.to_local().copy_(new.redistribute(placements=p.placements)
+                           .to_local())
 
 
 class SgdState(NamedTuple):

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.nn.module import quantize_absmax
 from repro_torch.optim import optimizers
 from repro_torch.optim.optimizers import (Optimizer, adam_coefficients,
@@ -123,6 +124,11 @@ def adamw8bit(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} "
                              "parameter leaves")
+        if any(shd.is_dtensor(l) for l in leaves):
+            raise NotImplementedError(
+                "8-bit moments have no sharded update: train over a device "
+                "mesh with float32 or bfloat16 moments (ROADMAP.md, what "
+                "item 12 left out)")
         lr_t, bc1, bc2 = adam_coefficients(sched, b1, b2, step,
                                            leaves[0].device)
         chunk = max(BLOCK, optimizers.IN_PLACE_CHUNK // BLOCK * BLOCK)

@@ -2,11 +2,13 @@
 ``repro/roofline/experiments_md.py``: the roofline table
 (``roofline/report.py``), the hillclimb log (``roofline/hillclimb.py``)
 and benchmark rows, all read from ``artifacts/torch/`` and priced on the
-H100 record.
+H100 record, and the dry run's per-device summary
+(``launch/dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.roofline.experiments_md
 
-Run ``python -m repro_torch.roofline.report`` and ``python -m
+Run ``python -m repro_torch.launch.dryrun``, ``python -m
+repro_torch.roofline.report`` and ``python -m
 repro_torch.roofline.hillclimb`` first; a missing artifact renders as a
 note. Nothing here reads the reference's artifacts.
 """
@@ -38,12 +40,64 @@ def _fmt_s(x: float) -> str:
     return f"{x * 1e6:.1f} µs"
 
 
-def dryrun_section() -> str:
-    return ("## §Dry-run\n\nThe port has no dry run until ROADMAP item 12 "
-            "(`launch/dryrun.py` with `distributed/sharding.py`): no "
-            "per-device memory or compiled collective inventory is shown "
-            "here, and nothing of the reference's dry-run artifacts is "
-            "rendered.\n")
+def load_dryrun(folder: str):
+    """Every cell artifact (``<arch>__<shape>__{sp,mp}.json``) of the
+    port's dry run in ``folder``, in name order."""
+    if not os.path.isdir(folder):
+        return []
+    out = []
+    for name in sorted(os.listdir(folder)):
+        if name.endswith(".json") and name.count("__") == 2:
+            out.append(_load(os.path.join(folder, name)))
+    return out
+
+
+def dryrun_section(summary) -> str:
+    """The port's dry run (``launch/dryrun.py``): which cells ran, and
+    each OK cell's per-device memory and collectives."""
+    ok = [r for r in summary if r["status"] == "OK"]
+    skip = [r for r in summary if r["status"] == "SKIP"]
+    fail = [r for r in summary if r["status"] == "FAIL"]
+    out = ["## §Dry-run\n"]
+    out.append(
+        f"**{len(summary)} cells** in `artifacts/torch/dryrun/` "
+        f"(`python -m repro_torch.launch.dryrun`): {len(ok)} OK, "
+        f"{len(skip)} documented SKIPs, {len(fail)} failures. Each OK cell "
+        f"is one step of `launch/steps.py` traced on a fake process group "
+        f"of 256 (or 512) ranks, its params, moments and inputs DTensors "
+        f"of fake local blocks placed by `distributed/sharding.py`; "
+        f"nothing is computed, and the numbers are rank 0's (FLOPs of the "
+        f"matrix products, bytes, peak live bytes, each collective's "
+        f"output bytes and `CommDebugMode`'s counts). `trace_s` is the "
+        f"seconds the trace took, not a compile time. A cell absent from "
+        f"the table was not run (ROADMAP.md).\n")
+    if skip:
+        out.append("Skips (long_500k on O(S²) full-attention archs): " +
+                   ", ".join(sorted({r["arch"] for r in skip})) + ".\n")
+    if not ok:
+        return "".join(out)
+    out.append("\n### Per-device memory & collectives\n")
+    out.append("| arch | shape | mesh | args GiB/dev | temp GiB/dev | "
+               "TFLOP/dev | trace s | collective ops |\n"
+               "|---|---|---|---|---|---|---|---|\n")
+    for r in ok:
+        counts = {k: v for k, v in r["collective_counts"].items() if v}
+        mem = r["memory"]
+        out.append(
+            f"| {r['arch']} | {r['shape']} | "
+            f"{'2x16x16' if r['multi_pod'] else '16x16'} | "
+            f"{mem['argument_bytes'] / 2**30:.2f} | "
+            f"{mem['temp_bytes'] / 2**30:.2f} | {r['flops'] / 1e12:.1f} | "
+            f"{r['trace_s']} | {counts} |\n")
+    out.append(
+        "\nNotes: (i) the kernels' plain versions run on the fake blocks, "
+        "so FLOPs are the model's and the temp bytes include the plain "
+        "attention's (B, H, 512, S) score chunks, which the flash kernel "
+        "on the card never holds. (ii) MoE dispatch gathers the batch's "
+        "tokens over the batch axes on every device (correct before "
+        "fast; an all-to-all dispatch is ROADMAP work), which the temp "
+        "bytes of the MoE cells show.\n")
+    return "".join(out)
 
 
 # what would move each (family, kind) cell's dominant term, in the
@@ -119,9 +173,11 @@ def perf_section(log) -> str:
         "paper-technique cell: hypersolved depth attacks the dominant "
         "memory term directly), on the 16 × 16 mesh as a what-if at one "
         "link rate. Every change is priced by the model, not run: the "
-        "port implements hypersolved depth (`models/cdepth.py`); int8 "
-        "dispatch, EP-over-data, SP, the int8 KV cache and int8 weights "
-        "wait for ROADMAP item 12.\n\n")
+        "port implements hypersolved depth (`models/cdepth.py`), int8 "
+        "dispatch and the int8 KV cache (`set_perf_options`), and "
+        "EP-over-data and SP over a device mesh (`launch/steps.py`, "
+        "measured per device in §Dry-run); int8 weights are not "
+        "ported.\n\n")
     if not log:
         out.append("(no hillclimb log: run `python -m "
                    "repro_torch.roofline.hillclimb`)\n")
@@ -255,7 +311,7 @@ def main():
     hill = _load(os.path.join(ART, "hillclimb_log.json"), [])
     bench = _load(os.path.join(ART, "bench_results.json"), [])
     md = HEADER.format(tver=torch.__version__, chip=H100.name)
-    md += dryrun_section()
+    md += dryrun_section(load_dryrun(os.path.join(ART, "dryrun")))
     md += roofline_section(roof)
     md += perf_section(hill)
     md += bench_section(bench)

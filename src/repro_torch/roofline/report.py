@@ -10,9 +10,11 @@ dominant term, MODEL_FLOPS and the useful-compute ratio. The CLI prints
 the reference's two meshes (16 x 16 and 2 x 16 x 16) and one card
 (1 x 1 x 1). On the H100 record every collective is priced at one NVLink
 4 rate, which holds inside one 8-GPU node: the two large meshes are
-what-ifs under that rate. The port has no dry run yet (ROADMAP item 12),
-so ``artifacts/torch/dryrun/`` is empty and the rows carry no memory
-columns.
+what-ifs under that rate. Where the port's dry run
+(``launch/dryrun.py``) has written a cell to ``artifacts/torch/dryrun/``,
+its row on the two large meshes gains the traced per-device memory
+(arguments and peak temporaries), the collective ops and the trace
+seconds.
 """
 from __future__ import annotations
 
@@ -104,9 +106,9 @@ def cell_row(arch: str, shape_name: str, multi_pod: bool = False, *,
         mem = art["memory"]
         row["dev_temp_gib"] = round(mem["temp_bytes"] / 2 ** 30, 2)
         row["dev_args_gib"] = round(mem["argument_bytes"] / 2 ** 30, 2)
-        row["compiled_coll_ops"] = {k: v for k, v in
-                                    art["collective_counts"].items() if v}
-        row["compile_s"] = art["compile_s"]
+        row["traced_coll_ops"] = {k: v for k, v in
+                                  art["collective_counts"].items() if v}
+        row["trace_s"] = art["trace_s"]
     return row
 
 

@@ -18,6 +18,7 @@ update algebra (``adamw8bit``'s params over 20 steps) at rtol = atol =
 1e-6; through matmuls rtol 1e-4, atol 1e-5 (XLA and PyTorch sum in
 different orders). The in-place update equals the functional one bit
 for bit."""
+import contextlib
 import dataclasses
 
 import jax
@@ -249,9 +250,48 @@ def test_compress_with_feedback_matches_jax():
         ej, et = ej_new, et_new
 
 
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A (data 1, model 1) mesh over a one-rank gloo group."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
 def test_compressed_allreduce_mean_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        compressed_allreduce_mean(torch.zeros(4), mesh=None)
+    """Ported by ROADMAP item 12 (it raised naming that item before): over
+    a one-rank gloo group the int8 mean of x is x's own int8 round trip,
+    dequantize(quantize(x)), bit for bit; four ranks are
+    tests/test_torch_distributed.py's."""
+    with _one_rank_mesh() as mesh:
+        x = torch.from_numpy(np.random.RandomState(2).randn(37, 11)
+                             .astype(np.float32))
+        got = compressed_allreduce_mean(x, mesh, axis="data")
+        want = dequantize_blockwise(quantize_blockwise(x), x.shape)
+        assert got.dtype == x.dtype and torch.equal(got, want)
+
+
+def test_8bit_moments_refuse_a_mesh():
+    """8-bit moments have no sharded update: DTensor params raise, naming
+    ROADMAP.md (the reference's TRAIN_SETTINGS never pair them with a
+    mesh)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    with _one_rank_mesh() as mesh:
+        p = distribute_tensor(torch.ones(4, 300), mesh,
+                              (Replicate(), Replicate()))
+        opt = adamw8bit(1e-3)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            opt.update_in_place([torch.ones(4, 300)], opt.init([p]), [p], 0)
 
 
 # ------------------------------------------------------ chunked attention ----

@@ -313,12 +313,33 @@ def test_hypothesis_loop_equals_reference():
 # -------------------------------------------------------------- report ----
 
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["sp", "mp"])
-def test_full_table_equals_reference(ref, multi_pod):
+def test_full_table_equals_reference(ref, multi_pod, tmp_path, monkeypatch):
+    # the cost model's rows alone: the port's committed dry-run artifacts
+    # add memory columns (test_rows_gain_the_dry_runs_memory), and the
+    # reference has no artifacts here to add its own
+    monkeypatch.setattr(trp, "ART", str(tmp_path))
     assert trp.full_table(multi_pod, chip=V5E) == ref["tables"][multi_pod]
     assert trp.settings_for("whisper_base") == \
         jrp.settings_for("whisper_base")
     assert trp.markdown_table(ref["tables"][multi_pod]) == \
         jrp.markdown_table(ref["tables"][multi_pod])
+
+
+def test_rows_gain_the_dry_runs_memory(tmp_path, monkeypatch):
+    """A row on a large mesh carries the per-device memory, collective
+    ops and trace seconds of the dry-run artifact of its cell."""
+    art = {"status": "OK", "trace_s": 1.5,
+           "memory": {"temp_bytes": 3 * 2 ** 30, "argument_bytes": 2 ** 30},
+           "collective_counts": {"all-gather": 0, "all-reduce": 7}}
+    os.makedirs(tmp_path / "dryrun")
+    with open(tmp_path / "dryrun" / "qwen3_8b__train_4k__sp.json", "w") as f:
+        json.dump(art, f)
+    monkeypatch.setattr(trp, "ART", str(tmp_path))
+    row = trp.cell_row("qwen3_8b", "train_4k")
+    assert (row["dev_temp_gib"], row["dev_args_gib"], row["trace_s"]) == \
+        (3.0, 1.0, 1.5) and row["traced_coll_ops"] == {"all-reduce": 7}
+    assert "dev_temp_gib" not in trp.cell_row("qwen3_8b", "train_4k",
+                                              multi_pod=True)
 
 
 def test_rendered_rows_equal_reference(ref):
@@ -355,7 +376,8 @@ def test_clis_write_the_ports_artifacts(tmp_path, monkeypatch, capsys):
     tmd.main()
     md = open(tmp_path / "EXPERIMENTS.md").read()
     assert f"PyTorch {torch.__version__}" in md and H100.name in md
-    assert "ROADMAP item 12" in md and "ROADMAP item 13" in md
+    assert "## §Dry-run" in md and "repro_torch.launch.dryrun" in md \
+        and "ROADMAP item 13" in md
     for tpu in ("JAX", "197 TFLOP", "819 GB", "v5e", "ICI"):
         assert tpu not in md, tpu
     assert len(_table_rows(md)) >= len(rows)

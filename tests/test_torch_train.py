@@ -565,7 +565,7 @@ def test_cli_prints_the_reference_lines(capsys):
              if a.option_strings} - {"-h"}
     assert flags == {"--arch", "--reduced", "--steps", "--batch", "--seq",
                      "--lr", "--microbatches", "--ckpt-dir", "--ckpt-every",
-                     "--log-every", "--device"}
+                     "--log-every", "--device", "--mesh"}
 
 
 def test_cli_without_a_card_exits_nonzero():
@@ -621,3 +621,16 @@ def test_served_model_is_freed_by_del(monkeypatch):
         assert alive() is None
     finally:
         gc.enable()
+
+
+@pytest.mark.parametrize("spec", ["2x2", "1x3"])
+def test_cli_refuses_a_mesh_that_is_not_the_world(monkeypatch, spec):
+    """``--mesh DxM`` must match torchrun's WORLD_SIZE, as ``serve --mesh``
+    must match the visible cards: refused before any process group or
+    step, naming both numbers."""
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    d, m = (int(x) for x in spec.split("x"))
+    with pytest.raises(SystemExit, match=rf"asks for {d * m} devices; the "
+                                         r"run has 1 processes"):
+        ttrain.main(["--arch", "qwen3_4b", "--reduced", "--device", "cpu",
+                     "--mesh", spec])
