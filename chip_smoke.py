@@ -304,6 +304,19 @@ def ordered_bits(t: torch.Tensor) -> torch.Tensor:
     return torch.where(b < 0, -(b & 0x7FFF), b)
 
 
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host µs a call of ``fn`` over ``calls`` back-to-back calls, the
+    stream synchronised before and after: Python dispatch and launch
+    enqueue, where they take longer than the device's work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 30,
             clean: bool = False) -> float:
     """Median device time of ``fn`` in ms, cold L2: the flush buffer is
@@ -568,6 +581,44 @@ def phase_flash(dev, bandwidth):
     return rows
 
 
+def operator_grad_case(kernel, route, plain, ins, gen):
+    """One scan operator's gradient on the card against ``torch.autograd``
+    of its plain loop at the same inputs and output gradients: ``route``
+    runs the operator (the kernel's forward; its registered backward, the
+    backward operator), ``plain`` the loop; both return a tuple of
+    outputs, and every input that is not None requires grad. Returns
+    (forward launches, backward launches, {input: max abs gap / max
+    |autograd's|}, every gradient equal bit for bit)."""
+    leaf = lambda: [None if t is None else t.detach().clone()
+                    .requires_grad_() for t in ins]
+    mine, ref = leaf(), leaf()
+    LAUNCHES.clear()
+    outs = route(*mine)
+    fwd = LAUNCHES[kernel]
+    gs = [torch.randn(o.shape, generator=gen, device=o.device) for o in outs]
+    torch.autograd.backward(outs, gs)
+    bwd = LAUNCHES[kernel] - fwd
+    torch.autograd.backward(plain(*ref), gs)
+    torch.cuda.synchronize()
+    rel, equal = {}, True
+    for i, (a, b) in enumerate(zip(mine, ref)):
+        if a is None:
+            continue
+        if a.grad is None or b.grad is None or a.grad.dtype != b.grad.dtype:
+            raise AssertionError(f"{kernel}: input {i} has no gradient or "
+                                 "another dtype")
+        gap = float((a.grad.float() - b.grad.float()).abs().max())
+        rel[i] = gap / max(float(b.grad.float().abs().max()), 1e-30)
+        equal = equal and torch.equal(a.grad, b.grad)
+    if (fwd, bwd) != (1, 0):
+        raise AssertionError(f"{kernel}: {fwd} launches in the forward, "
+                             f"{bwd} in the backward")
+    return fwd, bwd, rel, equal
+
+
+# phase_rglru's cases that also check the gradient (fp32 and bf16 gates)
+RGLRU_GRAD_CASES = ("serve", "ragged", "ragged-bf16")
+
 # name, (B, T, W), input dtype: the serving shape (fp32 gates, as
 # nn/rglru.py::_gates gives them), a long prompt at batch 1 (the deep
 # ring), ragged shapes in fp32, bf16 and fp16 (W 1000 and 2000: 16-byte
@@ -591,7 +642,12 @@ def rglru_inputs(shape, dtype, gen, dev):
 
 def phase_rglru(dev, bandwidth):
     """rglru_scan against its plain version bit for bit, both timed
-    cold-L2, and the bound (2 reads and 1 fp32 write per element)."""
+    cold-L2, and the bound (2 reads and 1 fp32 write per element). In
+    ``RGLRU_GRAD_CASES`` the operator's gradient (the kernel's forward, the
+    backward operator ``rglru_scan_backward``) against ``torch.autograd``
+    of the plain loop: ``torch.equal``, since the kernel's h equals the
+    loop's and the backward operator rounds each product and sum as
+    autograd of the loop does; one launch, in the forward."""
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -604,15 +660,32 @@ def phase_rglru(dev, bandwidth):
         if out.dtype != torch.float32 or not torch.equal(out, ref):
             raise AssertionError(f"rglru_scan {name}: kernel disagrees with "
                                  f"plain (max abs err {err})")
+        grad = None
+        if name in RGLRU_GRAD_CASES:
+            fwd, bwd, rel, equal = operator_grad_case(
+                "rglru_scan", lambda a, b: (rg_ops.rglru_scan(a, b),),
+                lambda a, b: (rglru_scan_ref(a, b),), [a, b], gen)
+            if not equal:
+                raise AssertionError(f"rglru_scan {name}: the operator's "
+                                     "gradient differs from autograd of "
+                                     f"the plain loop ({rel})")
+            grad = dict(launches_forward=fwd, launches_backward=bwd,
+                        max_rel_err=max(rel.values()), bit_equal=equal)
         buf = torch.empty_like(out)
         ms = time_ms(lambda: rg_ops.launch(buf, a, b), flush)
         plain_ms = time_ms(lambda: rglru_scan_ref(a, b), flush)
+        # the operator's dispatch: the wrapper's host time a call against
+        # ``launch`` alone
+        host_us = None if name != "serve" else dict(
+            call=host_us_per_call(lambda: rg_ops.rglru_scan(a, b)),
+            launch=host_us_per_call(lambda: rg_ops.launch(buf, a, b)))
         nbytes = 2 * a.numel() * a.element_size() + out.numel() * 4
         flops = 2 * a.numel()
         bound = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
         rows.append(dict(case=name, shape=list(shape),
                          dtype=str(dtype).replace("torch.", ""),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         max_abs_err=err, grad=grad, ms=ms,
+                         plain_ms=plain_ms, host_us=host_us,
                          bound_ms=bound, bytes=nbytes,
                          bound_by="bytes" if nbytes / bandwidth
                          >= flops / FP32_PEAK else "operations"))
@@ -647,6 +720,16 @@ RWKV6_CASES = [
      torch.bfloat16, True),
 ]
 RWKV6_TOL = 2e-6    # max abs error over max |plain|
+# phase_rwkv6's cases that also check the gradient, and its bound: each
+# input's gradient within 1e-6 of the largest of autograd's for that
+# input. The backward operator recomputes the plain loop's states bit for
+# bit and makes autograd's products, and its sums with autograd's own
+# reductions (the einsum's bmm gradient, each broadcast's sum over its
+# expanded axes, u's gradient summed over tokens in reverse); only a
+# reduction the card's library groups otherwise for its layout can round
+# apart, a few fp32 ulps (1.2e-7 each) of the largest gradient.
+RWKV6_GRAD_CASES = ("serve", "ragged-fp32", "state", "decode")
+RWKV6_GRAD_TOL = 1e-6
 
 
 def phase_rwkv6(dev, bandwidth):
@@ -655,7 +738,10 @@ def phase_rwkv6(dev, bandwidth):
     the kernel rounds the state update as the plain version does and only
     regroups and reorders the output's sums), both timed cold-L2, and the
     bound (each operand read once, o and S_T written once; 5 flops per
-    state element per token: k v, w S, + kv, and r S as an fma of 2)."""
+    state element per token: k v, w S, + kv, and r S as an fma of 2). In
+    ``RWKV6_GRAD_CASES`` the operator's gradient (the kernel's forward, the
+    backward operator ``wkv6_backward``) against ``torch.autograd`` of the
+    plain loop, within ``RWKV6_GRAD_TOL``; one launch, in the forward."""
     gen = torch.Generator(device=dev).manual_seed(6)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -681,11 +767,35 @@ def phase_rwkv6(dev, bandwidth):
         if state and not torch.equal(out[1], ref[1]):
             raise AssertionError(f"rwkv6_scan {name}: final state differs "
                                  f"from plain (max abs err {errs[1]})")
+        grad = None
+        if name in RWKV6_GRAD_CASES:
+            n_out = 2 if state else 1
+
+            def route(*x):
+                out = rw_ops.wkv6(*x, want_state=state)
+                return tuple(out) if state else (out,)
+            fwd, bwd, rel, equal = operator_grad_case(
+                "rwkv6_scan", route, lambda *x: wkv6_scan_ref(*x)[:n_out],
+                [r, k, v, w, u, S0], gen)
+            if max(rel.values()) > RWKV6_GRAD_TOL:
+                raise AssertionError(f"rwkv6_scan {name}: the operator's "
+                                     "gradient is off autograd of the plain "
+                                     f"loop's by {rel}")
+            grad = dict(launches_forward=fwd, launches_backward=bwd,
+                        max_rel_err=max(rel.values()), bit_equal=equal,
+                        tol=RWKV6_GRAD_TOL)
         o_buf = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
         s_buf = torch.empty_like(S0) if state else None
         ms = time_ms(lambda: rw_ops.launch(o_buf, r, k, v, w, u, S0, s_buf),
                      flush)
         plain_ms = time_ms(lambda: wkv6_scan_ref(r, k, v, w, u, S0), flush)
+        # the operator's dispatch: the wrapper's host time a call against
+        # ``launch`` alone (the decode case is every decode step's call)
+        host_us = None if name not in ("serve", "decode") else dict(
+            call=host_us_per_call(lambda: rw_ops.wkv6(r, k, v, w, u, S0,
+                                                      want_state=state)),
+            launch=host_us_per_call(lambda: rw_ops.launch(
+                o_buf, r, k, v, w, u, S0, s_buf)))
         nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
             + o_buf.numel() * 4 + (2 * S0.numel() * 4 if state else 0)
         flops = 5 * d * d * b * t * h
@@ -694,7 +804,8 @@ def phase_rwkv6(dev, bandwidth):
                          dtypes=[str(x).replace("torch.", "")
                                  for x in (xdt, wdt, udt)],
                          state=state, max_abs_err=max(errs),
-                         max_abs_plain=max(scale), tol=RWKV6_TOL, ms=ms,
+                         max_abs_plain=max(scale), tol=RWKV6_TOL, grad=grad,
+                         host_us=host_us, ms=ms,
                          plain_ms=plain_ms, bound_ms=bound, bytes=nbytes,
                          flops=flops,
                          bound_by="bytes" if nbytes / bandwidth
@@ -4034,8 +4145,10 @@ def phase_tracking(dev, train_iters=TRACK_TRAIN_ITERS,
 # The trainer (``python -m repro_torch.launch.train``, ``launch/steps.py``)
 # on the card: AdamW over the warmup-cosine schedule, the global-norm
 # clip, params and moments updated in place leaf by leaf; the flash,
-# RG-LRU and WKV6 kernels in the forward, each kernel's plain version
-# differentiated in the backward (``_Flash``, ``_RGLRUScan``, ``_WKV6``).
+# RG-LRU and WKV6 kernels in the forward; in the backward flash's plain
+# version differentiated (``_Flash``) and the scans' backward operators
+# (``repro_torch::rglru_scan_backward``, ``repro_torch::wkv6_backward``:
+# the plain loops' gradients as recurrences backward in time).
 # Full width for the three dense families at 8 x 128 tokens a step
 # (OLMoE-1B-7B's 6.92 B parameters need ~83 GB at rest in training: it
 # trains reduced only, in the fault phase's place on the CPU tests).
@@ -4123,8 +4236,9 @@ def phase_train_kernels(dev):
     card, at the full-width models' training shapes: the forward within
     each kernel phase's limit; the gradient of every input (every input
     requires grad) equal bit for bit to the all-plain version's at the
-    same inputs and output gradients, since the route's backward is the
-    plain version's; one launch in the forward and none in the backward.
+    same inputs and output gradients, since flash's backward is the plain
+    version's and the scans' backward operators round as autograd of the
+    plain loops does; one launch in the forward and none in the backward.
     Times the route's forward + backward against the plain version's
     (cold L2); the comparison's launches count for no path."""
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -4236,27 +4350,31 @@ def event_timed(events, key, fn):
 
 @contextlib.contextmanager
 def timed_step_parts():
-    """While open, each backward of the kernels' training routes (the
-    plain versions' backwards) and each forward + backward of a train
-    step (``steps._value_and_grad``, keyed ``forward_backward``) is
-    bracketed by CUDA events; yields ``{key: [(start, end), ...]}``
-    (``step_part_ms`` reads them per step). The rest of a step is the clip and the
-    in-place AdamW update."""
-    routes = {"flash_attention": fa_ops._Flash,
-              "rglru_scan": rg_ops._RGLRUScan, "rwkv6_scan": rw_ops._WKV6}
+    """While open, each backward of the kernels' training routes (flash's
+    plain backward, ``_Flash.backward``; the scans' backward operators,
+    whose implementation is ``rglru_scan_backward_ref`` or
+    ``wkv6_scan_backward_ref`` as ``ops.py`` calls it) and each forward +
+    backward of a train step (``steps._value_and_grad``, keyed
+    ``forward_backward``) is bracketed by CUDA events; yields ``{key:
+    [(start, end), ...]}`` (``step_part_ms`` reads them per step). The rest
+    of a step is the clip and the in-place AdamW update."""
+    routes = {"flash_attention": (fa_ops._Flash, "backward"),
+              "rglru_scan": (rg_ops, "rglru_scan_backward_ref"),
+              "rwkv6_scan": (rw_ops, "wkv6_scan_backward_ref")}
     events = collections.defaultdict(list)
-    saved = {k: vars(c)["backward"] for k, c in routes.items()}
+    saved = {k: vars(o)[a] for k, (o, a) in routes.items()}
     value_and_grad = steps._value_and_grad
-    for k, c in routes.items():
-        c.backward = staticmethod(event_timed(events, k, c.backward))
+    for k, (o, a) in routes.items():
+        timed = event_timed(events, k, getattr(o, a))
+        setattr(o, a, staticmethod(timed) if isinstance(o, type) else timed)
     steps._value_and_grad = event_timed(events, "forward_backward",
                                         value_and_grad)
     try:
         yield events
     finally:
         steps._value_and_grad = value_and_grad
-        for k, c in routes.items():
-            c.backward = saved[k]
+        for k, (o, a) in routes.items():
+            setattr(o, a, saved[k])
 
 
 def step_part_ms(events, steps):
@@ -4444,14 +4562,19 @@ def plain_kernels():
 def gradless_kernels():
     """A planted fault: every layer launches its kernel with no training
     route, so its output carries no gradient (the scan wrappers before
-    this slice): what the float32 step's check must catch."""
+    the trainer's slice): what the float32 step's check must catch."""
+    def rglru_gradless(a, b):
+        with torch.no_grad():
+            return rg_ops.rglru_scan(a, b)
+
     def wkv6_gradless(r, k, v, w, u, S0=None, *, want_state=False):
-        return rw_ops._forward(want_state, r, k, v, w, u, S0)
+        with torch.no_grad():
+            return rw_ops.wkv6(r, k, v, w, u, S0, want_state=want_state)
 
     with swapped_kernels(
             lambda q, k, v, causal=True, window=None:
             fa_ops._forward(q, k, v, causal, window),
-            rg_ops._forward, wkv6_gradless):
+            rglru_gradless, wkv6_gradless):
         yield
 
 

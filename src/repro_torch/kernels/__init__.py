@@ -6,7 +6,15 @@ wrappers, one for each TPU kernel of the JAX package (``hyper_step``,
 where it launches its kernel and nowhere else, so a run can show that
 its path went through the kernels. The CPU path (plain versions) never
 counts.
+
+``WORKSPACE`` maps an operator of the port (``torch.ops.repro_torch.*``,
+by its overload packet, as ``torch.utils.flop_counter.flop_registry``
+does) whose implementation holds buffers that neither its inputs nor its
+outputs show to a function of its arguments that gives their bytes; the
+dry run (``launch/dryrun.py``) adds them to the live bytes at that op.
 """
 import collections
+from typing import Callable, Dict
 
 LAUNCHES: collections.Counter = collections.Counter()
+WORKSPACE: Dict[object, Callable[..., int]] = {}

@@ -1,18 +1,30 @@
-"""Public wrapper of the RG-LRU scan ``h_t = a_t * h_{t-1} + b_t``.
+"""Public wrapper of the RG-LRU scan ``h_t = a_t * h_{t-1} + b_t``, and
+the operators it calls.
 
 ``rglru_scan`` is what ``nn/rglru.py::rglru_apply`` calls on the gates of
-every Griffin recurrent block. A tensor on the CPU takes the plain
-version (``ref.py``); a tensor on a CUDA device launches the CUDA kernel
-(``csrc/rglru_scan.cu``, built by ``kernels/_build.py`` at first use) or
-raises — there is no fallback. ``LAUNCHES["rglru_scan"]`` counts kernel
-launches, and nothing else.
+every Griffin recurrent block. It checks its operands and calls the
+PyTorch operator ``torch.ops.repro_torch.rglru_scan``, for CPU and CUDA
+tensors alike. The operator's implementations:
+  * CUDA: one launch of the CUDA kernel (``csrc/rglru_scan.cu``, built by
+    ``kernels/_build.py`` at first use) or an error; there is no
+    fallback. ``LAUNCHES["rglru_scan"]`` counts launches, and nothing
+    else;
+  * CPU: the plain version (``ref.py::rglru_scan_ref``);
+  * fake (``register_fake``): the fp32 output's shape and dtype only, so
+    a trace on fake tensors (``launch/dryrun.py``) launches and loops
+    over nothing.
 
 Training: the kernel has no backward, and neither has the reference's
-(``repro/nn/rglru.py`` differentiates a plain scan). So where autograd
-needs one — grad enabled and ``a`` or ``b`` requiring it — the wrapper
-goes through ``_RGLRUScan``: the kernel's forward, and in the backward
-the plain version differentiated at the saved inputs (one launch per
-forward, none in the backward).
+(``repro/nn/rglru.py`` differentiates a plain scan). The operator's
+gradient (``register_autograd``) is a second operator,
+``repro_torch::rglru_scan_backward``: the plain version's gradient
+written out as a recurrence backward in time
+(``ref.py::rglru_scan_backward_ref``), on the CPU and on the card alike,
+with a fake implementation. A training step launches the kernel once per
+forward and never in the backward. Both operators carry a FLOP formula
+for ``torch.utils.flop_counter`` (0: the recurrence is elementwise, and
+the counter counts matrix products), and the backward the bytes of its
+workspace (``kernels.WORKSPACE``); the dry run meters both.
 
 DTensors (a train step over a device mesh) run per shard: batch over the
 batch axes and width over ``"model"``; time is never sharded, so each
@@ -24,10 +36,12 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.kernels import LAUNCHES, _build
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels import LAUNCHES, WORKSPACE, _build
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_backward_ref,
+                                                rglru_scan_ref)
 
 MAX_BATCH = 65535   # grid.y limit: one grid row per batch row
 
@@ -62,7 +76,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return shd.on_local_shards(rglru_scan, (pl,), (pl, pl),
                                    a.device_mesh)(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return rglru_scan_ref(a, b)
+        return _scan(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
     if b.device != a.device:
@@ -72,35 +86,78 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         f"{b.dtype} (one of {sorted(map(str, _DTYPE_CODE))})")
     if a.shape[0] > MAX_BATCH:
         raise ValueError(f"rglru_scan: batch {a.shape[0]} > {MAX_BATCH}")
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _RGLRUScan.apply(a, b)
-    return _forward(a, b)
+    return _scan(a, b)
 
 
-def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(),
+                         device_types="cuda",
+                         schema="(Tensor a, Tensor b) -> Tensor")
+def _scan(a, b):
+    """The kernel: one launch writing the contiguous fp32 h."""
     h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if h.numel():
         launch(h, a.contiguous(), b.contiguous())
     return h
 
 
-class _RGLRUScan(torch.autograd.Function):
-    """The kernel's forward with the plain version's gradient."""
+@_scan.register_kernel("cpu")
+def _(a, b):
+    return rglru_scan_ref(a, b)
 
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return _forward(a, b)
 
-    @staticmethod
-    def backward(ctx, grad):
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need) for t, need in
-                   zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            out = rglru_scan_ref(*ins)
-            want = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, want, grad))
-        return tuple(next(got) if t.requires_grad else None for t in ins)
+@_scan.register_fake
+def _(a, b):
+    return a.new_empty(a.shape, dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "repro_torch::rglru_scan_backward", mutates_args=(),
+    device_types=("cpu", "cuda"),
+    schema="(Tensor grad, Tensor a, Tensor h, ScalarType b_dtype) "
+           "-> (Tensor, Tensor)")
+def _scan_backward(grad, a, h, b_dtype):
+    """(da, db) of the scan at its gates ``a`` and fp32 output ``h``."""
+    return rglru_scan_backward_ref(grad, a, h, b_dtype)
+
+
+@_scan_backward.register_fake
+def _(grad, a, h, b_dtype):
+    return a.new_empty(a.shape), a.new_empty(a.shape, dtype=b_dtype)
+
+
+def _setup_context(ctx, inputs, output):
+    a, b = inputs
+    ctx.save_for_backward(a, output)
+    ctx.b_dtype = b.dtype
+
+
+def _backward(ctx, grad):
+    a, h = ctx.saved_tensors
+    da, db = _scan_backward(grad, a, h, ctx.b_dtype)
+    return tuple(g if need else None
+                 for g, need in zip((da, db), ctx.needs_input_grad))
+
+
+_scan.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula([torch.ops.repro_torch.rglru_scan,
+                        torch.ops.repro_torch.rglru_scan_backward])
+def _scan_flops(*args, **kwargs) -> int:
+    """The plain version's count: its loop multiplies elementwise only."""
+    return 0
+
+
+def _backward_workspace(grad, a, h, b_dtype) -> int:
+    """Bytes ``rglru_scan_backward_ref`` holds beyond its inputs and
+    outputs: the shifted h, the fp32 copy of a low-precision a, and the
+    fp32 da and db before their casts."""
+    n = a.numel() * 4
+    return n * (1 + 2 * (a.dtype != torch.float32)
+                + (b_dtype != torch.float32))
+
+
+WORKSPACE[torch.ops.repro_torch.rglru_scan_backward] = _backward_workspace
 
 
 def launch(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:

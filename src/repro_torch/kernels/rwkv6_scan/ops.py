@@ -1,24 +1,37 @@
-"""Public wrapper of the WKV6 recurrence of RWKV-6's time mix.
+"""Public wrapper of the WKV6 recurrence of RWKV-6's time mix, and the
+operators it calls.
 
 ``wkv6`` is what ``nn/rwkv6.py::rwkv6_time_mix`` calls on every ``rwkv``
-block. Tensors on the CPU take the plain version (``ref.py``); tensors
-on a CUDA device launch the CUDA kernel (``csrc/rwkv6_scan.cu``, built by
-``kernels/_build.py`` at first use) or raise — there is no fallback.
-``LAUNCHES["rwkv6_scan"]`` counts kernel launches, and nothing else.
-
-The kernel reads r, k, v, w in (B, T, H, D) through their strides, each
-operand in its own float type (the serving path gives bf16 r, k, v, u
-and fp32 w), and converts to fp32 on load: nothing is upcast, padded or
-transposed here, and only an operand whose last axis is not contiguous
-is copied.
+block. It checks its operands and calls the PyTorch operator
+``torch.ops.repro_torch.wkv6(r, k, v, w, u, S0, want_state) -> (o, S_T)``
+for CPU and CUDA tensors alike; an operator returns no None, so S_T is
+an empty fp32 tensor of shape (0,) when ``want_state`` is false, and the
+wrapper returns o alone. The operator's implementations:
+  * CUDA: one launch of the CUDA kernel (``csrc/rwkv6_scan.cu``, built by
+    ``kernels/_build.py`` at first use) or an error; there is no
+    fallback. ``LAUNCHES["rwkv6_scan"]`` counts launches, and nothing
+    else. The kernel reads r, k, v, w in (B, T, H, D) through their
+    strides, each operand in its own float type (the serving path gives
+    bf16 r, k, v, u and fp32 w), and converts to fp32 on load: nothing is
+    upcast, padded or transposed here, and only an operand whose last
+    axis is not contiguous is copied;
+  * CPU: the plain version (``ref.py::wkv6_scan_ref``);
+  * fake (``register_fake``): the fp32 outputs' shapes and dtypes only,
+    so a trace on fake tensors (``launch/dryrun.py``) launches and loops
+    over nothing.
 
 Training: the kernel has no backward, and neither has the reference's
-(``repro/nn/rwkv6.py`` differentiates a plain scan). So where autograd
-needs one — grad enabled and any of r, k, v, w, u, S0 requiring it —
-the wrapper goes through ``_WKV6``: the kernel's forward, and in the
-backward the plain version differentiated at the saved inputs, through
-``o`` and, with ``want_state``, ``S_T`` (one launch per forward, none in
-the backward).
+(``repro/nn/rwkv6.py`` differentiates a plain scan). The operator's
+gradient (``register_autograd``), through o and S_T to r, k, v, w, u and
+S0, is a second operator, ``repro_torch::wkv6_backward``: the plain
+version's gradient written out as a recurrence backward in time
+(``ref.py::wkv6_scan_backward_ref``), on the CPU and on the card alike,
+with a fake implementation. A training step launches the kernel once per
+forward and never in the backward. Both operators carry a FLOP formula
+for ``torch.utils.flop_counter``, the plain loop's count (2 B T H D^2 in
+the forward, 4 B T H D^2 in the backward: its matrix products), and the
+backward the bytes of its workspace (``kernels.WORKSPACE``); the dry run
+meters both.
 
 DTensors (a train step over a device mesh) run per shard: batch over the
 batch axes and heads over ``"model"`` (u and the state with them); time
@@ -32,10 +45,12 @@ import functools
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.kernels import LAUNCHES, _build
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+from repro_torch.kernels import LAUNCHES, WORKSPACE, _build
+from repro_torch.kernels.rwkv6_scan.ref import (wkv6_scan_backward_ref,
+                                                wkv6_scan_ref)
 
 HEAD_SIZES = (8, 16, 32, 64, 128)   # D values the kernel is built for
 MAX_BATCH = 65535                   # grid.y limit: one grid row per batch row
@@ -75,8 +90,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return _sharded(r, k, v, w, u, S0, want_state)
     tensors = [t for t in (r, k, v, w, u, S0) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
-        o, S_T = wkv6_scan_ref(r, k, v, w, u, S0)
-        return (o, S_T) if want_state else o
+        return _call(r, k, v, w, u, S0, want_state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     if any(t.device != r.device for t in tensors):
@@ -92,9 +106,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if B > MAX_BATCH or H > MAX_HEADS:
         raise ValueError(f"wkv6: grid (H {H}, B {B}) exceeds ({MAX_HEADS}, "
                          f"{MAX_BATCH})")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _WKV6.apply(want_state, r, k, v, w, u, S0)
-    return _forward(want_state, r, k, v, w, u, S0)
+    return _call(r, k, v, w, u, S0, want_state)
+
+
+def _call(r, k, v, w, u, S0, want_state):
+    o, S_T = _wkv6(r, k, v, w, u, S0, want_state)
+    return (o, S_T) if want_state else o
 
 
 def _sharded(r, k, v, w, u, S0, want_state):
@@ -118,11 +135,16 @@ def _sharded(r, k, v, w, u, S0, want_state):
     )(r, k, v, w, u, S0)
 
 
-def _forward(want_state, r, k, v, w, u, S0):
+@torch.library.custom_op(
+    "repro_torch::wkv6", mutates_args=(), device_types="cuda",
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? S0, "
+           "bool want_state) -> (Tensor, Tensor)")
+def _wkv6(r, k, v, w, u, S0, want_state):
+    """The kernel: one launch writing the contiguous fp32 o (and S_T)."""
     B, T, H, D = r.shape
     o = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
-    S_T = (torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
-           if want_state else None)
+    S_T = torch.empty((B, H, D, D) if want_state else (0,),
+                      dtype=torch.float32, device=r.device)
     if S0 is not None:
         S0 = S0.float().contiguous()
     if o.numel() == 0:          # T = 0 (or B, H = 0): nothing to launch
@@ -130,39 +152,94 @@ def _forward(want_state, r, k, v, w, u, S0):
             S_T.copy_(S0)
         elif want_state:
             S_T.zero_()
-        return (o, S_T) if want_state else o
+        return o, S_T
     r, k, v, w = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (r, k, v, w))
-    launch(o, r, k, v, w, u.contiguous(), S0, S_T)
-    return (o, S_T) if want_state else o
+    launch(o, r, k, v, w, u.contiguous(), S0, S_T if want_state else None)
+    return o, S_T
 
 
-class _WKV6(torch.autograd.Function):
-    """The kernel's forward with the plain version's gradient."""
+@_wkv6.register_kernel("cpu")
+def _(r, k, v, w, u, S0, want_state):
+    o, S_T = wkv6_scan_ref(r, k, v, w, u, S0)
+    if not want_state:
+        return o, o.new_empty((0,))
+    return o, S_T.clone() if r.shape[1] == 0 else S_T   # S_T is S0 at T 0
 
-    @staticmethod
-    def forward(ctx, want_state, r, k, v, w, u, S0):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r, k, v, w, u, S0)
-        return _forward(want_state, r, k, v, w, u, S0)
 
-    @staticmethod
-    def backward(ctx, *grads):
-        if all(g is None for g in grads):
-            return (None,) * 7
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors,
-                                   ctx.needs_input_grad[1:])]
-            want = [t for t in ins if t is not None and t.requires_grad]
-            # (o, S_T) of the plain version against (grad o[, grad S_T])
-            outs = [(o, g) for o, g in zip(wkv6_scan_ref(*ins), grads)
-                    if g is not None]
-            got = iter(torch.autograd.grad([o for o, _ in outs], want,
-                                           [g for _, g in outs],
-                                           allow_unused=True))
-        return (None, *(next(got) if t is not None and t.requires_grad
-                        else None for t in ins))
+@_wkv6.register_fake
+def _(r, k, v, w, u, S0, want_state):
+    B, T, H, D = r.shape
+    return (r.new_empty((B, T, H, D), dtype=torch.float32),
+            r.new_empty((B, H, D, D) if want_state else (0,),
+                        dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "repro_torch::wkv6_backward", mutates_args=(),
+    device_types=("cpu", "cuda"),
+    schema="(Tensor? go, Tensor? gS, Tensor r, Tensor k, Tensor v, "
+           "Tensor w, Tensor u, Tensor? S0) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _wkv6_backward(go, gS, r, k, v, w, u, S0):
+    """(dr, dk, dv, dw, du, dS0) against the gradients of o and S_T."""
+    return wkv6_scan_backward_ref(go, gS, r, k, v, w, u, S0)
+
+
+@_wkv6_backward.register_fake
+def _(go, gS, r, k, v, w, u, S0):
+    return (*(t.new_empty(t.shape) for t in (r, k, v, w, u)),
+            r.new_empty((0,), dtype=torch.float32) if S0 is None
+            else S0.new_empty(S0.shape))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(*inputs[:6])
+
+
+def _backward(ctx, go, gS):
+    if gS is not None and gS.numel() == 0:      # S_T not asked for
+        gS = None
+    if go is None and gS is None:
+        return (None,) * 7
+    r, k, v, w, u, S0 = ctx.saved_tensors
+    grads = _wkv6_backward(go, gS, r, k, v, w, u, S0)
+    return (*(g if need else None
+              for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+_wkv6.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6)
+def _wkv6_flops(r_shape, *args, **kwargs) -> int:
+    """The plain loop's count: o_t = r_t M_t, a (1, D) x (D, D) product
+    per batch row, head and token."""
+    B, T, H, D = r_shape
+    return 2 * B * T * H * D * D
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_backward)
+def _wkv6_backward_flops(go_shape, gS_shape, r_shape, *args, **kwargs
+                         ) -> int:
+    """Autograd of the plain loop's count: the product's two gradients,
+    dr_t = M_t go_t and dM = r_t^T go_t, where o has a gradient."""
+    B, T, H, D = r_shape
+    return 0 if go_shape is None else 4 * B * T * H * D * D
+
+
+def _backward_workspace(go, gS, r, k, v, w, u, S0) -> int:
+    """Bytes ``wkv6_scan_backward_ref`` holds beyond its inputs and
+    outputs: the T recomputed fp32 states and four more (B, H, D, D)
+    blocks a step (kv, M, dM, dkv), and, for each of r, k, v, w not in
+    fp32, its fp32 copy and its fp32 gradient before the cast."""
+    B, T, H, D = r.shape
+    low = sum(t.dtype != torch.float32 for t in (r, k, v, w))
+    return 4 * (B * H * D * D * (T + 4) + 2 * low * B * T * H * D)
+
+
+WORKSPACE[torch.ops.repro_torch.wkv6_backward] = _backward_workspace
 
 
 def launch(o: torch.Tensor, r: torch.Tensor, k: torch.Tensor,

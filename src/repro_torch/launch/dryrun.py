@@ -8,6 +8,11 @@ roofline (``roofline/report.py``).
         --shape train_4k [--multi-pod] [--seq-shard] [--remat full] \\
         [--microbatches 4]
 
+One cell runs in this process; more than one (``--all``, ``--both-meshes``,
+an arch or a shape left open) run one process per cell, as many side by
+side as the host has cores, so a cell's figures do not depend on what
+ran before it.
+
 The reference lowers and compiles each cell with XLA for 256 (or 512)
 forced host devices and reads the compiled module's memory and cost
 analyses and its HLO collectives. The port has no compiler to ask, so it
@@ -18,20 +23,29 @@ the production mesh, the params, moments and inputs are DTensors placed
 by ``distributed/sharding.py``'s rules whose local blocks are fake
 tensors (``FakeTensorMode``: shapes and dtypes, no storage), and one
 step runs under ``CommDebugMode``. Nothing is computed and no
-accelerator is needed: the kernels' wrappers take their plain versions
-on the (CPU) fake tensors, so the FLOPs counted are the model's, not a
-kernel's. Rank 0's view is measured, below DTensor's dispatch (a fake
-mode that sees every op on a local block):
+accelerator is needed. On the (CPU) fake tensors flash attention takes
+its plain, chunked version, so its FLOPs are the model's, not the
+kernel's; each of the two scans is one operator (``torch.ops.repro_torch.
+rglru_scan`` and ``.wkv6``, their backwards ``rglru_scan_backward`` and
+``wkv6_backward``), whose fake implementation gives the output shapes
+alone and whose FLOP formula is the plain loop's count. Rank 0's view
+is measured, below DTensor's dispatch (a fake mode that sees every op
+on a local block):
   * ``flops``: the matrix products' FLOPs (``torch.utils.flop_counter``'s
-    formulas) on this device's blocks, backward and recomputation
-    included;
-  * ``bytes_accessed``: every non-view op's input and output bytes;
+    formulas, the scan operators' included) on this device's blocks,
+    backward and recomputation included;
+  * ``bytes_accessed``: every non-view op's input and output bytes; for a
+    scan operator that is its inputs and outputs once, what the kernel
+    moves;
   * ``memory``: ``argument_bytes`` (the local blocks of params, moments
     and inputs), ``output_bytes`` (what the step returns: for a train
     step the params and moments it updates in place, for prefill the
     logits, for decode the logits and the caches), ``temp_bytes`` (the
     peak of the bytes the step allocates and holds at once, beyond the
-    arguments), ``generated_code_bytes`` (0: no code is generated) and
+    arguments; at an operator with a workspace, ``kernels.WORKSPACE``,
+    the live bytes after its outputs plus the workspace's: the recomputed
+    states a scan's backward holds), ``generated_code_bytes`` (0: no code
+    is generated) and
     ``alias_bytes`` (the arguments updated in place: params and moments,
     or the caches);
   * ``collective_bytes`` / ``collective_counts`` per kind: each
@@ -117,6 +131,8 @@ def _meter_mode():
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import flop_registry
 
+    from repro_torch.kernels import WORKSPACE
+
     class Meter(FakeTensorMode):
         def __init__(self):
             super().__init__(allow_non_fake_inputs=True)
@@ -174,6 +190,9 @@ def _meter_mode():
                 key = t.untyped_storage()._cdata
                 if key not in args_keys or key in self._refs:
                     self._hold(t)
+            if packet in WORKSPACE:
+                self.peak = max(self.peak, self.live
+                                + WORKSPACE[packet](*args, **kwargs))
             return out
 
     return Meter()
@@ -346,6 +365,45 @@ def _comm_counts(comm) -> Dict[str, int]:
     return out
 
 
+def _cell_path(arch: str, shape: str, multi_pod: bool, tag: str) -> str:
+    name = f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}" + \
+        (f"__{tag}" if tag else "")
+    return os.path.join(ARTIFACT_DIR, name + ".json")
+
+
+def _run_apart(cells, passthrough, tag) -> list:
+    """Each cell in a process of its own, ``os.cpu_count()`` side by side:
+    torch keeps process-wide state across cells (the fake-tensor dispatch
+    cache, DTensor's sharding caches) that moves a later cell's metered
+    bytes, so one process per cell gives every cell the same count
+    whatever ran before it. Returns the cells' records, from their
+    files."""
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(cell):
+        mp, arch, shape = cell
+        path = _cell_path(arch, shape, mp, tag)
+        if os.path.exists(path):
+            os.remove(path)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--out", os.devnull,
+               *(["--multi-pod"] if mp else []), *passthrough]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        print("".join(l + "\n" for l in proc.stdout.splitlines()
+                      if l.startswith("[OK]")), end="", flush=True)
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        return {"arch": arch, "shape": shape, "multi_pod": mp,
+                "status": "FAIL", "error": f"exit {proc.returncode}: "
+                f"{proc.stderr.strip().splitlines()[-1:]}"}
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        return list(pool.map(one, cells))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -364,41 +422,48 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     os.makedirs(ARTIFACT_DIR, exist_ok=True)
-    if args.int8_dispatch:
-        set_perf_options(int8_dispatch=True)
-    if args.kv_int8:
-        set_perf_options(kv_int8=True)
-    if args.ep_data:
-        shd.set_ep_axis("data")
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     meshes = [False, True] if (args.all or args.both_meshes) \
         else [args.multi_pod]
+    cells = [(mp, arch, shape) for mp in meshes for arch in archs
+             for shape in shapes]
 
-    results = []
-    for mp in meshes:
+    if len(cells) > 1:
+        passthrough = [f for f, on in (
+            ("--seq-shard", args.seq_shard), ("--int8-dispatch",
+                                              args.int8_dispatch),
+            ("--ep-data", args.ep_data), ("--kv-int8", args.kv_int8)) if on]
+        for f, v in (("--remat", args.remat),
+                     ("--microbatches", args.microbatches),
+                     ("--tag", args.tag)):
+            if v:
+                passthrough += [f, str(v)]
+        results = _run_apart(cells, passthrough, args.tag)
+    else:
+        if args.int8_dispatch:
+            set_perf_options(int8_dispatch=True)
+        if args.kv_int8:
+            set_perf_options(kv_int8=True)
+        if args.ep_data:
+            shd.set_ep_axis("data")
+        (mp, arch, shape), = cells
+        settings = TRAIN_SETTINGS.get(arch, TRAIN_SETTINGS["_default"])
+        overrides = {}
+        if args.seq_shard is not None:
+            overrides["seq_shard"] = args.seq_shard
+        if args.remat:
+            overrides["remat"] = args.remat
+        if args.microbatches:
+            overrides["microbatches"] = args.microbatches
+        if overrides:
+            settings = dataclasses.replace(settings, **overrides)
         with fake_world(512 if mp else 256):
             mesh = make_production_mesh(multi_pod=mp, device_type="cpu")
-            for arch in archs:
-                for shape in shapes:
-                    settings = TRAIN_SETTINGS.get(arch,
-                                                  TRAIN_SETTINGS["_default"])
-                    overrides = {}
-                    if args.seq_shard is not None:
-                        overrides["seq_shard"] = args.seq_shard
-                    if args.remat:
-                        overrides["remat"] = args.remat
-                    if args.microbatches:
-                        overrides["microbatches"] = args.microbatches
-                    if overrides:
-                        settings = dataclasses.replace(settings, **overrides)
-                    res = run_cell(arch, shape, mp, settings, mesh=mesh)
-                    results.append(res)
-                    tag = f"{arch}__{shape}__{'mp' if mp else 'sp'}" + \
-                        (f"__{args.tag}" if args.tag else "")
-                    with open(os.path.join(ARTIFACT_DIR, tag + ".json"),
-                              "w") as f:
-                        json.dump(res, f, indent=1)
+            res = run_cell(arch, shape, mp, settings, mesh=mesh)
+        with open(_cell_path(arch, shape, mp, args.tag), "w") as f:
+            json.dump(res, f, indent=1)
+        results = [res]
 
     # only --all owns summary.json (single-cell reruns must not clobber)
     default_name = "summary.json" if args.all else "summary_partial.json"

@@ -13,7 +13,11 @@ its own (the two side by side). Checked:
   * ``flops`` on a pure data-parallel (256, 1) mesh equals the unsharded
     step's FLOPs / 256 to 1 %; on (16, 16) it lies between the unsharded
     FLOPs / 256 and / 16 (tensor parallelism splits only what divides
-    the model axis);
+    the model axis); with every width dividing the model axis, it is the
+    formula's count of one sequence exactly (the unsharded FLOPs / 256);
+  * Griffin's and RWKV6's train and prefill cells trace on both meshes
+    (each scan one operator, ``torch.ops.repro_torch.*``, where its plain
+    loop would take hours at 4,096 tokens);
   * the collectives a train step needs are there: all-reduce or
     reduce-scatter for the tensor-parallel sums and the ZeRO gradients,
     all-gather under ``fsdp``;
@@ -25,6 +29,8 @@ import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import cell_is_applicable as jax_applicable
@@ -52,6 +58,10 @@ _SCRIPT = textwrap.dedent("""
 
     MP = sys.argv[1] == "mp"
     FAST = dict(microbatches=1, remat="none")
+    # reduced Qwen3-4B with 16 heads of 16 and 16 KV heads: every width
+    # (d_model 64, heads, d_ff 128, vocab 256) divides the model axis
+    WIDE = dataclasses.replace(get("qwen3_4b").reduced(), n_heads=16,
+                               n_kv=16)
 
     def rule_bytes(mesh, cfg, shape, settings):
         # the local bytes the rules give params, moments and inputs
@@ -81,8 +91,8 @@ _SCRIPT = textwrap.dedent("""
             total += sum(local(s, t) for s, t in zip(sps, leaves))
         return total
 
-    def cell(arch, shape, settings=None, mesh=None):
-        cfg = get(arch).reduced()
+    def cell(arch, shape, settings=None, mesh=None, cfg=None):
+        cfg = cfg or get(arch).reduced()
         s = settings or dataclasses.replace(dryrun.TRAIN_SETTINGS.get(
             arch, dryrun.TRAIN_SETTINGS["_default"]), **FAST)
         res = dryrun.run_cell(arch, shape, MP, s, verbose=False, cfg=cfg,
@@ -106,11 +116,17 @@ _SCRIPT = textwrap.dedent("""
             out["olmoe_1b_7b/train_4k"] = cell("olmoe_1b_7b", "train_4k")
         for shape in shapes:
             out["qwen3_4b/" + shape] = cell("qwen3_4b", shape)
+        # the scans' train and prefill cells: one operator a scan
+        for arch in ("recurrentgemma_2b", "rwkv6_1p6b"):
+            for shape in ("train_4k", "prefill_32k"):
+                out[arch + "/" + shape] = cell(arch, shape)
         if not MP:
             dp = init_device_mesh("cpu", (256, 1),
                                   mesh_dim_names=("data", "model"))
             out["qwen3_4b/train_4k/dp"] = cell("qwen3_4b", "train_4k",
                                                mesh=dp)
+            out["qwen3_4b/train_4k/tp"] = cell("qwen3_4b", "train_4k",
+                                               cfg=WIDE)
     if not MP:   # the unsharded step's FLOPs, on fake tensors
         cfg = get("qwen3_4b").reduced()
         s = dataclasses.replace(dryrun.TRAIN_SETTINGS["_default"], **FAST)
@@ -130,7 +146,9 @@ _SCRIPT = textwrap.dedent("""
 """)
 
 
-def _run_both():
+@pytest.fixture(scope="module")
+def both():
+    """The two meshes' subprocesses, run once for the module's tests."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     procs = {m: subprocess.Popen(
         [sys.executable, "-c", _SCRIPT, m], env=env, cwd=REPO,
@@ -145,8 +163,8 @@ def _run_both():
     return out
 
 
-def test_dry_run_cells_on_the_production_meshes():
-    res = _run_both()
+def test_dry_run_cells_on_the_production_meshes(both):
+    res = both
     for m, n_dev in (("sp", 256), ("mp", 512)):
         for key, r in res[m].items():
             if key == "unsharded_flops" or r["status"] == "SKIP":
@@ -178,3 +196,69 @@ def test_dry_run_cells_on_the_production_meshes():
     assert abs(dp - total / 256) <= 0.01 * total / 256, (dp, total)
     tp = res["sp"]["qwen3_4b/train_4k"]["flops"]
     assert total / 256 <= tp <= total / 16, (tp, total)
+
+
+def _train_flops(L, T, d, H, dh, ff, V):
+    """A dense train step's matrix-product FLOPs for one sequence of T
+    tokens: three times the forward's (the backward's two products for
+    each of its one), the forward per layer the q, k, v and o projections,
+    the scores and their product with v over all T keys (the plain,
+    chunked attention computes every score), and the gated MLP's three
+    products; then the logits."""
+    layer = 2 * T * d * 3 * H * dh + 2 * T * H * dh * d \
+        + 2 * 2 * T * T * H * dh + 3 * 2 * T * d * ff
+    return 3 * (L * layer + 2 * T * d * V)
+
+
+def test_tensor_parallel_cell_flops_are_pinned(both):
+    """On (16, 16), with every width dividing the model axis (16 heads of
+    16 and 16 KV heads on reduced Qwen3-4B), no matrix product stays
+    replicated: the cell's FLOPs are the unsharded step's / 256 exactly,
+    which is one sequence's by the formula (256 sequences over 16 data
+    shards, each product's width over 16 model shards)."""
+    tp = both["sp"]["qwen3_4b/train_4k/tp"]
+    assert tp["status"] == "OK" and tp["mesh"] == {"data": 16, "model": 16}
+    assert tp["flops"] == _train_flops(L=2, T=4096, d=64, H=16, dh=16,
+                                       ff=128, V=256) == 107_911_053_312
+
+
+def test_cli_runs_each_cell_in_a_process_of_its_own(monkeypatch, tmp_path):
+    """torch keeps process-wide state across cells (the fake-tensor
+    dispatch cache, DTensor's sharding caches), and a cell traced after
+    another meters other bytes (Mistral-NeMo's decode cell 0.035 % fewer
+    after its prefill cell). So more than one cell runs one
+    ``python -m repro_torch.launch.dryrun --arch A --shape S`` process per
+    cell, the options passed on, and the records come from the cells'
+    files; a process that writes none is a FAIL."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
+    calls = []
+
+    class Done:
+        returncode, stdout, stderr = 1, "[OK] a cell\n", "boom\nlast line"
+
+    def fake_run(cmd, **kwargs):
+        calls.append(cmd)
+        arch, shape = cmd[cmd.index("--arch") + 1], cmd[cmd.index("--shape")
+                                                      + 1]
+        mp = "--multi-pod" in cmd
+        if arch != "whisper_base" or shape != "decode_32k" or not mp:
+            with open(dryrun._cell_path(arch, shape, mp, "t"), "w") as f:
+                json.dump({"arch": arch, "shape": shape, "multi_pod": mp,
+                           "status": "OK"}, f)
+        return Done()
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    out = tmp_path / "summary.json"
+    rc = dryrun.main(["--arch", "whisper_base", "--both-meshes", "--remat",
+                      "full", "--kv-int8", "--tag", "t", "--out", str(out)])
+    assert rc == 1 and len(calls) == 8   # 4 shapes x 2 meshes
+    for cmd in calls:
+        assert cmd[1:3] == ["-m", "repro_torch.launch.dryrun"]
+        assert cmd[cmd.index("--remat") + 1] == "full" and "--kv-int8" in cmd
+        assert cmd[cmd.index("--tag") + 1] == "t"
+    recs = json.loads(out.read_text())
+    assert [r["status"] for r in recs].count("FAIL") == 1
+    fail = next(r for r in recs if r["status"] == "FAIL")
+    assert (fail["shape"], fail["multi_pod"]) == ("decode_32k", True)
+    assert "last line" in fail["error"]

@@ -13,6 +13,8 @@ reference scans associatively and the port sequentially, and
 tests/test_nn_layers.py holds those two forms to that bound. Inputs come
 from numpy RandomState.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from repro.nn import rglru as jrg
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.rglru_scan.ops import MAX_BATCH, rglru_scan
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.nn import rglru as trg
 
 LAYER_TOL = dict(rtol=2e-4, atol=1e-5)
@@ -169,55 +172,168 @@ def test_rglru_scan_raises_past_max_batch():
     assert LAUNCHES["rglru_scan"] == 0
 
 
-def test_training_route_takes_the_plain_versions_gradient(monkeypatch):
-    """Where autograd needs a backward, ``_RGLRUScan`` runs the kernel's
-    forward and differentiates the plain version at the same inputs (the
-    kernel has none). With the launch standing in for the kernel on the
-    CPU, values and gradients equal the plain version's bit for bit, in
-    fp32 and bf16, with either input alone requiring grad; the launch
-    ran once per forward and never in the backward. The plain gradient
-    is ``jax.grad``'s through the reference's scan to fp32 rounding."""
-    from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_ref
+@contextlib.contextmanager
+def _cuda_implementation_on_the_cpu(monkeypatch, calls):
+    """The operator's CUDA implementation for CPU tensors while open, its
+    launch standing in for the kernel with the plain version (each
+    launch's shape appended to ``calls``)."""
     from repro_torch.kernels.rglru_scan import ops
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-    calls = []
 
     def fake_launch(h, a, b):
         calls.append(a.shape)
         h.copy_(rglru_scan_ref(a, b))
 
     monkeypatch.setattr(ops, "launch", fake_launch)
+    with ops._scan.set_kernel_enabled("cpu", False):
+        yield
+
+
+def test_training_route_takes_the_plain_versions_gradient(monkeypatch):
+    """The operator ``repro_torch::rglru_scan`` as the card runs it: the
+    kernel's forward (its CUDA implementation, the launch standing in for
+    the kernel on the CPU) and, where autograd needs a backward, the
+    backward operator. Values and gradients equal autograd of the plain
+    version's loop bit for bit, in fp32 and bf16, with either input alone
+    requiring grad; the launch ran once per forward and never in the
+    backward. The gradient is ``jax.grad``'s through the reference's scan
+    to fp32 rounding."""
+    from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_ref
+    calls = []
     rs = np.random.RandomState(11)
     shape = (2, 9, 12)
-    for dtype, need in ((torch.float32, (True, True)),
-                        (torch.bfloat16, (True, True)),
-                        (torch.float32, (False, True)),
-                        (torch.float32, (True, False))):
-        a_np = (1.0 / (1.0 + np.exp(-rs.randn(*shape)))).astype(np.float32)
-        b_np = rs.randn(*shape).astype(np.float32)
-        ins = [torch.from_numpy(x).to(dtype) for x in (a_np, b_np)]
-        mine = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
-        ref = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
-        out = ops._RGLRUScan.apply(*mine)
-        want = rglru_scan_ref(*ref)
-        assert torch.equal(out, want)
-        g = torch.from_numpy(rs.randn(*shape).astype(np.float32))
-        n_calls = len(calls)
-        out.backward(g)
-        want.backward(g)
-        assert len(calls) == n_calls
-        for x, y, n in zip(mine, ref, need):
-            assert (x.grad is None) == (not n)
-            if n:
-                assert x.grad.dtype == dtype and torch.equal(x.grad, y.grad)
-        if dtype == torch.float32 and all(need):
-            jg = jax.grad(lambda a, b: jnp.sum(jax_ref(a, b) * g.numpy()),
-                          argnums=(0, 1))(a_np, b_np)
-            for x, y in zip(mine, jg):
-                np.testing.assert_allclose(x.grad.numpy(), np.asarray(y),
-                                           rtol=1e-5, atol=1e-6)
+    with _cuda_implementation_on_the_cpu(monkeypatch, calls):
+        for dtype, need in ((torch.float32, (True, True)),
+                            (torch.bfloat16, (True, True)),
+                            (torch.float32, (False, True)),
+                            (torch.float32, (True, False))):
+            a_np = (1.0 / (1.0 + np.exp(-rs.randn(*shape)))).astype(
+                np.float32)
+            b_np = rs.randn(*shape).astype(np.float32)
+            ins = [torch.from_numpy(x).to(dtype) for x in (a_np, b_np)]
+            mine = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+            ref = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+            out = rglru_scan(*mine)
+            want = rglru_scan_ref(*ref)
+            assert torch.equal(out, want)
+            g = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+            n_calls = len(calls)
+            out.backward(g)
+            want.backward(g)
+            assert len(calls) == n_calls
+            for x, y, n in zip(mine, ref, need):
+                assert (x.grad is None) == (not n)
+                if n:
+                    assert x.grad.dtype == dtype and \
+                        torch.equal(x.grad, y.grad)
+            if dtype == torch.float32 and all(need):
+                jg = jax.grad(lambda a, b: jnp.sum(jax_ref(a, b)
+                                                   * g.numpy()),
+                              argnums=(0, 1))(a_np, b_np)
+                for x, y in zip(mine, jg):
+                    np.testing.assert_allclose(x.grad.numpy(), np.asarray(y),
+                                               rtol=1e-5, atol=1e-6)
     assert len(calls) == 4
-    # on a CPU tensor the wrapper stays the plain version, grad or not
+    # outside it a CPU tensor takes the plain version, grad or not
     a = torch.rand(1, 4, 3, requires_grad=True)
     assert torch.equal(rglru_scan(a, a), rglru_scan_ref(a, a))
     assert len(calls) == 4 and LAUNCHES["rglru_scan"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_operator_forward_is_the_plain_version(dtype):
+    """On the CPU the operator is ``ref.py``'s loop, bit for bit."""
+    rs = np.random.RandomState(14)
+    a, b = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (
+        (1.0 / (1.0 + np.exp(-rs.randn(3, 21, 10)))).astype(np.float32),
+        rs.randn(3, 21, 10).astype(np.float32)))
+    out = torch.ops.repro_torch.rglru_scan(a, b)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, rglru_scan_ref(a, b))
+    assert LAUNCHES["rglru_scan"] == 0
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 8), (1, 1, 5), (3, 64, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_operator_equals_autograd_of_the_loop(shape, dtype):
+    """``repro_torch::rglru_scan_backward`` (the reverse-time recurrence
+    of ``ref.py::rglru_scan_backward_ref``) is ``torch.equal`` to
+    autograd of the plain loop, gradients in the inputs' dtype."""
+    rs = np.random.RandomState(15)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy((1.0 / (1.0 + np.exp(-rs.randn(*shape)))).astype(
+        np.float32)).to(dt)
+    b = torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dt)
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    h = rglru_scan_ref(a, b)
+    da, db = torch.ops.repro_torch.rglru_scan_backward(g, a, h, dt)
+    a2, b2 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    rglru_scan_ref(a2, b2).backward(g)
+    assert da.dtype == db.dtype == dt
+    assert torch.equal(da, a2.grad) and torch.equal(db, b2.grad)
+
+
+def _metered_flops(fn, shapes, backward):
+    """The dry run's meter (``dryrun._meter_mode``) over ``fn`` on fake
+    inputs of ``shapes`` that require grad, with the backward of the
+    output's sum if ``backward``."""
+    from repro_torch.launch import dryrun
+    meter = dryrun._meter_mode()
+    with meter:
+        ins = [torch.empty(s).requires_grad_() for s in shapes]
+        meter.metering = True
+        out = fn(*ins)
+        if backward:
+            out.sum().backward()
+    return meter.flops
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_meter_counts_the_loops_flops(backward):
+    """Under the dry run's meter at T 16, one operator call counts exactly
+    the plain loop's FLOPs, forward and forward + backward (0: the loop
+    multiplies elementwise, and the meter counts matrix products), and a
+    formula is registered for both operators."""
+    from torch.utils.flop_counter import flop_registry
+    assert torch.ops.repro_torch.rglru_scan in flop_registry
+    assert torch.ops.repro_torch.rglru_scan_backward in flop_registry
+    shapes = [(2, 16, 8)] * 2
+    assert _metered_flops(rglru_scan, shapes, backward) == \
+        _metered_flops(rglru_scan_ref, shapes, backward) == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fake_call_launches_nothing(device):
+    """On fake tensors (the dry run's) the wrapper, on a CPU or a CUDA
+    device, reaches the operator's fake implementation: the fp32 output's
+    shape, no launch counted; on the CPU (autograd on a fake CUDA device
+    needs a card) the backward operator's too, the gradients in the
+    inputs' dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        a = torch.empty(3, 4096, 16, dtype=torch.bfloat16, device=device,
+                        requires_grad=device == "cpu")
+        h = rglru_scan(a, a)
+        assert h.shape == a.shape and h.dtype == torch.float32
+        assert h.device.type == device
+        if device == "cpu":
+            (da,) = torch.autograd.grad(h.sum(), a)
+            assert da.shape == a.shape and da.dtype == torch.bfloat16
+    assert LAUNCHES["rglru_scan"] == 0
+
+
+CHECKS = ("test_schema", "test_autograd_registration", "test_faketensor")
+
+
+def test_operators_pass_opcheck():
+    """``torch.library.opcheck``'s schema, fake-implementation and
+    autograd-registration checks (not its compiled-dispatch one)."""
+    rs = np.random.RandomState(16)
+    a = torch.from_numpy(rs.rand(2, 7, 5).astype(np.float32))
+    b = torch.from_numpy(rs.randn(2, 7, 5).astype(np.float32))
+    g = torch.from_numpy(rs.randn(2, 7, 5).astype(np.float32))
+    torch.library.opcheck(torch.ops.repro_torch.rglru_scan.default,
+                          (a.requires_grad_(), b.requires_grad_()),
+                          test_utils=CHECKS)
+    torch.library.opcheck(torch.ops.repro_torch.rglru_scan_backward.default,
+                          (g, a.detach(), rglru_scan_ref(a, b).detach(),
+                           torch.float32), test_utils=CHECKS)

@@ -15,6 +15,8 @@ to the reference tests' fp32 bound rtol 2e-4 / atol 2e-5
 (tests/test_nn_layers.py, tests/test_kernels.py). Inputs come from numpy
 RandomState.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from repro.nn import rwkv6 as jrw
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
 from repro_torch.nn import ffn as tffn
 from repro_torch.nn import rwkv6 as trw
 
@@ -269,24 +272,12 @@ def test_wkv6_raises_where_it_has_no_kernel():
     assert LAUNCHES["rwkv6_scan"] == 0
 
 
-@pytest.mark.parametrize("with_s0,want_state", [(False, False),
-                                                (True, False), (True, True)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_training_route_takes_the_plain_versions_gradient(
-        monkeypatch, with_s0, want_state, dtype):
-    """Where autograd needs a backward, ``_WKV6`` runs the kernel's
-    forward and differentiates the plain version at the saved inputs.
-    With the launch standing in for the kernel on the CPU, o (and S_T),
-    and the gradients of r, k, v, w, u and S0 through o and S_T, equal the
-    plain version's bit for bit (bf16 r, k, v, u as the serving path
-    gives them, fp32 w); every input gets a nonzero gradient; the launch
-    ran once per forward and never in the backward. Without S0 the
-    plain gradient is ``jax.grad``'s through the reference's scan within
-    the layer tolerance."""
-    from repro.kernels.rwkv6_scan.ref import wkv6_ref as jax_ref
+@contextlib.contextmanager
+def _cuda_implementation_on_the_cpu(monkeypatch, calls):
+    """The operator's CUDA implementation for CPU tensors while open, its
+    launch standing in for the kernel with the plain version (each
+    launch's shape appended to ``calls``)."""
     from repro_torch.kernels.rwkv6_scan import ops
-    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
-    calls = []
 
     def fake_launch(o, r, k, v, w, u, S0, S_T):
         calls.append(r.shape)
@@ -296,6 +287,40 @@ def test_training_route_takes_the_plain_versions_gradient(
             S_T.copy_(s_ref)
 
     monkeypatch.setattr(ops, "launch", fake_launch)
+    with ops._wkv6.set_kernel_enabled("cpu", False):
+        yield
+
+
+def _assert_grads_close(got, want):
+    """Each gradient within 1e-6 of the largest of autograd's for that
+    input: the backward operator makes autograd's sums, in its order as
+    far as it can, so only a reordered reduction may round apart."""
+    for name, x, y in zip("rkvwuS", got, want):
+        if y is None:
+            continue
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        err = (x.float() - y.float()).abs().max()
+        assert err <= 1e-6 * y.float().abs().max(), (name, float(err))
+
+
+@pytest.mark.parametrize("with_s0,want_state", [(False, False),
+                                                (True, False), (True, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_training_route_takes_the_plain_versions_gradient(
+        monkeypatch, with_s0, want_state, dtype):
+    """The operator ``repro_torch::wkv6`` as the card runs it: the
+    kernel's forward (its CUDA implementation, the launch standing in for
+    the kernel on the CPU) and, where autograd needs a backward, the
+    backward operator. o (and S_T), and the gradients of r, k, v, w, u and
+    S0 through o and S_T, equal autograd of the plain loop's bit for bit
+    (bf16 r, k, v, u as the serving path gives them, fp32 w): the backward
+    operator makes autograd's products and reductions on the same shapes
+    and layouts; every input gets a nonzero gradient; the
+    launch ran once per forward and never in the backward. Without S0 the
+    gradient is ``jax.grad``'s through the reference's scan within the
+    layer tolerance."""
+    from repro.kernels.rwkv6_scan.ref import wkv6_ref as jax_ref
+    calls = []
     rs = np.random.RandomState(12)
     B, T, H, D = 2, 7, 3, 8
     r, k, v, w, u = _operands(rs, B, T, H, D)
@@ -306,15 +331,16 @@ def test_training_route_takes_the_plain_versions_gradient(
         [torch.from_numpy(s0)] if with_s0 else [None])
     mine = [None if t is None else t.clone().requires_grad_() for t in ins]
     ref = [None if t is None else t.clone().requires_grad_() for t in ins]
-    out = ops._WKV6.apply(want_state, *mine)
-    want = wkv6_scan_ref(*ref)
-    outs = out if want_state else (out,)
-    for x, y in zip(outs, want):
-        assert torch.equal(x, y)
-    gs = [torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
-          for x in outs]
-    torch.autograd.backward(list(outs), gs)
-    torch.autograd.backward(list(want[:len(outs)]), gs)
+    with _cuda_implementation_on_the_cpu(monkeypatch, calls):
+        out = wkv6(*mine, want_state=want_state)
+        want = wkv6_scan_ref(*ref)
+        outs = out if want_state else (out,)
+        for x, y in zip(outs, want):
+            assert torch.equal(x, y)
+        gs = [torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
+              for x in outs]
+        torch.autograd.backward(list(outs), gs)
+        torch.autograd.backward(list(want[:len(outs)]), gs)
     assert len(calls) == 1
     for x, y in zip(mine, ref):
         if x is None:
@@ -330,26 +356,156 @@ def test_training_route_takes_the_plain_versions_gradient(
 
 
 def test_training_route_through_the_final_state_alone(monkeypatch):
-    """A loss of S_T alone reaches k, v, w and S0 (r and u only shape o)."""
-    from repro_torch.kernels.rwkv6_scan import ops
-    from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
-
-    def fake_launch(o, r, k, v, w, u, S0, S_T):
-        o_ref, s_ref = wkv6_scan_ref(r, k, v, w, u, S0)
-        o.copy_(o_ref)
-        S_T.copy_(s_ref)
-
-    monkeypatch.setattr(ops, "launch", fake_launch)
+    """A loss of S_T alone reaches k, v, w and S0 (r and u only shape o),
+    through the operator's CUDA implementation and the backward operator
+    as through autograd of the plain loop."""
     rs = np.random.RandomState(13)
     ops_in = [torch.from_numpy(x) for x in _operands(rs, 1, 5, 2, 8)]
     s0 = torch.from_numpy(rs.randn(1, 2, 8, 8).astype(np.float32))
     mine = [t.clone().requires_grad_() for t in ops_in + [s0]]
     ref = [t.clone().requires_grad_() for t in ops_in + [s0]]
-    _, S_T = ops._WKV6.apply(True, *mine)
-    S_T.sum().backward()
+    calls = []
+    with _cuda_implementation_on_the_cpu(monkeypatch, calls):
+        _, S_T = wkv6(*mine, want_state=True)
+        S_T.sum().backward()
     wkv6_scan_ref(*ref)[1].sum().backward()
+    assert len(calls) == 1
     for name, x, y in zip("rkvwuS", mine, ref):
         if name in "ru":
             assert x.grad is None or not x.grad.any()
         else:
             assert torch.equal(x.grad, y.grad) and x.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("with_s0,want_state", [(False, False),
+                                                (True, False), (False, True),
+                                                (True, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_operator_matches_the_plain_loop(with_s0, want_state, dtype):
+    """On the CPU the operator's forward is ``ref.py``'s loop bit for bit
+    (S_T an empty fp32 (0,) when not asked for), and the backward operator
+    (``ref.py::wkv6_scan_backward_ref``) is within 1e-6 of autograd of
+    the loop, with and without S0 and S_T."""
+    rs = np.random.RandomState(17)
+    B, T, H, D = 2, 33, 3, 16
+    xdt = getattr(torch, dtype)
+    r, k, v, w, u = (torch.from_numpy(x) for x in _operands(rs, B, T, H, D))
+    ins = [r.to(xdt), k.to(xdt), v.to(xdt), w, u.to(xdt),
+           torch.from_numpy(rs.randn(B, H, D, D).astype(np.float32))
+           if with_s0 else None]
+    o, S_T = torch.ops.repro_torch.wkv6(*ins, want_state)
+    o_ref, s_ref = wkv6_scan_ref(*ins)
+    assert torch.equal(o, o_ref)
+    assert torch.equal(S_T, s_ref) if want_state else \
+        (S_T.shape == (0,) and S_T.dtype == torch.float32)
+    go = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32))
+    gS = torch.from_numpy(rs.randn(B, H, D, D).astype(np.float32)) \
+        if want_state else None
+    got = torch.ops.repro_torch.wkv6_backward(go, gS, *ins)
+    leaves = [None if t is None else t.clone().requires_grad_() for t in ins]
+    outs = wkv6_scan_ref(*leaves)
+    torch.autograd.backward([outs[0]] + ([outs[1]] if want_state else []),
+                            [go] + ([gS] if want_state else []))
+    _assert_grads_close(got, [None if t is None else t.grad for t in leaves])
+    if not with_s0:
+        assert got[5].shape == (0,)
+    assert LAUNCHES["rwkv6_scan"] == 0
+
+
+def test_backward_operator_matches_jax_grad_of_the_reference():
+    """The backward operator against ``jax.grad`` of the reference's
+    ``repro/nn/rwkv6.py::wkv6_scan_ref`` (no S0; a loss through o and
+    S_T), in fp32 over 32 tokens at RWKV6's head size: every gradient
+    within 1e-5 of its largest value."""
+    rs = np.random.RandomState(18)
+    B, T, H, D = 1, 32, 2, 64
+    r, k, v, w, u = _operands(rs, B, T, H, D)
+    go = rs.randn(B, T, H, D).astype(np.float32)
+    gS = rs.randn(B, H, D, D).astype(np.float32)
+
+    def loss(*a):
+        o, S = jrw.wkv6_scan_ref(*a)
+        return jnp.sum(o * go) + jnp.sum(S * gS)
+
+    jg = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(r, k, v, w, u)
+    got = torch.ops.repro_torch.wkv6_backward(
+        *(torch.from_numpy(x) for x in (go, gS, r, k, v, w, u)), None)
+    for name, x, y in zip("rkvwu", got, jg):
+        y = np.asarray(y)
+        err = np.abs(x.numpy() - y).max()
+        assert err <= 1e-5 * np.abs(y).max(), (name, err, np.abs(y).max())
+
+
+def _metered_flops(fn, shapes, backward):
+    """The dry run's meter (``dryrun._meter_mode``) over ``fn`` on fake
+    inputs of ``shapes`` that require grad, with the backward of the
+    output's sum if ``backward``."""
+    from repro_torch.launch import dryrun
+    meter = dryrun._meter_mode()
+    with meter:
+        ins = [torch.empty(s).requires_grad_() for s in shapes]
+        meter.metering = True
+        out = fn(*ins)
+        if backward:
+            out.sum().backward()
+    return meter.flops
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_meter_counts_the_loops_flops(backward):
+    """Under the dry run's meter at T 16, one operator call counts exactly
+    the plain loop's FLOPs: 2 B T H D^2 forward, 4 B T H D^2 more in the
+    backward (the einsum and its two gradients)."""
+    B, T, H, D = 2, 16, 3, 8
+    shapes = [(B, T, H, D)] * 4 + [(H, D)]
+    got = _metered_flops(lambda *x: wkv6(*x), shapes, backward)
+    assert got == _metered_flops(lambda *x: wkv6_scan_ref(*x)[0], shapes,
+                                 backward)
+    assert got == (6 if backward else 2) * B * T * H * D * D
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fake_call_launches_nothing(device):
+    """On fake tensors (the dry run's) the wrapper, on a CPU or a CUDA
+    device, reaches the operator's fake implementation: fp32 o and S_T of
+    their shapes, no launch counted; on the CPU (autograd on a fake CUDA
+    device needs a card) the backward operator's too, each gradient in its
+    input's dtype and the workspace its (B, H, D, D) states."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import WORKSPACE
+    B, T, H, D = 2, 4096, 4, 64
+    with FakeTensorMode():
+        x = torch.empty(B, T, H, D, dtype=torch.bfloat16, device=device,
+                        requires_grad=device == "cpu")
+        u = torch.empty(H, D, dtype=torch.bfloat16, device=device,
+                        requires_grad=device == "cpu")
+        o, S_T = wkv6(x, x, x, x, u, want_state=True)
+        assert o.shape == x.shape and S_T.shape == (B, H, D, D)
+        assert o.dtype == S_T.dtype == torch.float32
+        assert o.device.type == device
+        if device == "cpu":
+            dx, du = torch.autograd.grad(o.sum(), (x, u))
+            assert dx.dtype == du.dtype == torch.bfloat16
+            assert du.shape == (H, D)
+            ws = WORKSPACE[torch.ops.repro_torch.wkv6_backward](
+                o, None, x, x, x, x, u, None)
+            assert ws >= T * B * H * D * D * 4
+    assert LAUNCHES["rwkv6_scan"] == 0
+
+
+CHECKS = ("test_schema", "test_autograd_registration", "test_faketensor")
+
+
+def test_operators_pass_opcheck():
+    """``torch.library.opcheck``'s schema, fake-implementation and
+    autograd-registration checks (not its compiled-dispatch one), with and without S0."""
+    rs = np.random.RandomState(19)
+    ins = [torch.from_numpy(x) for x in _operands(rs, 1, 6, 2, 8)]
+    s0 = torch.from_numpy(rs.randn(1, 2, 8, 8).astype(np.float32))
+    for S0, want_state in ((None, False), (s0, True)):
+        args = [t.clone().requires_grad_() for t in ins]
+        torch.library.opcheck(torch.ops.repro_torch.wkv6.default,
+                              (*args, S0, want_state), test_utils=CHECKS)
+    go = torch.from_numpy(rs.randn(1, 6, 2, 8).astype(np.float32))
+    torch.library.opcheck(torch.ops.repro_torch.wkv6_backward.default,
+                          (go, None, *ins, s0), test_utils=CHECKS)
