@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
-Builds the four CUDA kernels of the serving paths (``hyper_step``,
-``flash_attention``, ``rglru_scan``, ``rwkv6_scan``) from the sources in
-the checkout, one nvcc process each, all started together; holds each
-kernel against its plain PyTorch version at the serving shapes and at
-the edges of its design (``hs_cases``, ``FLASH_CASES``, ``RGLRU_CASES``,
-``RWKV6_CASES``) and times both cold-L2 (``time_ms``; flash attention
-also beside ``scaled_dot_product_attention`` as a yardstick the port
-never calls); serves full-width ``qwen3_4b`` (36
+Builds the six CUDA kernels (``hyper_step``, ``flash_attention``,
+``rglru_scan``, ``rwkv6_scan`` of the serving paths, and the scans'
+gradients ``rglru_scan_backward`` and ``rwkv6_scan_backward`` of the
+training path) from the sources in the checkout, one nvcc process each,
+all started together; holds each kernel against its plain PyTorch
+version at the serving (or training) shapes and at the edges of its
+design (``hs_cases``, ``FLASH_CASES``, ``RGLRU_CASES``, ``RWKV6_CASES``,
+``RGLRU_BACKWARD_CASES``, ``RWKV6_BACKWARD_CASES``) and times both
+cold-L2 (``time_ms``; flash attention also beside
+``scaled_dot_product_attention`` as a yardstick the port never calls);
+serves full-width ``qwen3_4b`` (36
 layers, d 2560), full-width ``recurrentgemma_2b`` (26 layers, d 2560)
 and full-width ``rwkv6_1p6b`` (24 layers, d 2048), bf16, random weights
 from a seeded generator, through the port's serving CLI (and, for
@@ -125,16 +128,20 @@ cached decode of the decoder-only LM with learned positions that the
 CLI (as the reference's) builds for ``whisper_base``.
 Last, once serving is done, the trainer (``python -m
 repro_torch.launch.train``): ``phase_train_kernels`` holds each kernel's
-training route (the kernel's forward, the plain version's backward)
-against the all-plain version at the training shapes, gradients bit for
-bit, one launch per forward and none in the backward;
+training route (the kernel's forward; flash's plain backward, the scans'
+backward kernels) against the all-plain version at the training shapes,
+gradients bit for bit (WKV6's within ``RWKV6_GRAD_TOL``), the forward
+kernel once in the forward and never in the backward, each backward
+kernel once in the backward;
 ``phase_train_cli`` trains full-width qwen3_4b through the CLI's
 ``main`` (8 x 128 tokens, 20 steps) and ``phase_train`` full-width
-recurrentgemma_2b and rwkv6_1p6b through ``train_loop`` (5 steps each),
-each with finite losses and grad norms, moved params and one kernel
-launch per block application, and prints ms a step (synced beside the
-watchdog's dispatch time), tokens/s, peak memory against the 12 bytes a
-parameter at rest, the model-FLOP share and the plain backwards' share;
+recurrentgemma_2b and rwkv6_1p6b through ``train_loop`` (5 steps each;
+first with the scans' plain backwards for the comparison, then as it
+runs), each with finite losses and grad norms, moved params and one
+kernel launch per block application (and one backward kernel launch per
+scan forward), and prints ms a step (synced beside the watchdog's
+dispatch time), tokens/s, peak memory against the 12 bytes a parameter
+at rest, the model-FLOP share and each timed backward's share;
 then one float32 step at reduced depth held against the same step with
 every kernel swapped for its plain version; ``phase_train_faults`` runs
 the reference's three fault-tolerance scenarios on reduced qwen3_4b.
@@ -174,9 +181,11 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.hyper_step import ops as hs_ops  # noqa: E402
 from repro_torch.kernels.hyper_step.ref import fused_rk_update_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rg_ops  # noqa: E402
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    rglru_scan_backward_ref, rglru_scan_ref)
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops  # noqa: E402
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
+    wkv6_scan_backward_ref, wkv6_scan_ref)
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     FixedGrid, FlowTrainConfig, HypersolverTrainConfig, Integrator,
@@ -581,39 +590,79 @@ def phase_flash(dev, bandwidth):
     return rows
 
 
-def operator_grad_case(kernel, route, plain, ins, gen):
+def ulp16(x: torch.Tensor, dtype) -> torch.Tensor:
+    """The spacing of the 16-bit float ``dtype`` at each |x| (fp32)."""
+    digits = {torch.bfloat16: 8, torch.float16: 11}[dtype]
+    _, e = torch.frexp(x.float().abs())
+    tiny = {torch.bfloat16: 2.0 ** -133, torch.float16: 2.0 ** -24}[dtype]
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - digits).clamp_min(tiny)
+
+
+def grad_gap(got: torch.Tensor, want: torch.Tensor, tol: float):
+    """(max |got - want| over max |want|, every element within ``tol`` of
+    max |want|). A gradient in a 16-bit dtype is the cast of an fp32 sum:
+    the bound is held on that sum, and each of the two casts may add half
+    a unit in the last place of the 16-bit type (one unit at the larger
+    of the two values), since a sum that differs in its last fp32 bits
+    can round to the neighbouring 16-bit value."""
+    g, w = got.float(), want.float()
+    gap = (g - w).abs()
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    allow = torch.full_like(gap, tol * scale)
+    if got.dtype in (torch.bfloat16, torch.float16):
+        allow = allow + ulp16(torch.maximum(g.abs(), w.abs()), got.dtype)
+    worst = float(gap.max()) if gap.numel() else 0.0
+    return worst / max(scale, 1e-30), bool((gap <= allow).all())
+
+
+def operator_grad_case(kernel, route, plain, ins, gen, tol=None):
     """One scan operator's gradient on the card against ``torch.autograd``
     of its plain loop at the same inputs and output gradients: ``route``
     runs the operator (the kernel's forward; its registered backward, the
-    backward operator), ``plain`` the loop; both return a tuple of
-    outputs, and every input that is not None requires grad. Returns
-    (forward launches, backward launches, {input: max abs gap / max
-    |autograd's|}, every gradient equal bit for bit)."""
+    backward operator, whose CUDA implementation is the backward kernel
+    ``kernel + "_backward"``), ``plain`` the loop; both return a tuple of
+    outputs, and every input that is not None requires grad. Raises unless
+    the forward kernel launched once in the forward and never in the
+    backward, the backward kernel once in the backward and never in the
+    forward, and every gradient is equal bit for bit (``tol`` None) or
+    within ``tol`` (``grad_gap``); an input the plain loop leaves without
+    a gradient must get none or zeros. Returns the launches, {input: max
+    abs gap / max |autograd's|} and whether every gradient was equal bit
+    for bit."""
+    back = kernel + "_backward"
     leaf = lambda: [None if t is None else t.detach().clone()
                     .requires_grad_() for t in ins]
     mine, ref = leaf(), leaf()
     LAUNCHES.clear()
     outs = route(*mine)
-    fwd = LAUNCHES[kernel]
+    fwd = (LAUNCHES[kernel], LAUNCHES[back])
     gs = [torch.randn(o.shape, generator=gen, device=o.device) for o in outs]
     torch.autograd.backward(outs, gs)
-    bwd = LAUNCHES[kernel] - fwd
+    bwd = (LAUNCHES[kernel] - fwd[0], LAUNCHES[back] - fwd[1])
     torch.autograd.backward(plain(*ref), gs)
     torch.cuda.synchronize()
-    rel, equal = {}, True
+    rel, equal, ok = {}, True, True
     for i, (a, b) in enumerate(zip(mine, ref)):
         if a is None:
+            continue
+        if b.grad is None and (a.grad is None or not a.grad.any()):
             continue
         if a.grad is None or b.grad is None or a.grad.dtype != b.grad.dtype:
             raise AssertionError(f"{kernel}: input {i} has no gradient or "
                                  "another dtype")
-        gap = float((a.grad.float() - b.grad.float()).abs().max())
-        rel[i] = gap / max(float(b.grad.float().abs().max()), 1e-30)
         equal = equal and torch.equal(a.grad, b.grad)
-    if (fwd, bwd) != (1, 0):
-        raise AssertionError(f"{kernel}: {fwd} launches in the forward, "
-                             f"{bwd} in the backward")
-    return fwd, bwd, rel, equal
+        rel[i], fits = grad_gap(a.grad, b.grad, tol or 0.0)
+        ok = ok and fits
+    launches = dict(forward=fwd, backward=bwd)
+    if (fwd, bwd) != ((1, 0), (0, 1)):
+        raise AssertionError(f"{kernel}: launches (forward kernel, backward "
+                             f"kernel) {launches}")
+    if not (equal if tol is None else ok):
+        raise AssertionError(f"{kernel}: the operator's gradient is off "
+                             f"autograd of the plain loop's by {rel} "
+                             f"(tol {tol})")
+    return launches, rel, equal
 
 
 # phase_rglru's cases that also check the gradient (fp32 and bf16 gates)
@@ -644,10 +693,11 @@ def phase_rglru(dev, bandwidth):
     """rglru_scan against its plain version bit for bit, both timed
     cold-L2, and the bound (2 reads and 1 fp32 write per element). In
     ``RGLRU_GRAD_CASES`` the operator's gradient (the kernel's forward, the
-    backward operator ``rglru_scan_backward``) against ``torch.autograd``
-    of the plain loop: ``torch.equal``, since the kernel's h equals the
-    loop's and the backward operator rounds each product and sum as
-    autograd of the loop does; one launch, in the forward."""
+    backward operator ``rglru_scan_backward``, i.e. the backward kernel)
+    against ``torch.autograd`` of the plain loop: ``torch.equal``, since
+    the kernel's h equals the loop's and the backward kernel rounds each
+    product and sum as autograd of the loop does; the forward kernel once
+    in the forward, the backward kernel once in the backward."""
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -662,15 +712,11 @@ def phase_rglru(dev, bandwidth):
                                  f"plain (max abs err {err})")
         grad = None
         if name in RGLRU_GRAD_CASES:
-            fwd, bwd, rel, equal = operator_grad_case(
+            launches, rel, equal = operator_grad_case(
                 "rglru_scan", lambda a, b: (rg_ops.rglru_scan(a, b),),
                 lambda a, b: (rglru_scan_ref(a, b),), [a, b], gen)
-            if not equal:
-                raise AssertionError(f"rglru_scan {name}: the operator's "
-                                     "gradient differs from autograd of "
-                                     f"the plain loop ({rel})")
-            grad = dict(launches_forward=fwd, launches_backward=bwd,
-                        max_rel_err=max(rel.values()), bit_equal=equal)
+            grad = dict(launches=launches, max_rel_err=max(rel.values()),
+                        bit_equal=equal)
         buf = torch.empty_like(out)
         ms = time_ms(lambda: rg_ops.launch(buf, a, b), flush)
         plain_ms = time_ms(lambda: rglru_scan_ref(a, b), flush)
@@ -722,13 +768,16 @@ RWKV6_CASES = [
 RWKV6_TOL = 2e-6    # max abs error over max |plain|
 # phase_rwkv6's cases that also check the gradient, and its bound: each
 # input's gradient within 1e-6 of the largest of autograd's for that
-# input. The backward operator recomputes the plain loop's states bit for
-# bit and makes autograd's products, and its sums with autograd's own
-# reductions (the einsum's bmm gradient, each broadcast's sum over its
-# expanded axes, u's gradient summed over tokens in reverse); only a
-# reduction the card's library groups otherwise for its layout can round
-# apart, a few fp32 ulps (1.2e-7 each) of the largest gradient.
-RWKV6_GRAD_CASES = ("serve", "ragged-fp32", "state", "decode")
+# input (``grad_gap``). The backward kernel recomputes the plain loop's
+# states bit for bit and rounds each elementwise step as the plain loop
+# does, so dS0 is equal bit for bit; only its five sums (dr, dk, dv, dw,
+# u's) regroup, a few fp32 ulps (1.2e-7 each) of the largest gradient.
+# A gradient cast to a 16-bit input's dtype may round to the neighbouring
+# value where the sums differ in their last bits: ``grad_gap`` allows
+# each cast its half unit in the last place. The cases with a state also
+# check the gradient through S_T alone (no gradient of o).
+RWKV6_GRAD_CASES = ("serve", "ragged-fp32", "state", "d128-state",
+                    "decode")
 RWKV6_GRAD_TOL = 1e-6
 
 
@@ -740,20 +789,18 @@ def phase_rwkv6(dev, bandwidth):
     bound (each operand read once, o and S_T written once; 5 flops per
     state element per token: k v, w S, + kv, and r S as an fma of 2). In
     ``RWKV6_GRAD_CASES`` the operator's gradient (the kernel's forward, the
-    backward operator ``wkv6_backward``) against ``torch.autograd`` of the
-    plain loop, within ``RWKV6_GRAD_TOL``; one launch, in the forward."""
+    backward operator ``wkv6_backward``, i.e. the backward kernel) against
+    ``torch.autograd`` of the plain loop, within ``RWKV6_GRAD_TOL``
+    (``grad_gap``), through o and S_T and, with a state, through S_T
+    alone; the forward kernel once in the forward, the backward kernel
+    once in the backward."""
     gen = torch.Generator(device=dev).manual_seed(6)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
     for name, (b, t, h, d), xdt, wdt, udt, state in RWKV6_CASES:
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-        r, k, v = (randn(b, t, h, d).to(xdt) for _ in range(3))
-        # the model's decay range: exp(-exp(w0)), w0 in [-6, -1]
-        w0 = torch.linspace(-6.0, -1.0, h * d, device=dev).reshape(h, d)
-        w = torch.exp(-torch.exp(w0 + 0.1 * randn(b, t, h, d))).to(wdt)
-        u = (0.3 * randn(h, d)).to(udt)
-        S0 = randn(b, h, d, d) if state else None
+        r, k, v, w, u = rwkv6_inputs((b, t, h, d), xdt, gen, dev, wdt, udt)
+        S0 = torch.randn((b, h, d, d), generator=gen, device=dev) \
+            if state else None
         out = rw_ops.wkv6(r, k, v, w, u, S0, want_state=state)
         ref = wkv6_scan_ref(r, k, v, w, u, S0)
         torch.cuda.synchronize()
@@ -769,21 +816,19 @@ def phase_rwkv6(dev, bandwidth):
                                  f"from plain (max abs err {errs[1]})")
         grad = None
         if name in RWKV6_GRAD_CASES:
-            n_out = 2 if state else 1
-
-            def route(*x):
-                out = rw_ops.wkv6(*x, want_state=state)
-                return tuple(out) if state else (out,)
-            fwd, bwd, rel, equal = operator_grad_case(
-                "rwkv6_scan", route, lambda *x: wkv6_scan_ref(*x)[:n_out],
-                [r, k, v, w, u, S0], gen)
-            if max(rel.values()) > RWKV6_GRAD_TOL:
-                raise AssertionError(f"rwkv6_scan {name}: the operator's "
-                                     "gradient is off autograd of the plain "
-                                     f"loop's by {rel}")
-            grad = dict(launches_forward=fwd, launches_backward=bwd,
-                        max_rel_err=max(rel.values()), bit_equal=equal,
-                        tol=RWKV6_GRAD_TOL)
+            outs = (slice(0, 2), slice(1, 2)) if state else (slice(0, 1),)
+            grad = []
+            for sel in outs:   # o (and S_T); then S_T alone
+                def route(*x):
+                    out = rw_ops.wkv6(*x, want_state=state)
+                    return (tuple(out) if state else (out,))[sel]
+                launches, rel, equal = operator_grad_case(
+                    "rwkv6_scan", route, lambda *x: wkv6_scan_ref(*x)[sel],
+                    [r, k, v, w, u, S0], gen, tol=RWKV6_GRAD_TOL)
+                grad.append(dict(outputs=["o", "S_T"][sel],
+                                 launches=launches,
+                                 max_rel_err=max(rel.values()),
+                                 bit_equal=equal, tol=RWKV6_GRAD_TOL))
         o_buf = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
         s_buf = torch.empty_like(S0) if state else None
         ms = time_ms(lambda: rw_ops.launch(o_buf, r, k, v, w, u, S0, s_buf),
@@ -816,6 +861,197 @@ def phase_rwkv6(dev, bandwidth):
          library=None, library_note="no single PyTorch call computes the "
          "WKV6 recurrence (a data-dependent diagonal decay of a (D, D) "
          "state per head)")
+    return rows
+
+
+# name, (B, T, W), dtype of a and b, gradient: phase_rglru_backward's
+# cases, the training shape (the fp32 gates nn/rglru.py gives the scan,
+# and bf16), ragged widths in bf16 and fp16 (W 1000: 16-byte rows and a
+# part-filled last block; W 333: rows not 16-byte aligned) and a gradient
+# expanded over time (stride 0), which the kernel reads as it is
+RGLRU_BACKWARD_CASES = [
+    ("train", (8, 128, 2560), torch.float32, "dense"),
+    ("train-bf16", (8, 128, 2560), torch.bfloat16, "dense"),
+    ("w1000-bf16", (3, 77, 1000), torch.bfloat16, "dense"),
+    ("w1000-fp16", (3, 77, 1000), torch.float16, "dense"),
+    ("w333-bf16", (2, 45, 333), torch.bfloat16, "dense"),
+    ("w333-fp16", (2, 45, 333), torch.float16, "dense"),
+    ("w333-expanded", (2, 45, 333), torch.float32, "expanded"),
+]
+
+
+def input_bytes(t: torch.Tensor) -> int:
+    """Bytes of a tensor's distinct elements (an expanded view's data)."""
+    return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
+
+
+def rglru_backward_inputs(case, gen, dev):
+    """The backward operator's (grad, a, h) of one ``RGLRU_BACKWARD_CASES``
+    row, drawn from ``gen``: h is the plain scan's output."""
+    _, shape, dtype, kind = case
+    a, b = rglru_inputs(shape, dtype, gen, dev)
+    g = torch.randn(shape if kind == "dense" else shape[:1] + (1,)
+                    + shape[2:], generator=gen, device=dev).expand(shape)
+    return g, a, rglru_scan_ref(a, b)
+
+
+def phase_rglru_backward(dev, bandwidth):
+    """The RG-LRU backward kernel (the CUDA implementation of
+    ``repro_torch::rglru_scan_backward``) against its plain version
+    (``rglru_scan_backward_ref``) on the same inputs, da and db equal bit
+    for bit in every case of ``RGLRU_BACKWARD_CASES``, both timed cold-L2,
+    and the bound: grad, a and h read once, da and db written once, 3
+    flops an element."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for case in RGLRU_BACKWARD_CASES:
+        name, shape, dtype, kind = case
+        g, a, h = rglru_backward_inputs(case, gen, dev)
+        out = torch.ops.repro_torch.rglru_scan_backward(g, a, h, dtype)
+        want = rglru_scan_backward_ref(g, a, h, dtype)
+        torch.cuda.synchronize()
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(out, want))
+        if not all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(out, want)):
+            raise AssertionError(f"rglru_scan_backward {name}: kernel "
+                                 f"disagrees with plain (max abs {err})")
+        da, db = out
+        ms = time_ms(lambda: rg_ops.launch_backward(da, db, g, a, h), flush)
+        plain_ms = time_ms(lambda: rglru_scan_backward_ref(g, a, h, dtype),
+                           flush)
+        nbytes = sum(input_bytes(t) for t in (g, a, h)) \
+            + sum(t.numel() * t.element_size() for t in out)
+        flops = 3 * a.numel()
+        bound = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
+        rows.append(dict(case=name, shape=list(shape),
+                         dtype=str(dtype).replace("torch.", ""), grad=kind,
+                         max_abs_err=err, bit_equal=True, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bytes=nbytes,
+                         bound_by="bytes" if nbytes / bandwidth
+                         >= flops / FP32_PEAK else "operations"))
+        del a, h, g, out, want
+    emit(phase="kernels", kernel="rglru_scan_backward", cases=rows,
+         max_abs_err=max(r["max_abs_err"] for r in rows), library=None,
+         library_note="no single PyTorch call computes the gradient of a "
+         "linear recurrence (torch has no scan op)")
+    return rows
+
+
+# name, (B, T, H, D), dtype of r, k, v and u (w fp32), with S0, with gS,
+# with go: phase_rwkv6_backward's cases, the training shape (the dtypes
+# the model gives: bf16 r, k, v, u, fp32 w; then all fp32, whose
+# gradients have no cast after the kernel's sums; then with a state and
+# its gradient), and D 8, 16, 32 and 128 at T 1 and T 200 with and
+# without S0 and gS, and a gradient through S_T alone (no go)
+RWKV6_BACKWARD_CASES = [
+    ("train", (8, 128, 32, 64), torch.bfloat16, False, False, True),
+    ("train-fp32", (8, 128, 32, 64), torch.float32, False, False, True),
+    ("train-state", (8, 128, 32, 64), torch.bfloat16, True, True, True),
+    ("d8-t200", (2, 200, 4, 8), torch.float32, True, True, True),
+    ("d8-t1", (3, 1, 4, 8), torch.float32, False, False, True),
+    ("d16-t200", (2, 200, 4, 16), torch.bfloat16, False, True, True),
+    ("d16-t1", (3, 1, 4, 16), torch.float32, True, False, True),
+    ("d32-t77", (2, 77, 4, 32), torch.float32, False, True, True),
+    ("d128-t200", (2, 200, 4, 128), torch.bfloat16, True, True, True),
+    ("d128-t1", (2, 1, 8, 128), torch.float32, False, False, True),
+    ("go-absent", (2, 50, 4, 64), torch.float32, True, True, False),
+]
+
+
+def rwkv6_inputs(shape, xdt, gen, dev, wdt=torch.float32, udt=None):
+    """r, k, v, w, u of ``shape`` (B, T, H, D): r, k, v normal in
+    ``xdt``, the decay in the model's range exp(-exp(w0)), w0 in [-6, -1],
+    in ``wdt``, and u = 0.3 normal in ``udt`` (default ``xdt``)."""
+    b, t, h, d = shape
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(xdt)
+               for _ in range(3))
+    w0 = torch.linspace(-6.0, -1.0, h * d, device=dev).reshape(h, d)
+    w = torch.exp(-torch.exp(w0 + 0.1 * torch.randn(
+        shape, generator=gen, device=dev))).to(wdt)
+    u = (0.3 * torch.randn((h, d), generator=gen, device=dev)).to(
+        udt or xdt)
+    return r, k, v, w, u
+
+
+def rwkv6_backward_inputs(case, gen, dev):
+    """The backward operator's arguments (go, gS, r, k, v, w, u, S0) of one
+    ``RWKV6_BACKWARD_CASES`` row, drawn from ``gen``."""
+    _, shape, xdt, s0, gs, go_on = case
+    b, t, h, d = shape
+    r, k, v, w, u = rwkv6_inputs(shape, xdt, gen, dev)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    S0 = randn(b, h, d, d) if s0 else None
+    gS = randn(b, h, d, d) if gs else None
+    go = randn(b, t, h, d) if go_on else None
+    return go, gS, r, k, v, w, u, S0
+
+
+def phase_rwkv6_backward(dev, bandwidth):
+    """The WKV6 backward kernel (the CUDA implementation of
+    ``repro_torch::wkv6_backward``) against its plain version
+    (``wkv6_scan_backward_ref``) on the same inputs in every case of
+    ``RWKV6_BACKWARD_CASES``: dS0 equal bit for bit, every other gradient
+    within RWKV6_GRAD_TOL of its largest value (``grad_gap``). Times the
+    kernel's launch (``ms``) and the whole operator (``op_ms``: with its
+    allocations and u's sums over the partials) against the plain
+    version, cold-L2, and the bound: each input read once and each output
+    written once, and 21 flops a state element and token (10 without
+    go); the workspace's write and read of the recomputed states are
+    beside it (``workspace_ms``: their bytes at the memory rate)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for case in RWKV6_BACKWARD_CASES:
+        name, (b, t, h, d), xdt, s0, gs, go_on = case
+        args = rwkv6_backward_inputs(case, gen, dev)
+        S0 = args[-1]
+        got = torch.ops.repro_torch.wkv6_backward(*args)
+        want = wkv6_scan_backward_ref(*args)
+        torch.cuda.synchronize()
+        rel = {}
+        for n, x, y in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            rel[n], ok = grad_gap(x, y, RWKV6_GRAD_TOL)
+            if not ok or x.dtype != y.dtype:
+                raise AssertionError(f"rwkv6_scan_backward {name}: {n} off "
+                                     f"the plain version's by {rel[n]} of "
+                                     "its largest value")
+        if s0 and not torch.equal(got[5], want[5]):
+            raise AssertionError(f"rwkv6_scan_backward {name}: dS0 differs "
+                                 "from the plain version's")
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, want) if y.numel())
+        grads = [torch.empty_like(x) for x in got[:4]]
+        dS0 = torch.empty_like(S0) if s0 else None
+        n_states, n_part, _ = rw_ops._workspace_floats(b, t, h, d)
+        states = torch.empty(n_states, dtype=torch.float32, device=dev)
+        part = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
+        ms = time_ms(lambda: rw_ops.launch_backward(
+            grads, dS0, states, part, *args), flush)
+        op_ms = time_ms(lambda: torch.ops.repro_torch.wkv6_backward(*args),
+                        flush)
+        plain_ms = time_ms(lambda: wkv6_scan_backward_ref(*args), flush,
+                           reps=10)
+        nbytes = sum(input_bytes(x) for x in args if x is not None) \
+            + sum(x.numel() * x.element_size() for x in got)
+        flops = (21 if go_on else 10) * b * t * h * d * d
+        bound = max(nbytes / bandwidth, flops / FP32_PEAK) * 1e3
+        rows.append(dict(case=name, shape=[b, t, h, d],
+                         dtype=str(xdt).replace("torch.", ""), S0=s0,
+                         gS=gs, go=go_on, max_abs_err=err, max_rel_err=rel,
+                         dS0_bit_equal=s0 or None, tol=RWKV6_GRAD_TOL,
+                         ms=ms, op_ms=op_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bytes=nbytes, flops=flops,
+                         workspace_ms=2 * n_states * 4 / bandwidth * 1e3,
+                         bound_by="bytes" if nbytes / bandwidth
+                         >= flops / FP32_PEAK else "operations"))
+        del S0, args, got, want, grads, dS0, states, part
+    emit(phase="kernels", kernel="rwkv6_scan_backward", cases=rows,
+         max_abs_err=max(r["max_abs_err"] for r in rows),
+         max_rel_err=max(max(r["max_rel_err"].values()) for r in rows),
+         library=None, library_note="no single PyTorch call computes the "
+         "gradient of the WKV6 recurrence")
     return rows
 
 
@@ -4210,10 +4446,7 @@ def train_case_inputs(kernel, shape, kind, window, gen, dev):
                 lambda a, b: (rglru_scan_ref(a, b),), check)
     b, t, h, d = shape
     state = kind
-    r, k, v = (randn(b, t, h, d).to(torch.bfloat16) for _ in range(3))
-    w0 = torch.linspace(-6.0, -1.0, h * d, device=dev).reshape(h, d)
-    w = torch.exp(-torch.exp(w0 + 0.1 * randn(b, t, h, d)))
-    u = (0.3 * randn(h, d)).to(torch.bfloat16)
+    r, k, v, w, u = rwkv6_inputs(shape, torch.bfloat16, gen, dev)
     S0 = randn(b, h, d, d) if state else None
     n_out = 2 if state else 1
 
@@ -4235,12 +4468,18 @@ def phase_train_kernels(dev):
     """The kernels' training routes against the plain versions on the
     card, at the full-width models' training shapes: the forward within
     each kernel phase's limit; the gradient of every input (every input
-    requires grad) equal bit for bit to the all-plain version's at the
-    same inputs and output gradients, since flash's backward is the plain
-    version's and the scans' backward operators round as autograd of the
-    plain loops does; one launch in the forward and none in the backward.
-    Times the route's forward + backward against the plain version's
-    (cold L2); the comparison's launches count for no path."""
+    requires grad) against the all-plain version's at the same inputs and
+    output gradients, equal bit for bit for flash (its backward is the
+    plain version's) and RG-LRU (its backward kernel rounds as autograd of
+    the plain loop does), within RWKV6_GRAD_TOL of each input's largest
+    gradient for WKV6 (``grad_gap``: its backward kernel regroups five
+    sums), where the plain backward operator, called on the card at the
+    same inputs, is also held equal bit for bit to autograd of the plain
+    loop; the forward kernel once in the forward and never in the
+    backward, each scan's backward kernel once in the backward and never
+    in the forward (flash has none). Times the route's forward + backward
+    against the plain version's (cold L2); the comparison's launches
+    count for no path."""
     gen = torch.Generator(device=dev).manual_seed(21)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -4250,20 +4489,23 @@ def phase_train_kernels(dev):
         leaf = lambda: [None if t is None else
                         t.detach().clone().requires_grad_() for t in ins]
         mine, ref = leaf(), leaf()
+        back = kernel + "_backward"
         LAUNCHES.clear()
         outs = route(*mine)
-        fwd = LAUNCHES[kernel]
+        fwd = (LAUNCHES[kernel], LAUNCHES[back])
         gs = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
         torch.autograd.backward(outs, gs)
-        bwd = LAUNCHES[kernel] - fwd
+        bwd = (LAUNCHES[kernel] - fwd[0], LAUNCHES[back] - fwd[1])
         want = plain(*ref)
         torch.autograd.backward(want, gs)
         torch.cuda.synchronize()
         check(outs, want)
-        if (fwd, bwd) != (1, 0):
-            raise AssertionError(f"{kernel} {name}: {fwd} launches in the "
+        if (fwd, bwd) != ((1, 0), (0, int(kernel != "flash_attention"))):
+            raise AssertionError(f"{kernel} {name}: (forward kernel, "
+                                 f"backward kernel) launches {fwd} in the "
                                  f"forward, {bwd} in the backward")
-        diffs = {}
+        tol = RWKV6_GRAD_TOL if kernel == "rwkv6_scan" else None
+        diffs, rel, equal = {}, {}, True
         for i, (a, b) in enumerate(zip(mine, ref)):
             if a is None:
                 continue
@@ -4272,10 +4514,24 @@ def phase_train_kernels(dev):
                 raise AssertionError(f"{kernel} {name}: input {i} has "
                                      "no gradient or another dtype")
             diffs[i] = float((a.grad.float() - b.grad.float()).abs().max())
-            if not torch.equal(a.grad, b.grad):
+            rel[i], fits = grad_gap(a.grad, b.grad, tol or 0.0)
+            equal = equal and torch.equal(a.grad, b.grad)
+            if not (torch.equal(a.grad, b.grad) if tol is None else fits):
                 raise AssertionError(
                     f"{kernel} {name}: input {i}'s gradient differs from "
-                    f"the plain version's by up to {diffs[i]}")
+                    f"the plain version's by up to {diffs[i]} ({rel[i]} "
+                    f"of its largest value; tol {tol})")
+        plain_op_equal = None
+        if kernel == "rwkv6_scan":
+            got = wkv6_scan_backward_ref(
+                gs[0], gs[1] if len(gs) > 1 else None,
+                *[None if t is None else t.detach() for t in ins])
+            plain_op_equal = all(b is None or torch.equal(x, b.grad)
+                                 for x, b in zip(got, ref))
+            if not plain_op_equal:
+                raise AssertionError(f"{kernel} {name}: the plain backward "
+                                     "operator differs from autograd of "
+                                     "the plain loop")
         live = [t for t in mine if t is not None]
         ms = time_ms(lambda: torch.autograd.grad(route(*mine), live, gs),
                      flush, reps=10)
@@ -4286,9 +4542,12 @@ def phase_train_kernels(dev):
                              ", S0 fp32" if kind else "")
                              if kernel == "rwkv6_scan"
                              else str(kind).replace("torch.", "")),
-                         launches_forward=fwd, launches_backward=bwd,
+                         launches=dict(forward=fwd, backward=bwd),
                          grad_max_abs_diff=max(diffs.values()),
-                         grads_bit_equal=True, ms_forward_backward=ms,
+                         grad_max_rel_diff=max(rel.values()), tol=tol,
+                         grads_bit_equal=equal,
+                         plain_backward_op_bit_equal=plain_op_equal,
+                         ms_forward_backward=ms,
                          plain_ms_forward_backward=plain_ms))
         del ins, mine, ref, outs, want, gs, live
     emit(phase="train_kernels", cases=rows)
@@ -4351,16 +4610,17 @@ def event_timed(events, key, fn):
 @contextlib.contextmanager
 def timed_step_parts():
     """While open, each backward of the kernels' training routes (flash's
-    plain backward, ``_Flash.backward``; the scans' backward operators,
-    whose implementation is ``rglru_scan_backward_ref`` or
-    ``wkv6_scan_backward_ref`` as ``ops.py`` calls it) and each forward +
-    backward of a train step (``steps._value_and_grad``, keyed
+    plain backward, ``_Flash.backward``; the scans' backward operators as
+    their autograd registrations call them, ``rg_ops._scan_backward`` and
+    ``rw_ops._wkv6_backward``: the backward kernels, or their plain
+    versions under ``plain_scan_backwards``) and each forward + backward
+    of a train step (``steps._value_and_grad``, keyed
     ``forward_backward``) is bracketed by CUDA events; yields ``{key:
     [(start, end), ...]}`` (``step_part_ms`` reads them per step). The rest
     of a step is the clip and the in-place AdamW update."""
     routes = {"flash_attention": (fa_ops._Flash, "backward"),
-              "rglru_scan": (rg_ops, "rglru_scan_backward_ref"),
-              "rwkv6_scan": (rw_ops, "wkv6_scan_backward_ref")}
+              "rglru_scan_backward": (rg_ops, "_scan_backward"),
+              "rwkv6_scan_backward": (rw_ops, "_wkv6_backward")}
     events = collections.defaultdict(list)
     saved = {k: vars(o)[a] for k, (o, a) in routes.items()}
     value_and_grad = steps._value_and_grad
@@ -4375,6 +4635,18 @@ def timed_step_parts():
         steps._value_and_grad = value_and_grad
         for k, (o, a) in routes.items():
             setattr(o, a, saved[k])
+
+
+@contextlib.contextmanager
+def plain_scan_backwards():
+    """While open, the scans' autograd registrations call the backward
+    operators' plain versions (``ref.py``, the loops backward in time) in
+    place of the backward kernels, on the card: the training step as it
+    ran before the backward kernels, for a comparison in one process."""
+    with attributes_swapped([
+            (rg_ops, "_scan_backward", rglru_scan_backward_ref),
+            (rw_ops, "_wkv6_backward", wkv6_scan_backward_ref)]):
+        yield
 
 
 def step_part_ms(events, steps):
@@ -4404,19 +4676,28 @@ def moved_share(params, cfg, dev, seed=0):
 
 
 def train_report(tag, cfg, params, hist, dog, events, launches, blocks,
-                 dev, batch=B, seq=S):
+                 dev, batch=B, seq=S, scan_backward_kernels=True):
     """Checks a full-width training run (losses and grad norms finite,
-    params moved, each kernel once per block application and step) and
-    its numbers: synced ms a step (median after the first), tokens/s,
-    peak memory against the reckoning, the model-FLOP bound's share
-    (6 N tokens over the bf16 peak, N every parameter), the device ms of
-    a forward + backward (the rest of the synced step is the clip, the
-    update and the host's gaps) and the plain backwards' share of the
-    step, each the median over the steps after the first."""
+    params moved, each kernel once per block application and step, each
+    scan's backward kernel as often as its forward kernel, or never with
+    ``scan_backward_kernels`` false) and its numbers: synced ms a step
+    (median after the first), tokens/s, peak memory against the
+    reckoning, the model-FLOP bound's share (6 N tokens over the bf16
+    peak, N every parameter), the device ms of a forward + backward (the
+    rest of the synced step is the clip, the update and the host's gaps)
+    and each timed backward's ms and share of the step (flash's plain
+    backward, the scans' backward operators), each the median over the
+    steps after the first."""
     vals = [h[k] for h in hist for k in ("loss", "grad_norm")]
     if not np.isfinite(vals).all():
         raise AssertionError(f"{tag}: non-finite loss or grad norm {hist}")
     check_block_launches(launches, blocks, tag)
+    for kernel in ("rglru_scan", "rwkv6_scan"):
+        want = launches.get(kernel, 0) if scan_backward_kernels else 0
+        if launches.get(kernel + "_backward", 0) != want:
+            raise AssertionError(f"{tag}: {kernel}_backward launched "
+                                 f"{launches.get(kernel + '_backward', 0)} "
+                                 f"times, {kernel} {launches.get(kernel, 0)}")
     steps = len(hist)
     if sum(blocks.values()) != cfg.n_layers * steps:
         raise AssertionError(f"{tag}: {blocks} block applications in "
@@ -4447,9 +4728,8 @@ def train_report(tag, cfg, params, hist, dog, events, launches, blocks,
         model_flop_share=6 * n * batch * seq / BF16_PEAK / step_s,
         forward_backward_ms_per_step=fwd_bwd,
         clip_and_update_ms_per_step=step_s * 1e3 - fwd_bwd,
-        plain_backward_ms_per_step=parts,
-        plain_backward_share={k: v / (step_s * 1e3)
-                              for k, v in parts.items()},
+        backward_ms_per_step=parts,
+        backward_share={k: v / (step_s * 1e3) for k, v in parts.items()},
         launches=launches, block_applications=blocks)
 
 
@@ -4484,7 +4764,11 @@ def phase_train(dev):
     rwkv6_1p6b, TRAIN_STEPS steps each of 8 x 128 tokens with the CLI's
     settings; the batches are ``token_batches``' on the host, placed by a
     ``ShardedLoader`` (pinned, non-blocking copies). The same checks and
-    numbers as ``phase_train_cli``. Then one float32 step of each dense
+    numbers as ``phase_train_cli``, each model first with the scans'
+    backward operators swapped for their plain versions
+    (``plain_scan_backwards``: the step as it ran before the backward
+    kernels, ``phase="train_plain_backward"``, launches not counted),
+    then as it runs (the main path). Then one float32 step of each dense
     family at ``FP32_DECODE_LAYERS`` depth and full width
     (``train_fp32_step``, ``check_train_fp32``): the kernel route's
     gradient tree and updated params within TRAIN_FP32_TOL of the largest
@@ -4498,22 +4782,27 @@ def phase_train(dev):
         get("rwkv6_1p6b").vocab, B, S, seed=0, device="cpu"), TRAIN_STEPS))
     settings = StepSettings(remat="none", zero_opt=False)
     launches = collections.Counter()
-    for arch in ("recurrentgemma_2b", "rwkv6_1p6b"):
+    for arch, kernels in itertools.product(
+            ("recurrentgemma_2b", "rwkv6_1p6b"), (False, True)):
         cfg = get(arch)
         loader = ShardedLoader(({"tokens": t, "targets": y} for t, y in host),
                                device=dev)
         dog = SyncedWatchdog()
         torch.cuda.reset_peak_memory_stats(dev)
         LAUNCHES.clear()
-        with count_blocks() as blocks, timed_step_parts() as bwd:
+        with count_blocks() as blocks, (contextlib.nullcontext() if kernels
+                                        else plain_scan_backwards()), \
+                timed_step_parts() as bwd:
             params, opt_state, hist = train.train_loop(
                 cfg, settings, TRAIN_STEPS, loader, watchdog=dog, device=dev)
         del opt_state
         counted, blocks = dict(LAUNCHES), dict(blocks)
-        launches.update(counted)
+        if kernels:
+            launches.update(counted)
         report = train_report(f"{arch} train", cfg, params, hist, dog,
-                              bwd, counted, blocks, dev)
-        emit(phase="train", **report)
+                              bwd, counted, blocks, dev,
+                              scan_backward_kernels=kernels)
+        emit(phase="train" if kernels else "train_plain_backward", **report)
         del params, loader
         release_card()
     fp32 = {arch: train_fp32_step(dev, arch, n, host[0])
@@ -4531,8 +4820,16 @@ def swapped_kernels(flash, rglru, wkv6):
     from repro_torch.nn import attention as nn_attention
     from repro_torch.nn import rglru as nn_rglru
     from repro_torch.nn import rwkv6 as nn_rwkv6
-    swaps = [(nn_attention, "flash_attention", flash),
-             (nn_rglru, "rglru_scan", rglru), (nn_rwkv6, "wkv6", wkv6)]
+    with attributes_swapped([(nn_attention, "flash_attention", flash),
+                             (nn_rglru, "rglru_scan", rglru),
+                             (nn_rwkv6, "wkv6", wkv6)]):
+        yield
+
+
+@contextlib.contextmanager
+def attributes_swapped(swaps):
+    """While open, each ``(module, name, value)`` of ``swaps`` is set;
+    the old values come back after."""
     saved = [getattr(m, n) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -5177,7 +5474,7 @@ def phase_whisper(dev, bandwidth):
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          reckoning_at_rest_gb=n * TRAIN_BYTES_PER_PARAM / 1e9,
          forward_backward_ms_per_step=parts.pop("forward_backward"),
-         plain_backward_ms_per_step=parts, launches=counted)
+         backward_ms_per_step=parts, launches=counted)
     del params, host
     release_card()
     fp32 = train_fp32_step(dev, "whisper_base", WHISPER_FP32_LAYERS,
@@ -5396,6 +5693,8 @@ def main() -> int:
     flash_rows = phase_flash(dev, bandwidth)
     rglru_rows = phase_rglru(dev, bandwidth)
     rwkv6_rows = phase_rwkv6(dev, bandwidth)
+    rglru_bwd_rows = phase_rglru_backward(dev, bandwidth)
+    rwkv6_bwd_rows = phase_rwkv6_backward(dev, bandwidth)
     launches = phase_image(dev)
     launches.update(phase_cnf(dev))
     launches.update(phase_tracking(dev))
@@ -5471,7 +5770,10 @@ def main() -> int:
     flash = next(r for r in flash_rows if r["case"] == "griffin")
     rglru = next(r for r in rglru_rows if r["case"] == "serve")
     rwkv6 = next(r for r in rwkv6_rows if r["case"] == "serve")
+    rglru_bwd = next(r for r in rglru_bwd_rows if r["case"] == "train")
+    rwkv6_bwd = next(r for r in rwkv6_bwd_rows if r["case"] == "train")
     src = "src/repro_torch/kernels/{0}/csrc/{0}.cu"
+    bwd_src = "src/repro_torch/kernels/{0}/csrc/{0}_backward.cu"
     emit(kernels=[
         dict(name="hyper_step", route="cuda", source=src.format("hyper_step"),
              replaces="src/repro/kernels/hyper_step/hyper_step.py:89",
@@ -5500,6 +5802,23 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in rwkv6_rows),
              ms=rwkv6["ms"], plain_ms=rwkv6["plain_ms"],
              bound_ms=rwkv6["bound_ms"], bound_by=rwkv6["bound_by"],
+             library_ms=None),
+        # no TPU kernel: the reference's XLA differentiates a plain lax.scan
+        dict(name="rglru_scan_backward", route="cuda",
+             source=bwd_src.format("rglru_scan"),
+             replaces="src/repro/nn/rglru.py:80",
+             launches=launches["rglru_scan_backward"],
+             max_abs_err=max(r["max_abs_err"] for r in rglru_bwd_rows),
+             ms=rglru_bwd["ms"], plain_ms=rglru_bwd["plain_ms"],
+             bound_ms=rglru_bwd["bound_ms"], bound_by=rglru_bwd["bound_by"],
+             library_ms=None),
+        dict(name="rwkv6_scan_backward", route="cuda",
+             source=bwd_src.format("rwkv6_scan"),
+             replaces="src/repro/nn/rwkv6.py:158",
+             launches=launches["rwkv6_scan_backward"],
+             max_abs_err=max(r["max_abs_err"] for r in rwkv6_bwd_rows),
+             ms=rwkv6_bwd["ms"], plain_ms=rwkv6_bwd["plain_ms"],
+             bound_ms=rwkv6_bwd["bound_ms"], bound_by=rwkv6_bwd["bound_by"],
              library_ms=None)])
     emit(ok=True, device=dict(platform="gpu", kind=name,
                               count=torch.cuda.device_count()))

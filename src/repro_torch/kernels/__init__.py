@@ -1,11 +1,13 @@
 """Hand-written CUDA kernels of the port; built by ``_build.py``.
 
-``LAUNCHES`` counts kernel launches by kernel name, across the four
-wrappers, one for each TPU kernel of the JAX package (``hyper_step``,
-``flash_attention``, ``rglru_scan``, ``rwkv6_scan``): a wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that
-its path went through the kernels. The CPU path (plain versions) never
-counts.
+``LAUNCHES`` counts kernel launches by kernel name, across the six
+wrappers: one for each TPU kernel of the JAX package (``hyper_step``,
+``flash_attention``, ``rglru_scan``, ``rwkv6_scan``) and one for each
+scan's gradient (``rglru_scan_backward``, ``rwkv6_scan_backward``, which
+the reference leaves to XLA's reverse of a plain scan): a wrapper adds
+one where it launches its kernel and nowhere else, so a run can show
+that its path went through the kernels. The CPU path (plain versions)
+never counts.
 
 ``WORKSPACE`` maps an operator of the port (``torch.ops.repro_torch.*``,
 by its overload packet, as ``torch.utils.flop_counter.flop_registry``

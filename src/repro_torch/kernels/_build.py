@@ -39,6 +39,8 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
     "rglru_scan": "rglru_scan/csrc/rglru_scan.cu",
     "rwkv6_scan": "rwkv6_scan/csrc/rwkv6_scan.cu",
+    "rglru_scan_backward": "rglru_scan/csrc/rglru_scan_backward.cu",
+    "rwkv6_scan_backward": "rwkv6_scan/csrc/rwkv6_scan_backward.cu",
 }
 
 # kernel name -> what nvcc/ptxas printed for its last build in this process

@@ -14,17 +14,22 @@ tensors alike. The operator's implementations:
     a trace on fake tensors (``launch/dryrun.py``) launches and loops
     over nothing.
 
-Training: the kernel has no backward, and neither has the reference's
-(``repro/nn/rglru.py`` differentiates a plain scan). The operator's
-gradient (``register_autograd``) is a second operator,
-``repro_torch::rglru_scan_backward``: the plain version's gradient
-written out as a recurrence backward in time
-(``ref.py::rglru_scan_backward_ref``), on the CPU and on the card alike,
-with a fake implementation. A training step launches the kernel once per
-forward and never in the backward. Both operators carry a FLOP formula
+Training: the reference has no Pallas backward (``repro/nn/rglru.py``
+differentiates a plain scan, which XLA compiles into one loop on the
+device). The operator's gradient (``register_autograd``) is a second
+operator, ``repro_torch::rglru_scan_backward``, with implementations:
+  * CUDA: one launch of the backward kernel
+    (``csrc/rglru_scan_backward.cu``, the plain version's recurrence
+    backward in time, bit for bit) or an error; no fallback.
+    ``LAUNCHES["rglru_scan_backward"]`` counts its launches;
+  * CPU: the plain version (``ref.py::rglru_scan_backward_ref``);
+  * fake: da and db's shapes and dtypes.
+A training step launches the forward kernel once per forward and the
+backward kernel once per backward. Both operators carry a FLOP formula
 for ``torch.utils.flop_counter`` (0: the recurrence is elementwise, and
 the counter counts matrix products), and the backward the bytes of its
-workspace (``kernels.WORKSPACE``); the dry run meters both.
+CUDA implementation's workspace (``kernels.WORKSPACE``, 0: the kernel
+writes da and db directly); the dry run meters both.
 
 DTensors (a train step over a device mesh) run per shard: batch over the
 batch axes and width over ``"model"``; time is never sharded, so each
@@ -53,6 +58,11 @@ def _library() -> ctypes.CDLL:
     return bind(_build.load("rglru_scan"))
 
 
+@functools.lru_cache(maxsize=1)
+def _backward_library() -> ctypes.CDLL:
+    return bind_backward(_build.load("rglru_scan_backward"))
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C interface of a library built from ``csrc/rglru_scan.cu``
     (or another source of the same entry points) on ``lib``."""
@@ -61,6 +71,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rglru_scan_launch.restype = ctypes.c_int
     lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from
+    ``csrc/rglru_scan_backward.cu`` (or another source of the same entry
+    points) on ``lib``."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_backward_launch.argtypes = [P] * 7 + [I] * 3 + [P]
+    lib.rglru_scan_backward_launch.restype = ctypes.c_int
+    lib.rglru_scan_backward_error_string.argtypes = [ctypes.c_int]
+    lib.rglru_scan_backward_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -112,11 +134,32 @@ def _(a, b):
 
 @torch.library.custom_op(
     "repro_torch::rglru_scan_backward", mutates_args=(),
-    device_types=("cpu", "cuda"),
+    device_types="cuda",
     schema="(Tensor grad, Tensor a, Tensor h, ScalarType b_dtype) "
            "-> (Tensor, Tensor)")
 def _scan_backward(grad, a, h, b_dtype):
-    """(da, db) of the scan at its gates ``a`` and fp32 output ``h``."""
+    """(da, db) of the scan at its gates ``a`` and fp32 output ``h``: the
+    backward kernel, one launch writing da in a's dtype and db in
+    ``b_dtype``, contiguous; grad, a and h are read through their
+    strides."""
+    bad = [t for t in (grad.dtype, a.dtype, h.dtype, b_dtype)
+           if t not in _DTYPE_CODE]
+    if bad:
+        raise TypeError(f"rglru_scan_backward: no kernel for dtypes {bad} "
+                        f"(one of {sorted(map(str, _DTYPE_CODE))})")
+    if any(t.device != a.device for t in (grad, h)):
+        raise ValueError("rglru_scan_backward: operands on "
+                         f"{[str(t.device) for t in (grad, a, h)]}, not "
+                         "one device")
+    da = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    db = torch.empty(a.shape, dtype=b_dtype, device=a.device)
+    if da.numel():
+        launch_backward(da, db, grad, a, h)
+    return da, db
+
+
+@_scan_backward.register_kernel("cpu")
+def _(grad, a, h, b_dtype):
     return rglru_scan_backward_ref(grad, a, h, b_dtype)
 
 
@@ -148,16 +191,14 @@ def _scan_flops(*args, **kwargs) -> int:
     return 0
 
 
-def _backward_workspace(grad, a, h, b_dtype) -> int:
-    """Bytes ``rglru_scan_backward_ref`` holds beyond its inputs and
-    outputs: the shifted h, the fp32 copy of a low-precision a, and the
-    fp32 da and db before their casts."""
-    n = a.numel() * 4
-    return n * (1 + 2 * (a.dtype != torch.float32)
-                + (b_dtype != torch.float32))
+def backward_workspace(grad, a, h, b_dtype) -> int:
+    """Bytes the backward's CUDA implementation holds beyond its inputs and
+    outputs: none, since the kernel reads its operands in place and writes
+    da and db directly."""
+    return 0
 
 
-WORKSPACE[torch.ops.repro_torch.rglru_scan_backward] = _backward_workspace
+WORKSPACE[torch.ops.repro_torch.rglru_scan_backward] = backward_workspace
 
 
 def launch(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -175,3 +216,29 @@ def launch(h: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
         raise RuntimeError("rglru_scan launch failed: "
                            + lib.rglru_scan_error_string(err).decode())
     LAUNCHES["rglru_scan"] += 1
+
+
+def launch_backward(da: torch.Tensor, db: torch.Tensor, grad: torch.Tensor,
+                    a: torch.Tensor, h: torch.Tensor) -> None:
+    """One launch of the backward kernel on its operands' device and that
+    device's current stream, writing the contiguous ``da`` and ``db`` (each
+    in its own dtype); grad, a and h (B, T, W) are read through their
+    strides. The operator validates them; benchmarks call this directly to
+    time the kernel."""
+    B, T, W = a.shape
+    strides = (ctypes.c_longlong * 9)(*(s for t in (grad, a, h)
+                                        for s in t.stride()))
+    codes = (ctypes.c_int * 5)(*(_DTYPE_CODE[t.dtype]
+                                 for t in (grad, a, h, da, db)))
+    lib = _backward_library()
+    with torch.cuda.device(a.device):
+        err = lib.rglru_scan_backward_launch(
+            grad.data_ptr(), a.data_ptr(), h.data_ptr(), da.data_ptr(),
+            db.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
+            ctypes.cast(codes, ctypes.c_void_p), B, T, W,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("rglru_scan_backward launch failed: "
+                           + lib.rglru_scan_backward_error_string(err)
+                           .decode())
+    LAUNCHES["rglru_scan_backward"] += 1

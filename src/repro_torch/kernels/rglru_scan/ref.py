@@ -5,8 +5,10 @@ the CUDA kernel is held against on the card (bit for bit in fp32).
 
 a sequential loop over T with an fp32 carry: the multiply rounds, then
 the add (no fused multiply-add), the order the kernel keeps. Its
-gradient, ``rglru_scan_backward_ref``, is the CPU and CUDA implementation
-of the operator ``repro_torch::rglru_scan_backward`` (``ops.py``)."""
+gradient, ``rglru_scan_backward_ref``, is the CPU implementation of the
+operator ``repro_torch::rglru_scan_backward`` (``ops.py``) and the oracle
+the backward kernel (``csrc/rglru_scan_backward.cu``) is held against on
+the card, bit for bit."""
 from typing import Tuple
 
 import torch

@@ -20,18 +20,27 @@ wrapper returns o alone. The operator's implementations:
     so a trace on fake tensors (``launch/dryrun.py``) launches and loops
     over nothing.
 
-Training: the kernel has no backward, and neither has the reference's
-(``repro/nn/rwkv6.py`` differentiates a plain scan). The operator's
-gradient (``register_autograd``), through o and S_T to r, k, v, w, u and
-S0, is a second operator, ``repro_torch::wkv6_backward``: the plain
-version's gradient written out as a recurrence backward in time
-(``ref.py::wkv6_scan_backward_ref``), on the CPU and on the card alike,
-with a fake implementation. A training step launches the kernel once per
-forward and never in the backward. Both operators carry a FLOP formula
+Training: the reference has no Pallas backward (``repro/nn/rwkv6.py``
+differentiates a plain scan, which XLA compiles into one loop on the
+device). The operator's gradient (``register_autograd``), through o and
+S_T to r, k, v, w, u and S0, is a second operator,
+``repro_torch::wkv6_backward``, with implementations:
+  * CUDA: one launch of the backward kernel
+    (``csrc/rwkv6_scan_backward.cu``: the forward states recomputed into a
+    workspace, then the plain version's recurrences backward in time,
+    dS0 bit for bit and the other gradients to a regrouping of their
+    sums) or an error; no fallback. ``LAUNCHES["rwkv6_scan_backward"]``
+    counts its launches. u's gradient is the sum of the kernel's
+    per-token partials, taken here over the batch and then over time;
+  * CPU: the plain version (``ref.py::wkv6_scan_backward_ref``);
+  * fake: the gradients' shapes and dtypes.
+A training step launches the forward kernel once per forward and the
+backward kernel once per backward. Both operators carry a FLOP formula
 for ``torch.utils.flop_counter``, the plain loop's count (2 B T H D^2 in
 the forward, 4 B T H D^2 in the backward: its matrix products), and the
-backward the bytes of its workspace (``kernels.WORKSPACE``); the dry run
-meters both.
+backward the bytes of its CUDA implementation's workspace
+(``backward_workspace``, in ``kernels.WORKSPACE``); the dry run meters
+both.
 
 DTensors (a train step over a device mesh) run per shard: batch over the
 batch axes and heads over ``"model"`` (u and the state with them); time
@@ -57,6 +66,23 @@ MAX_BATCH = 65535                   # grid.y limit: one grid row per batch row
 MAX_HEADS = 2 ** 31 - 1             # grid.x limit: one grid column per head
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+@functools.lru_cache(maxsize=1)
+def _backward_library() -> ctypes.CDLL:
+    return bind_backward(_build.load("rwkv6_scan_backward"))
+
+
+def bind_backward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a library built from
+    ``csrc/rwkv6_scan_backward.cu`` (or another source of the same entry
+    points) on ``lib``."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_scan_backward_launch.argtypes = [P] * 3 + [I] * 4 + [P]
+    lib.rwkv6_scan_backward_launch.restype = ctypes.c_int
+    lib.rwkv6_scan_backward_error_string.argtypes = [ctypes.c_int]
+    lib.rwkv6_scan_backward_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
@@ -176,13 +202,57 @@ def _(r, k, v, w, u, S0, want_state):
 
 
 @torch.library.custom_op(
-    "repro_torch::wkv6_backward", mutates_args=(),
-    device_types=("cpu", "cuda"),
+    "repro_torch::wkv6_backward", mutates_args=(), device_types="cuda",
     schema="(Tensor? go, Tensor? gS, Tensor r, Tensor k, Tensor v, "
            "Tensor w, Tensor u, Tensor? S0) "
            "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
 def _wkv6_backward(go, gS, r, k, v, w, u, S0):
-    """(dr, dk, dv, dw, du, dS0) against the gradients of o and S_T."""
+    """(dr, dk, dv, dw, du, dS0) against the gradients of o and S_T: the
+    backward kernel, one launch writing dr, dk, dv, dw (and dS0) in their
+    inputs' dtypes, contiguous, and du's partials into the workspace;
+    every operand is read through its strides."""
+    B, T, H, D = r.shape
+    given = [t for t in (go, gS, r, k, v, w, u, S0) if t is not None]
+    bad = [t.dtype for t in given if t.dtype not in _DTYPE_CODE]
+    if bad:
+        raise TypeError(f"wkv6_backward: no kernel for dtypes {bad} (one of "
+                        f"{sorted(map(str, _DTYPE_CODE))})")
+    if any(t.device != r.device for t in given):
+        raise ValueError(f"wkv6_backward: operands on "
+                         f"{[str(t.device) for t in given]}, not one device")
+    if D not in HEAD_SIZES or B > MAX_BATCH or H > MAX_HEADS:
+        raise ValueError(f"wkv6_backward: no kernel for (B, H, D) "
+                         f"{(B, H, D)} (D one of {HEAD_SIZES})")
+    dev = r.device
+    grads = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+             for t in (r, k, v, w)]
+    du = torch.empty((H, D), dtype=u.dtype, device=dev)
+    dS0 = (torch.empty((0,), dtype=torch.float32, device=dev) if S0 is None
+           else torch.empty(S0.shape, dtype=S0.dtype, device=dev))
+    if grads[0].numel() == 0:   # T = 0 (or B, H = 0): nothing to launch
+        du.zero_()
+        if S0 is not None and gS is not None:
+            dS0.copy_(gS)
+        elif S0 is not None:
+            dS0.zero_()
+        return (*grads, du, dS0)
+    n_states, n_part, _ = _workspace_floats(B, T, H, D)
+    ws = torch.empty(backward_workspace(go, gS, r, k, v, w, u, S0) // 4,
+                     dtype=torch.float32, device=dev)
+    part = ws[n_states:n_states + n_part].view(B, T, H, D)
+    launch_backward(grads, dS0 if S0 is not None else None,
+                    ws[:n_states], part, go, gS, r, k, v, w, u, S0)
+    # u's gradient: the partials over the batch, then over the time rows
+    # (the last step first) in order, the plain version's order
+    rows = ws[n_states + n_part:].view(T, H, D)
+    torch.sum(part, 0, out=rows)
+    rows.cumsum_(0)
+    du.copy_(rows[T - 1])
+    return (*grads, du, dS0)
+
+
+@_wkv6_backward.register_kernel("cpu")
+def _(go, gS, r, k, v, w, u, S0):
     return wkv6_scan_backward_ref(go, gS, r, k, v, w, u, S0)
 
 
@@ -229,17 +299,22 @@ def _wkv6_backward_flops(go_shape, gS_shape, r_shape, *args, **kwargs
     return 0 if go_shape is None else 4 * B * T * H * D * D
 
 
-def _backward_workspace(go, gS, r, k, v, w, u, S0) -> int:
-    """Bytes ``wkv6_scan_backward_ref`` holds beyond its inputs and
-    outputs: the T recomputed fp32 states and four more (B, H, D, D)
-    blocks a step (kv, M, dM, dkv), and, for each of r, k, v, w not in
-    fp32, its fp32 copy and its fp32 gradient before the cast."""
+def _workspace_floats(B: int, T: int, H: int, D: int) -> Tuple[int, int, int]:
+    """The backward's workspace in fp32 elements, in its order: the
+    recomputed states (B, H, T, D, D), du's partials (B, T, H, D) and their
+    sums over the batch (T, H, D)."""
+    return B * H * T * D * D, B * T * H * D, T * H * D
+
+
+def backward_workspace(go, gS, r, k, v, w, u, S0) -> int:
+    """Bytes the backward's CUDA implementation allocates beyond its
+    inputs and outputs (``_workspace_floats``); its allocation and the
+    dry run's ``kernels.WORKSPACE`` both read this."""
     B, T, H, D = r.shape
-    low = sum(t.dtype != torch.float32 for t in (r, k, v, w))
-    return 4 * (B * H * D * D * (T + 4) + 2 * low * B * T * H * D)
+    return 4 * sum(_workspace_floats(B, T, H, D))
 
 
-WORKSPACE[torch.ops.repro_torch.wkv6_backward] = _backward_workspace
+WORKSPACE[torch.ops.repro_torch.wkv6_backward] = backward_workspace
 
 
 def launch(o: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
@@ -268,3 +343,39 @@ def launch(o: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
         raise RuntimeError("rwkv6_scan launch failed: "
                            + lib.rwkv6_scan_error_string(err).decode())
     LAUNCHES["rwkv6_scan"] += 1
+
+
+def launch_backward(grads, dS0: Optional[torch.Tensor], states: torch.Tensor,
+                    part: torch.Tensor, go: Optional[torch.Tensor],
+                    gS: Optional[torch.Tensor], r: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, S0: Optional[torch.Tensor]) -> None:
+    """One launch of the backward kernel on its operands' device and that
+    device's current stream, writing ``grads`` (dr, dk, dv, dw: contiguous,
+    in r, k, v, w's dtypes), ``dS0`` (contiguous, S0's dtype; None without
+    S0), the recomputed states into ``states`` (B H T D D fp32) and du's
+    partials into ``part`` (B, T, H, D fp32, time reversed). Every operand
+    is read through its strides; go, gS and S0 may be None. The operator
+    validates them; benchmarks call this directly to time the kernel."""
+    B, T, H, D = r.shape
+    ins = (go, r, k, v, w, gS, S0, u)
+    strides = (ctypes.c_longlong * 32)(*(
+        s for t in ins for s in ((0,) * 4 if t is None else
+                                 tuple(t.stride()) + (0,) * (4 - t.ndim))))
+    codes = (ctypes.c_int * 8)(*(0 if t is None else _DTYPE_CODE[t.dtype]
+                                 for t in ins))
+    ptrs = (ctypes.c_void_p * 15)(*(
+        None if t is None else t.data_ptr()
+        for t in (*ins, *grads, dS0, states, part)))
+    lib = _backward_library()
+    with torch.cuda.device(r.device):
+        err = lib.rwkv6_scan_backward_launch(
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(strides, ctypes.c_void_p),
+            ctypes.cast(codes, ctypes.c_void_p), B, T, H, D,
+            torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("rwkv6_scan_backward launch failed: "
+                           + lib.rwkv6_scan_backward_error_string(err)
+                           .decode())
+    LAUNCHES["rwkv6_scan_backward"] += 1

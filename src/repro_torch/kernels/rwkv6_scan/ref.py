@@ -8,8 +8,10 @@ oracle the CUDA kernel is held against on the card.
 a sequential loop over T in fp32, in the order of the reference's
 ``repro/nn/rwkv6.py`` scan step; each elementwise op rounds on its own
 (no fused multiply-add), the order the kernel keeps for the state. Its
-gradient, ``wkv6_scan_backward_ref``, is the CPU and CUDA implementation
-of the operator ``repro_torch::wkv6_backward`` (``ops.py``)."""
+gradient, ``wkv6_scan_backward_ref``, is the CPU implementation of the
+operator ``repro_torch::wkv6_backward`` (``ops.py``) and the oracle the
+backward kernel (``csrc/rwkv6_scan_backward.cu``) is held against on the
+card."""
 from typing import Optional, Tuple
 
 import torch

@@ -34,9 +34,15 @@ on a local block):
   * ``flops``: the matrix products' FLOPs (``torch.utils.flop_counter``'s
     formulas, the scan operators' included) on this device's blocks,
     backward and recomputation included;
-  * ``bytes_accessed``: every non-view op's input and output bytes; for a
-    scan operator that is its inputs and outputs once, what the kernel
-    moves;
+  * ``bytes_accessed``: the bytes each op reads or writes as data
+    (``_op_bytes``): its input and output bytes, collectives included,
+    as XLA's cost analysis counts every instruction's operands and
+    outputs; for a scan operator that is its inputs and outputs once,
+    what the kernel moves. A view, a query that returns no tensor and
+    mutates nothing (``prim.device``, sizes, strides), ``wait_tensor``
+    (it returns its input) and an allocation (``empty`` and its kin)
+    count 0; a factory that fills (``zeros``, ``full``, ``*_like``)
+    counts its output;
   * ``memory``: ``argument_bytes`` (the local blocks of params, moments
     and inputs), ``output_bytes`` (what the step returns: for a train
     step the params and moments it updates in place, for prefill the
@@ -117,6 +123,32 @@ def _nbytes(t) -> int:
         else 0
 
 
+# ops whose tensor arguments give only a shape, dtype and device: an
+# allocation writes nothing, a fill writes its output
+_ALLOCATES = {"empty", "empty_like", "empty_strided", "new_empty",
+              "new_empty_strided"}
+_FILLS = {"zeros", "ones", "full", "zeros_like", "ones_like", "full_like",
+          "new_zeros", "new_ones", "new_full"}
+
+
+def _op_bytes(func, args, kwargs, outs) -> int:
+    """The bytes op ``func`` reads and writes as data on these arguments
+    and tensor outputs (``bytes_accessed``'s rule, in the module's
+    docstring)."""
+    name = func.__name__.split(".")[0]
+    if func.is_view or func is torch.ops._c10d_functional.wait_tensor.default:
+        return 0
+    if func.namespace == "aten" and name in _ALLOCATES:
+        return 0
+    if not outs and not func._schema.is_mutable:
+        return 0
+    written = sum(_nbytes(t) for t in outs)
+    if func.namespace == "aten" and name in _FILLS:
+        return written
+    return written + sum(_nbytes(t) for t in pytree.tree_leaves(
+        (args, kwargs)) if isinstance(t, torch.Tensor))
+
+
 def local_bytes(tree) -> int:
     """Bytes of the local blocks of a tree's tensors (a DTensor's
     ``to_local()``)."""
@@ -179,10 +211,7 @@ def _meter_mode():
                     _nbytes(t) for t in pytree.tree_leaves(out))
             outs = [t for t in pytree.tree_leaves(out)
                     if isinstance(t, torch.Tensor)]
-            if not func.is_view:
-                self.bytes += sum(_nbytes(t) for t in pytree.tree_leaves(
-                    (args, kwargs)) if isinstance(t, torch.Tensor))
-                self.bytes += sum(_nbytes(t) for t in outs)
+            self.bytes += _op_bytes(func, args, kwargs, outs)
             args_keys = {a.untyped_storage()._cdata for a in
                          pytree.tree_leaves((args, kwargs))
                          if isinstance(a, torch.Tensor)}

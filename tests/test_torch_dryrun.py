@@ -22,7 +22,9 @@ its own (the two side by side). Checked:
     reduce-scatter for the tensor-parallel sums and the ZeRO gradients,
     all-gather under ``fsdp``;
   * a ``long_500k`` cell of a quadratic arch is ``SKIP`` with the
-    reference's reason.
+    reference's reason;
+  * ``bytes_accessed`` counts what ops move as data, by hand on a tiny
+    step.
 """
 import json
 import os
@@ -220,6 +222,28 @@ def test_tensor_parallel_cell_flops_are_pinned(both):
     assert tp["status"] == "OK" and tp["mesh"] == {"data": 16, "model": 16}
     assert tp["flops"] == _train_flops(L=2, T=4096, d=64, H=16, dh=16,
                                        ff=128, V=256) == 107_911_053_312
+
+
+def test_meter_counts_only_the_bytes_ops_move():
+    """``bytes_accessed`` by hand: under the dry run's meter on a fake
+    4-rank group, a step that queries a tensor's device, allocates with
+    ``empty_like``, waits on a tensor (``wait_tensor`` returns its input),
+    multiplies and adds meters exactly the product's bytes (its two
+    operands read, its output written) and the sum's (two reads, one
+    write), in fp32: (8 x 16 + 16 x 4 + 8 x 4) + 3 (8 x 4) elements."""
+    import torch
+    from repro_torch.launch import dryrun
+    with dryrun.fake_world(4):
+        meter = dryrun._meter_mode()
+        with meter:
+            x, w = torch.empty(8, 16), torch.empty(16, 4)
+            meter.metering = True
+            torch.ops.prim.device.default(x)
+            torch.empty_like(x)
+            y = torch.ops._c10d_functional.wait_tensor.default(x) @ w
+            y + y
+            meter.metering = False
+    assert meter.bytes == 4 * ((8 * 16 + 16 * 4 + 8 * 4) + 3 * 8 * 4)
 
 
 def test_cli_runs_each_cell_in_a_process_of_its_own(monkeypatch, tmp_path):

@@ -26,7 +26,8 @@ from repro.nn import rglru as jrg
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.rglru_scan.ops import MAX_BATCH, rglru_scan
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_backward_ref,
+                                                rglru_scan_ref)
 from repro_torch.nn import rglru as trg
 
 LAYER_TOL = dict(rtol=2e-4, atol=1e-5)
@@ -174,17 +175,26 @@ def test_rglru_scan_raises_past_max_batch():
 
 @contextlib.contextmanager
 def _cuda_implementation_on_the_cpu(monkeypatch, calls):
-    """The operator's CUDA implementation for CPU tensors while open, its
-    launch standing in for the kernel with the plain version (each
-    launch's shape appended to ``calls``)."""
+    """The operators' CUDA implementations for CPU tensors while open,
+    each launch standing in for its kernel with the plain version (each
+    launch's kind, "forward" or "backward", and shape appended to
+    ``calls``)."""
     from repro_torch.kernels.rglru_scan import ops
 
     def fake_launch(h, a, b):
-        calls.append(a.shape)
+        calls.append(("forward", a.shape))
         h.copy_(rglru_scan_ref(a, b))
 
+    def fake_launch_backward(da, db, grad, a, h):
+        calls.append(("backward", a.shape))
+        for out, ref in zip((da, db), rglru_scan_backward_ref(
+                grad, a, h, db.dtype)):
+            out.copy_(ref)
+
     monkeypatch.setattr(ops, "launch", fake_launch)
-    with ops._scan.set_kernel_enabled("cpu", False):
+    monkeypatch.setattr(ops, "launch_backward", fake_launch_backward)
+    with ops._scan.set_kernel_enabled("cpu", False), \
+            ops._scan_backward.set_kernel_enabled("cpu", False):
         yield
 
 
@@ -192,11 +202,13 @@ def test_training_route_takes_the_plain_versions_gradient(monkeypatch):
     """The operator ``repro_torch::rglru_scan`` as the card runs it: the
     kernel's forward (its CUDA implementation, the launch standing in for
     the kernel on the CPU) and, where autograd needs a backward, the
-    backward operator. Values and gradients equal autograd of the plain
+    backward operator's CUDA implementation (its launch standing in for
+    the backward kernel). Values and gradients equal autograd of the plain
     version's loop bit for bit, in fp32 and bf16, with either input alone
-    requiring grad; the launch ran once per forward and never in the
-    backward. The gradient is ``jax.grad``'s through the reference's scan
-    to fp32 rounding."""
+    requiring grad; the forward kernel launched once per forward and
+    never in the backward, the backward kernel once per backward. The
+    gradient is ``jax.grad``'s through the reference's scan to fp32
+    rounding."""
     from repro.kernels.rglru_scan.ref import rglru_scan_ref as jax_ref
     calls = []
     rs = np.random.RandomState(11)
@@ -219,7 +231,7 @@ def test_training_route_takes_the_plain_versions_gradient(monkeypatch):
             n_calls = len(calls)
             out.backward(g)
             want.backward(g)
-            assert len(calls) == n_calls
+            assert calls[n_calls:] == [("backward", shape)]
             for x, y, n in zip(mine, ref, need):
                 assert (x.grad is None) == (not n)
                 if n:
@@ -232,11 +244,12 @@ def test_training_route_takes_the_plain_versions_gradient(monkeypatch):
                 for x, y in zip(mine, jg):
                     np.testing.assert_allclose(x.grad.numpy(), np.asarray(y),
                                                rtol=1e-5, atol=1e-6)
-    assert len(calls) == 4
+    assert calls == [("forward", shape), ("backward", shape)] * 4
     # outside it a CPU tensor takes the plain version, grad or not
     a = torch.rand(1, 4, 3, requires_grad=True)
-    assert torch.equal(rglru_scan(a, a), rglru_scan_ref(a, a))
-    assert len(calls) == 4 and LAUNCHES["rglru_scan"] == 0
+    rglru_scan(a, a).sum().backward()
+    assert len(calls) == 8
+    assert LAUNCHES["rglru_scan"] == LAUNCHES["rglru_scan_backward"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
@@ -270,6 +283,49 @@ def test_backward_operator_equals_autograd_of_the_loop(shape, dtype):
     rglru_scan_ref(a2, b2).backward(g)
     assert da.dtype == db.dtype == dt
     assert torch.equal(da, a2.grad) and torch.equal(db, b2.grad)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 37, 8), torch.float32), ((1, 1, 5), torch.bfloat16),
+    ((3, 64, 33), torch.float16)])
+def test_backward_allocates_its_workspace(monkeypatch, shape, dtype):
+    """The backward operator's CUDA implementation allocates its outputs
+    and ``backward_workspace``'s bytes (the dry run's
+    ``kernels.WORKSPACE``) and nothing more: 0, the kernel writes da and
+    db directly. Its launch stands in for the kernel, handed the
+    expanded gradient (stride 0) as it is."""
+    from repro_torch.kernels import WORKSPACE
+    from repro_torch.kernels.rglru_scan import ops
+    rs = np.random.RandomState(20)
+    a = torch.from_numpy(rs.rand(*shape).astype(np.float32)).to(dtype)
+    h = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    g = torch.from_numpy(rs.randn(shape[0], 1, shape[2]).astype(
+        np.float32)).expand(shape)
+    want = rglru_scan_backward_ref(g, a, h, dtype)
+    allocated, launched = [], []
+    empty = torch.empty
+
+    def counted(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        allocated.append(t.numel() * t.element_size())
+        return t
+
+    def fake_launch_backward(da, db, grad, a_, h_):
+        launched.append(grad.stride())
+        da.copy_(want[0])
+        db.copy_(want[1])
+
+    monkeypatch.setattr(ops, "launch_backward", fake_launch_backward)
+    monkeypatch.setattr(torch, "empty", counted)
+    with ops._scan_backward.set_kernel_enabled("cpu", False):
+        da, db = torch.ops.repro_torch.rglru_scan_backward(g, a, h, dtype)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert launched == [g.stride()]
+    assert torch.equal(da, want[0]) and torch.equal(db, want[1])
+    outputs = sum(t.numel() * t.element_size() for t in (da, db))
+    ws = WORKSPACE[torch.ops.repro_torch.rglru_scan_backward](g, a, h, dtype)
+    assert ws == ops.backward_workspace(g, a, h, dtype) == 0
+    assert sum(allocated) - outputs == ws
 
 
 def _metered_flops(fn, shapes, backward):

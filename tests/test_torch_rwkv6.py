@@ -29,7 +29,8 @@ from repro.nn import rwkv6 as jrw
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import (wkv6_scan_backward_ref,
+                                                wkv6_scan_ref)
 from repro_torch.nn import ffn as tffn
 from repro_torch.nn import rwkv6 as trw
 
@@ -272,22 +273,43 @@ def test_wkv6_raises_where_it_has_no_kernel():
     assert LAUNCHES["rwkv6_scan"] == 0
 
 
+def _fake_launch_backward(grads, dS0, states, part, go, gS, r, k, v, w, u,
+                          S0):
+    """The backward kernel's outputs from the plain version: dr, dk, dv,
+    dw and dS0, and u's gradient as the only nonzero partial, at the time
+    row the wrapper sums last (so its sums return it exactly)."""
+    want = wkv6_scan_backward_ref(go, gS, r, k, v, w, u.float(), S0)
+    for out, x in zip(grads, want):
+        out.copy_(x)
+    if dS0 is not None:
+        dS0.copy_(want[5])
+    part.zero_()
+    part[0, -1] = want[4]
+
+
 @contextlib.contextmanager
 def _cuda_implementation_on_the_cpu(monkeypatch, calls):
-    """The operator's CUDA implementation for CPU tensors while open, its
-    launch standing in for the kernel with the plain version (each
-    launch's shape appended to ``calls``)."""
+    """The operators' CUDA implementations for CPU tensors while open,
+    each launch standing in for its kernel with the plain version (each
+    launch's kind, "forward" or "backward", and shape appended to
+    ``calls``)."""
     from repro_torch.kernels.rwkv6_scan import ops
 
     def fake_launch(o, r, k, v, w, u, S0, S_T):
-        calls.append(r.shape)
+        calls.append(("forward", r.shape))
         o_ref, s_ref = wkv6_scan_ref(r, k, v, w, u, S0)
         o.copy_(o_ref)
         if S_T is not None:
             S_T.copy_(s_ref)
 
+    def fake_launch_backward(*args):
+        calls.append(("backward", args[6].shape))
+        _fake_launch_backward(*args)
+
     monkeypatch.setattr(ops, "launch", fake_launch)
-    with ops._wkv6.set_kernel_enabled("cpu", False):
+    monkeypatch.setattr(ops, "launch_backward", fake_launch_backward)
+    with ops._wkv6.set_kernel_enabled("cpu", False), \
+            ops._wkv6_backward.set_kernel_enabled("cpu", False):
         yield
 
 
@@ -311,12 +333,13 @@ def test_training_route_takes_the_plain_versions_gradient(
     """The operator ``repro_torch::wkv6`` as the card runs it: the
     kernel's forward (its CUDA implementation, the launch standing in for
     the kernel on the CPU) and, where autograd needs a backward, the
-    backward operator. o (and S_T), and the gradients of r, k, v, w, u and
-    S0 through o and S_T, equal autograd of the plain loop's bit for bit
-    (bf16 r, k, v, u as the serving path gives them, fp32 w): the backward
-    operator makes autograd's products and reductions on the same shapes
-    and layouts; every input gets a nonzero gradient; the
-    launch ran once per forward and never in the backward. Without S0 the
+    backward operator's CUDA implementation (its launch standing in for
+    the backward kernel with the plain version's gradients). o (and S_T),
+    and the gradients of r, k, v, w, u and S0 through o and S_T, equal
+    autograd of the plain loop's bit for bit (bf16 r, k, v, u as the
+    serving path gives them, fp32 w); every input gets a nonzero
+    gradient; the forward kernel launched once per forward and never in
+    the backward, the backward kernel once per backward. Without S0 the
     gradient is ``jax.grad``'s through the reference's scan within the
     layer tolerance."""
     from repro.kernels.rwkv6_scan.ref import wkv6_ref as jax_ref
@@ -339,9 +362,10 @@ def test_training_route_takes_the_plain_versions_gradient(
             assert torch.equal(x, y)
         gs = [torch.from_numpy(rs.randn(*x.shape).astype(np.float32))
               for x in outs]
+        assert calls == [("forward", (B, T, H, D))]
         torch.autograd.backward(list(outs), gs)
         torch.autograd.backward(list(want[:len(outs)]), gs)
-    assert len(calls) == 1
+    assert calls == [("forward", (B, T, H, D)), ("backward", (B, T, H, D))]
     for x, y in zip(mine, ref):
         if x is None:
             continue
@@ -369,7 +393,7 @@ def test_training_route_through_the_final_state_alone(monkeypatch):
         _, S_T = wkv6(*mine, want_state=True)
         S_T.sum().backward()
     wkv6_scan_ref(*ref)[1].sum().backward()
-    assert len(calls) == 1
+    assert calls == [("forward", (1, 5, 2, 8)), ("backward", (1, 5, 2, 8))]
     for name, x, y in zip("rkvwuS", mine, ref):
         if name in "ru":
             assert x.grad is None or not x.grad.any()
@@ -434,6 +458,53 @@ def test_backward_operator_matches_jax_grad_of_the_reference():
         y = np.asarray(y)
         err = np.abs(x.numpy() - y).max()
         assert err <= 1e-5 * np.abs(y).max(), (name, err, np.abs(y).max())
+
+
+@pytest.mark.parametrize("B,T,H,D,with_s0,dtype", [
+    (2, 7, 3, 8, False, torch.float32), (1, 1, 2, 16, True, torch.bfloat16),
+    (3, 20, 2, 64, True, torch.float32)])
+def test_backward_allocates_its_workspace(monkeypatch, B, T, H, D, with_s0,
+                                          dtype):
+    """The backward operator's CUDA implementation allocates its outputs
+    and ``backward_workspace``'s bytes (the dry run's
+    ``kernels.WORKSPACE``: the recomputed states, du's partials and their
+    batch sums) and nothing more, its launch standing in for the kernel
+    with the plain version's gradients, which it returns."""
+    from repro_torch.kernels import WORKSPACE
+    from repro_torch.kernels.rwkv6_scan import ops
+    rs = np.random.RandomState(21)
+    r, k, v, w, u = (torch.from_numpy(x) for x in _operands(rs, B, T, H, D))
+    ins = [r.to(dtype), k.to(dtype), v.to(dtype), w, u.to(dtype),
+           torch.from_numpy(rs.randn(B, H, D, D).astype(np.float32))
+           if with_s0 else None]
+    go = torch.from_numpy(rs.randn(B, T, H, D).astype(np.float32))
+    gS = torch.from_numpy(rs.randn(B, H, D, D).astype(np.float32))
+    want = wkv6_scan_backward_ref(go, gS, *ins)
+    allocated = []
+    empty = torch.empty
+
+    def counted(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        allocated.append(t.numel() * t.element_size())
+        return t
+
+    def fake_launch_backward(*args):
+        monkeypatch.setattr(torch, "empty", empty)
+        _fake_launch_backward(*args)
+        monkeypatch.setattr(torch, "empty", counted)
+
+    monkeypatch.setattr(ops, "launch_backward", fake_launch_backward)
+    monkeypatch.setattr(torch, "empty", counted)
+    with ops._wkv6_backward.set_kernel_enabled("cpu", False):
+        got = torch.ops.repro_torch.wkv6_backward(go, gS, *ins)
+    monkeypatch.setattr(torch, "empty", empty)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    outputs = sum(t.numel() * t.element_size() for t in got)
+    ws = WORKSPACE[torch.ops.repro_torch.wkv6_backward](go, gS, *ins)
+    assert ws == ops.backward_workspace(go, gS, *ins) == 4 * (
+        B * H * T * D * D + B * T * H * D + T * H * D)
+    assert sum(allocated) - outputs == ws
 
 
 def _metered_flops(fn, shapes, backward):

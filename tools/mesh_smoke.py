@@ -6,7 +6,7 @@ On one card the pool's mesh of every card is that card; on several it
 spans them, so each sub-pool runs on its own card with its own replica
 of the model and of the correction's params.
 
-Builds the four kernels from the checkout (``kernels/_build.py``) and
+Builds the six kernels from the checkout (``kernels/_build.py``) and
 checks each against its plain version (``chip_smoke``'s kernel phases),
 then runs what ``chip_smoke.phase_mesh`` needs, in ``chip_smoke.py``'s
 order: ``phase_serve`` (full-width qwen3_4b, its params and calibrated

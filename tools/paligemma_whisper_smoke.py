@@ -2,7 +2,7 @@
 
     python3 tools/paligemma_whisper_smoke.py
 
-Builds the four kernels from the checkout (``kernels/_build.py``), then
+Builds the six kernels from the checkout (``kernels/_build.py``), then
 runs ``chip_smoke.py``'s ``phase_paligemma`` (full-width paligemma_3b
 with its patch frontend: the prefill step, the continuous-depth scorer,
 the serving CLI's cached decode and five train steps) and

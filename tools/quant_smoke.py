@@ -2,7 +2,7 @@
 
     python3 tools/quant_smoke.py
 
-Builds the four kernels from the checkout (``kernels/_build.py``), draws
+Builds the six kernels from the checkout (``kernels/_build.py``), draws
 full-width qwen3_4b (bf16, seed 0) and runs ``phase_kv_int8`` (8 x 4,096
 prompt, 32 tokens with the bf16 and the int8 KV cache) and
 ``phase_chunking``; frees it, draws full-width olmoe_1b_7b (seed 0) with

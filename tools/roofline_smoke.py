@@ -2,7 +2,7 @@
 
     python3 tools/roofline_smoke.py
 
-Builds the four kernels from the checkout (``kernels/_build.py``), then
+Builds the six kernels from the checkout (``kernels/_build.py``), then
 runs what ``chip_smoke.phase_roofline`` needs, in ``chip_smoke.py``'s
 order: ``phase_serve`` (full-width qwen3_4b, its params and calibrated
 tolerance), ``phase_inflight`` (the in-flight K it is held to) and

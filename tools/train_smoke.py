@@ -3,7 +3,7 @@
     python3 tools/train_smoke.py
     python3 tools/train_smoke.py --fp32-seeds 13 14 15 16 17
 
-Builds the four kernels from the checkout (``kernels/_build.py``), then
+Builds the six kernels from the checkout (``kernels/_build.py``), then
 runs ``chip_smoke.py``'s training phases in its order:
 ``phase_train_kernels`` (the kernels' training routes against their
 plain versions), ``phase_train_cli`` (full-width qwen3_4b through
