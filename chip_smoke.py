@@ -944,7 +944,9 @@ def phase_rglru_backward(dev, bandwidth):
 # the model gives: bf16 r, k, v, u, fp32 w; then all fp32, whose
 # gradients have no cast after the kernel's sums; then with a state and
 # its gradient), and D 8, 16, 32 and 128 at T 1 and T 200 with and
-# without S0 and gS, and a gradient through S_T alone (no go)
+# without S0 and gS, D 64 at the edges of the kernel's 16-token chunks (T
+# 16, one whole chunk, with S0 and gS; T 17, a chunk of one token after
+# it), and a gradient through S_T alone (no go)
 RWKV6_BACKWARD_CASES = [
     ("train", (8, 128, 32, 64), torch.bfloat16, False, False, True),
     ("train-fp32", (8, 128, 32, 64), torch.float32, False, False, True),
@@ -956,6 +958,8 @@ RWKV6_BACKWARD_CASES = [
     ("d32-t77", (2, 77, 4, 32), torch.float32, False, True, True),
     ("d128-t200", (2, 200, 4, 128), torch.bfloat16, True, True, True),
     ("d128-t1", (2, 1, 8, 128), torch.float32, False, False, True),
+    ("d64-t16", (2, 16, 4, 64), torch.float32, True, True, True),
+    ("d64-t17", (2, 17, 4, 64), torch.bfloat16, False, False, True),
     ("go-absent", (2, 50, 4, 64), torch.float32, True, True, False),
 ]
 
@@ -993,13 +997,15 @@ def phase_rwkv6_backward(dev, bandwidth):
     ``repro_torch::wkv6_backward``) against its plain version
     (``wkv6_scan_backward_ref``) on the same inputs in every case of
     ``RWKV6_BACKWARD_CASES``: dS0 equal bit for bit, every other gradient
-    within RWKV6_GRAD_TOL of its largest value (``grad_gap``). Times the
-    kernel's launch (``ms``) and the whole operator (``op_ms``: with its
-    allocations and u's sums over the partials) against the plain
-    version, cold-L2, and the bound: each input read once and each output
-    written once, and 21 flops a state element and token (10 without
-    go); the workspace's write and read of the recomputed states are
-    beside it (``workspace_ms``: their bytes at the memory rate)."""
+    within RWKV6_GRAD_TOL of its largest value (``grad_gap``); in the
+    training case two more launches write the same bits (the kernel sums
+    in a fixed order, with no atomics). Times the kernel's launch
+    (``ms``) and the whole operator (``op_ms``: with its allocations and
+    u's sums over the partials) against the plain version, cold-L2, and
+    the bound: each input read once and each output written once, and 21
+    flops a state element and token (10 without go); the workspace's
+    write and read of the checkpoints (one state a head every 16 tokens)
+    are beside it (``workspace_ms``: their bytes at the memory rate)."""
     gen = torch.Generator(device=dev).manual_seed(8)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
@@ -1029,6 +1035,18 @@ def phase_rwkv6_backward(dev, bandwidth):
         part = torch.empty((b, t, h, d), dtype=torch.float32, device=dev)
         ms = time_ms(lambda: rw_ops.launch_backward(
             grads, dS0, states, part, *args), flush)
+        repeat = None
+        if name == "train":   # two launches, the same bits
+            outs = [[torch.empty_like(x) for x in (*grads, part)]
+                    for _ in range(2)]
+            for o in outs:
+                rw_ops.launch_backward(o[:4], dS0, states, o[4], *args)
+            torch.cuda.synchronize()
+            repeat = all(torch.equal(x, y) for x, y in zip(*outs))
+            if not repeat:
+                raise AssertionError("rwkv6_scan_backward train: two "
+                                     "launches differ")
+            del outs
         op_ms = time_ms(lambda: torch.ops.repro_torch.wkv6_backward(*args),
                         flush)
         plain_ms = time_ms(lambda: wkv6_scan_backward_ref(*args), flush,
@@ -1041,6 +1059,7 @@ def phase_rwkv6_backward(dev, bandwidth):
                          dtype=str(xdt).replace("torch.", ""), S0=s0,
                          gS=gs, go=go_on, max_abs_err=err, max_rel_err=rel,
                          dS0_bit_equal=s0 or None, tol=RWKV6_GRAD_TOL,
+                         repeat_bit_equal=repeat,
                          ms=ms, op_ms=op_ms, plain_ms=plain_ms,
                          bound_ms=bound, bytes=nbytes, flops=flops,
                          workspace_ms=2 * n_states * 4 / bandwidth * 1e3,

@@ -26,12 +26,14 @@ device). The operator's gradient (``register_autograd``), through o and
 S_T to r, k, v, w, u and S0, is a second operator,
 ``repro_torch::wkv6_backward``, with implementations:
   * CUDA: one launch of the backward kernel
-    (``csrc/rwkv6_scan_backward.cu``: the forward states recomputed into a
-    workspace, then the plain version's recurrences backward in time,
-    dS0 bit for bit and the other gradients to a regrouping of their
-    sums) or an error; no fallback. ``LAUNCHES["rwkv6_scan_backward"]``
-    counts its launches. u's gradient is the sum of the kernel's
-    per-token partials, taken here over the batch and then over time;
+    (``csrc/rwkv6_scan_backward.cu``: a checkpoint of the forward state
+    every ``CHECKPOINT_EVERY`` tokens in a workspace, then chunk by chunk
+    from the last, the chunk's states recomputed on chip and the plain
+    version's recurrences backward in time, dS0 bit for bit and the
+    other gradients to a regrouping of their sums) or an error; no
+    fallback. ``LAUNCHES["rwkv6_scan_backward"]`` counts its launches.
+    u's gradient is the sum of the kernel's per-token partials, taken
+    here over the batch and then over time;
   * CPU: the plain version (``ref.py::wkv6_scan_backward_ref``);
   * fake: the gradients' shapes and dtypes.
 A training step launches the forward kernel once per forward and the
@@ -64,6 +66,7 @@ from repro_torch.kernels.rwkv6_scan.ref import (wkv6_scan_backward_ref,
 HEAD_SIZES = (8, 16, 32, 64, 128)   # D values the kernel is built for
 MAX_BATCH = 65535                   # grid.y limit: one grid row per batch row
 MAX_HEADS = 2 ** 31 - 1             # grid.x limit: one grid column per head
+CHECKPOINT_EVERY = 16               # tokens a checkpoint: the .cu's WKV_CKPT
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -301,9 +304,11 @@ def _wkv6_backward_flops(go_shape, gS_shape, r_shape, *args, **kwargs
 
 def _workspace_floats(B: int, T: int, H: int, D: int) -> Tuple[int, int, int]:
     """The backward's workspace in fp32 elements, in its order: the
-    recomputed states (B, H, T, D, D), du's partials (B, T, H, D) and their
-    sums over the batch (T, H, D)."""
-    return B * H * T * D * D, B * T * H * D, T * H * D
+    checkpoints (B, H, ceil(T / CHECKPOINT_EVERY), D, D), the forward
+    state before every ``CHECKPOINT_EVERY``-th token; du's partials (B, T,
+    H, D) and their sums over the batch (T, H, D)."""
+    chunks = -(-T // CHECKPOINT_EVERY)
+    return B * H * chunks * D * D, B * T * H * D, T * H * D
 
 
 def backward_workspace(go, gS, r, k, v, w, u, S0) -> int:
@@ -353,10 +358,11 @@ def launch_backward(grads, dS0: Optional[torch.Tensor], states: torch.Tensor,
     """One launch of the backward kernel on its operands' device and that
     device's current stream, writing ``grads`` (dr, dk, dv, dw: contiguous,
     in r, k, v, w's dtypes), ``dS0`` (contiguous, S0's dtype; None without
-    S0), the recomputed states into ``states`` (B H T D D fp32) and du's
-    partials into ``part`` (B, T, H, D fp32, time reversed). Every operand
-    is read through its strides; go, gS and S0 may be None. The operator
-    validates them; benchmarks call this directly to time the kernel."""
+    S0), the checkpoints into ``states`` (``_workspace_floats``' first
+    count of fp32) and du's partials into ``part`` (B, T, H, D fp32, time
+    reversed). Every operand is read through its strides; go, gS and S0
+    may be None. The operator validates them; benchmarks call this
+    directly to time the kernel."""
     B, T, H, D = r.shape
     ins = (go, r, k, v, w, gS, S0, u)
     strides = (ctypes.c_longlong * 32)(*(

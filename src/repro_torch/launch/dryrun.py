@@ -49,9 +49,9 @@ on a local block):
     logits, for decode the logits and the caches), ``temp_bytes`` (the
     peak of the bytes the step allocates and holds at once, beyond the
     arguments; at an operator with a workspace, ``kernels.WORKSPACE``,
-    the live bytes after its outputs plus the workspace's: the recomputed
-    states a scan's backward holds), ``generated_code_bytes`` (0: no code
-    is generated) and
+    the live bytes after its outputs plus the workspace's: the
+    checkpoints a scan's backward holds), ``generated_code_bytes`` (0: no
+    code is generated) and
     ``alias_bytes`` (the arguments updated in place: params and moments,
     or the caches);
   * ``collective_bytes`` / ``collective_counts`` per kind: each

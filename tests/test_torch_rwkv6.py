@@ -467,9 +467,10 @@ def test_backward_allocates_its_workspace(monkeypatch, B, T, H, D, with_s0,
                                           dtype):
     """The backward operator's CUDA implementation allocates its outputs
     and ``backward_workspace``'s bytes (the dry run's
-    ``kernels.WORKSPACE``: the recomputed states, du's partials and their
-    batch sums) and nothing more, its launch standing in for the kernel
-    with the plain version's gradients, which it returns."""
+    ``kernels.WORKSPACE``: a checkpoint of the state every 16 tokens, du's
+    partials and their batch sums) and nothing more, its launch standing
+    in for the kernel with the plain version's gradients, which it
+    returns."""
     from repro_torch.kernels import WORKSPACE
     from repro_torch.kernels.rwkv6_scan import ops
     rs = np.random.RandomState(21)
@@ -502,9 +503,24 @@ def test_backward_allocates_its_workspace(monkeypatch, B, T, H, D, with_s0,
         assert x.dtype == y.dtype and torch.equal(x, y)
     outputs = sum(t.numel() * t.element_size() for t in got)
     ws = WORKSPACE[torch.ops.repro_torch.wkv6_backward](go, gS, *ins)
+    assert ops.CHECKPOINT_EVERY == 16
     assert ws == ops.backward_workspace(go, gS, *ins) == 4 * (
-        B * H * T * D * D + B * T * H * D + T * H * D)
+        B * H * -(-T // 16) * D * D + B * T * H * D + T * H * D)
     assert sum(allocated) - outputs == ws
+
+
+def test_backward_workspace_at_the_training_shape():
+    """At RWKV6's training shape (B 8, T 128, H 32, D 64) the backward's
+    workspace is at most an eighth of B H T D^2 floats, one state a token
+    (536.9 MB): 8 checkpoints a head, du's partials and their sums, 43.0
+    MB."""
+    from repro_torch.kernels.rwkv6_scan import ops
+    B, T, H, D = 8, 128, 32, 64
+    x = torch.empty((B, T, H, D), dtype=torch.bfloat16, device="meta")
+    u = torch.empty((H, D), dtype=torch.bfloat16, device="meta")
+    ws = ops.backward_workspace(x, None, x, x, x, x.float(), u, None)
+    assert ws == 4 * (B * H * 8 * D * D + B * T * H * D + T * H * D)
+    assert ws <= 4 * B * H * T * D * D // 8
 
 
 def _metered_flops(fn, shapes, backward):
@@ -541,7 +557,8 @@ def test_fake_call_launches_nothing(device):
     device, reaches the operator's fake implementation: fp32 o and S_T of
     their shapes, no launch counted; on the CPU (autograd on a fake CUDA
     device needs a card) the backward operator's too, each gradient in its
-    input's dtype and the workspace its (B, H, D, D) states."""
+    input's dtype and the workspace its (B, H, D, D) checkpoints, one every
+    16 tokens, du's partials and their sums."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.kernels import WORKSPACE
     B, T, H, D = 2, 4096, 4, 64
@@ -560,7 +577,8 @@ def test_fake_call_launches_nothing(device):
             assert du.shape == (H, D)
             ws = WORKSPACE[torch.ops.repro_torch.wkv6_backward](
                 o, None, x, x, x, x, u, None)
-            assert ws >= T * B * H * D * D * 4
+            assert ws == 4 * (B * H * (T // 16) * D * D + B * T * H * D
+                              + T * H * D)
     assert LAUNCHES["rwkv6_scan"] == 0
 
 

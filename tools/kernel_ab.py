@@ -13,6 +13,7 @@ that have it), for example an earlier commit's:
 
     mkdir -p build/parent && git archive HEAD \\
         src/repro_torch/kernels/rglru_scan/csrc \\
+        src/repro_torch/kernels/rwkv6_scan/csrc \\
         src/repro_torch/kernels/hyper_step/csrc | tar -x -C build/parent
     python3 tools/kernel_ab.py parent=build/parent/src/repro_torch/kernels
 
@@ -29,7 +30,10 @@ flush (the L2 rewritten before the sleep, as the kernels line is timed)
 and ``ms_clean`` under its clean one (the buffer read after the sleep).
 Prints the card's name and power limit first, then one JSON line per
 library and per case. Exits non-zero without a CUDA device or
-when a library disagrees.
+when a library disagrees. The WKV6 backward's workspace is sized for
+either layout (``wkv6_workspace_floats``), so a source that stores every
+forward state and the checkout's, which stores one every 16 tokens, run
+through the same operator and the same buffers.
 """
 import ctypes
 import hashlib
@@ -196,8 +200,22 @@ def run_rglru_backward(libs, dev, flush) -> bool:
     return ok
 
 
+_CHECKOUT_WORKSPACE = rw_ops._workspace_floats
+
+
+def wkv6_workspace_floats(B: int, T: int, H: int, D: int):
+    """The checkout's WKV6 backward workspace (``rw_ops._workspace_floats``)
+    with its first part, the states the kernel keeps, grown to B H T D^2
+    floats: room for a kernel of the same interface that stores the state
+    before every token as well as for one that stores a checkpoint every
+    16 tokens. du's partials and their sums keep their layout."""
+    n_states, n_part, n_sums = _CHECKOUT_WORKSPACE(B, T, H, D)
+    return max(n_states, B * H * T * D * D), n_part, n_sums
+
+
 def run_wkv6_backward(libs, dev, flush) -> bool:
     gen = torch.Generator(device=dev).manual_seed(8)   # chip_smoke's inputs
+    rw_ops._workspace_floats = wkv6_workspace_floats  # the operator's too
     ok = True
     for row in cs.RWKV6_BACKWARD_CASES:
         case, shape, xdt, s0, gs, go_on = row
@@ -217,7 +235,7 @@ def run_wkv6_backward(libs, dev, flush) -> bool:
                 not s0 or torch.equal(got[5], want[5]))
         grads = [torch.empty_like(x) for x in want[:4]]
         dS0 = torch.empty_like(S0) if s0 else None
-        n_states, _, _ = rw_ops._workspace_floats(b, t, h, d)
+        n_states, _, _ = wkv6_workspace_floats(b, t, h, d)
         states = torch.empty(n_states, dtype=torch.float32, device=dev)
         part = torch.empty(shape, dtype=torch.float32, device=dev)
         times = ab_times(libs, lambda lib: call_with(
