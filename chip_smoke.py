@@ -4414,7 +4414,9 @@ TRAIN_CLI_STEPS, TRAIN_STEPS = 20, 5
 # fault's (``gradless_kernels``) smallest, read by tools/train_smoke.py
 # --fp32-seeds 13 14 15 16 17 on the H100 (PERF.md section 6): sound
 # 5.1e-7 / 2.2e-7 / 2.7e-3, fault 0.50 / 4.3e-3 / 1.0. RWKV6's sound
-# gradients differ most in the first block's u, wk and wr.
+# gradients differ most in the first block's u, wk and wr: the model's
+# own conditioning, since the all-plain float32 step is as far from a
+# float64 step in those leaves (tools/rwkv6_fp32_gap.py, PERF.md).
 TRAIN_FP32_TOL = {"qwen3_4b": 1e-4, "recurrentgemma_2b": 1e-4,
                   "rwkv6_1p6b": 2e-2, "whisper_base": 1e-4}
 # bytes a parameter holds at rest in training: bf16 param and grad,

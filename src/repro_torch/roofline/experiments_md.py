@@ -105,8 +105,10 @@ def dryrun_section(summary) -> str:
 MOVES = {
     ("moe", "train"): "int8 a2a payloads + EP placement (see §Perf)",
     ("dense", "train"): "SP + collective/compute overlap",
-    ("ssm", "train"): "a WKV6 backward kernel (ROADMAP queue 2 item 0)",
-    ("hybrid", "train"): "an RG-LRU backward kernel (queue 2 item 0)",
+    ("ssm", "train"): "one fused AdamW pass (ROADMAP item 25), then "
+                      "per-group gradient leaves (item 18)",
+    ("hybrid", "train"): "one fused AdamW pass (ROADMAP item 25), then "
+                         "per-group gradient leaves (item 18)",
     ("vlm", "train"): "SP + fused patch-proj",
     ("audio", "train"): "encoder flash attention (S²=2.25M a head)",
     ("any", "prefill"): "the flash kernel keeps scores on chip",

@@ -21,6 +21,7 @@ import torch
 
 import repro.core.adaptive as jax_adaptive
 import repro_torch.core.adaptive as torch_adaptive
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import FixedGrid as JaxGrid
 from repro.core import controllers as JC
 from repro.data import synthetic_images as jax_images

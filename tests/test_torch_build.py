@@ -1,6 +1,7 @@
 """The port's kernel build (repro_torch/kernels/_build.py) on the CPU:
 where a library goes and when it is rebuilt. Nothing is compiled here
 (no nvcc); the build itself runs on the card through chip_smoke.py."""
+from port_isolation import port_module_isolation  # noqa: F401
 from repro_torch.kernels import _build
 
 

@@ -17,6 +17,7 @@ one whose gradient is near AdamW's eps moves by a share of lr that the
 gradient's last bits set, readings up to 1.3e-5); logits through a
 model at 1e-4."""
 import dataclasses
+import functools
 import os
 import sys
 
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.configs import get as jax_get
 from repro.data import token_batches as jax_token_batches
 from repro.models import cdepth as jcd
@@ -67,10 +69,16 @@ def _close_tree(t_tree, j_tree, **tol):
         _close(node, leaf, **tol)
 
 
+@functools.lru_cache(maxsize=None)
+def _bench_params():
+    """The bench model's reference weights, drawn once per file."""
+    return jlm.init_lm(jax.random.PRNGKey(0), bench._cfg())
+
+
 def _bench_model():
     cfg_j = bench._cfg()
     assert dataclasses.asdict(cs.cdepth_lm_cfg()) == dataclasses.asdict(cfg_j)
-    return cfg_j, jlm.init_lm(jax.random.PRNGKey(0), cfg_j)
+    return cfg_j, _bench_params()
 
 
 def _jax_g(cfg_j, seed=2, readout=0.0):
@@ -247,12 +255,21 @@ def test_saved_g_serves_at_its_rows_agreement(tmp_path):
 ARCHS = {"qwen3_4b": 8, "olmoe_1b_7b": 4}
 
 
-def _setup(arch, n_layers=None):
-    n = n_layers or ARCHS[arch]
+@functools.lru_cache(maxsize=None)
+def _jax_setup(arch, n):
+    """The reference's weights and tokens of a reduced ``arch`` at ``n``
+    layers, drawn once per file."""
     cfg_j = dataclasses.replace(jax_get(arch).reduced(), n_layers=n)
-    cfg_t = dataclasses.replace(torch_get(arch).reduced(), n_layers=n)
     pj = jlm.init_lm(jax.random.PRNGKey(0), cfg_j)
     toks = jax.random.randint(jax.random.PRNGKey(1), (2, 8), 0, cfg_j.vocab)
+    return cfg_j, pj, toks
+
+
+def _setup(arch, n_layers=None):
+    """(cfg_j, cfg_t, JAX params, a fresh copy for the port, tokens)."""
+    n = n_layers or ARCHS[arch]
+    cfg_j, pj, toks = _jax_setup(arch, n)
+    cfg_t = dataclasses.replace(torch_get(arch).reduced(), n_layers=n)
     return cfg_j, cfg_t, pj, _carry(pj), np.array(toks, np.int32)
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint import manager as tman

@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import FixedGrid as JaxGrid
 from repro.core import Integrator as JaxIntegrator
 from repro.core import get_tableau as jax_tableau

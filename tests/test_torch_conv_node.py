@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.data import synthetic_images as jax_images
 from repro.models import conv_node as J
 from repro.nn import conv_blocks as JB

@@ -46,6 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.configs import get as jget
 from repro.data import token_batches as jax_token_batches
 from repro.launch.steps import StepSettings as JaxSettings

@@ -34,6 +34,7 @@ import textwrap
 
 import pytest
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import cell_is_applicable as jax_applicable
 from repro.configs import get as jget

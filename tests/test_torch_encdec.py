@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro import configs as jax_configs
 from repro.models import encdec as jed
 from repro.nn import attention as jatt

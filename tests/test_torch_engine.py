@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from port_isolation import port_module_isolation  # noqa: F401
 from test_torch_moe import MARGIN, routing_margins
 
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager

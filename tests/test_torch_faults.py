@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.distributed import fault as jfault
 from repro.launch import engine as jeng
 from repro.launch import scheduler as jsch

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.nn import attention as jattn
 from repro_torch.convert import params_from_jax, tensor_from_numpy

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.checkpoint import CheckpointManager as JaxCheckpointManager
 from repro.configs import get as jax_get
 from repro.core import TierRouter as JaxTierRouter

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro import configs as jax_configs
 from repro.core.controllers import EmbeddedErrorController as JaxProbe
 from repro.models import cdepth as jcd

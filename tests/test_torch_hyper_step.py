@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import get_tableau as jax_tableau
 from repro.kernels.hyper_step.ops import fused_rk_update as jax_fused
 from repro.kernels.hyper_step.ops import hyper_step as jax_hyper_step

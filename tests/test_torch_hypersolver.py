@@ -24,6 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import FixedGrid as JaxGrid
 from repro.core import Integrator as JaxIntegrator
 from repro.core import get_tableau as jax_tableau
@@ -261,27 +262,38 @@ def test_losses_need_a_correction():
             fn(Integrator(EULER), f_torch, traj, FixedGrid.over(0.0, 1.0, 4))
 
 
-@pytest.mark.parametrize("K", [2, 4])
-def test_cdepth_residual_loss_and_grad_match_reference(K):
-    """The LM form of residual fitting (``models/cdepth.py``) on reduced
-    qwen3_4b at 4 layers: the discrete trajectory, the loss and its
-    gradient in g's params against ``jax.grad``."""
+@pytest.fixture(scope="module")
+def cdepth_reference():
+    """Reduced qwen3_4b at 4 layers: the reference's weights, g, tokens and
+    discrete trajectory, drawn and computed once for the K cases."""
     from repro.configs import get as jax_cfg
     from repro.models import cdepth as jcd
     from repro.models.lm import init_lm
-    from repro_torch.configs import get as torch_cfg
-    from repro_torch.models import cdepth as tcd
 
     cfg_j = dataclasses.replace(jax_cfg("qwen3_4b").reduced(), n_layers=4)
-    cfg_t = dataclasses.replace(torch_cfg("qwen3_4b").reduced(), n_layers=4)
     pj = init_lm(jax.random.PRNGKey(0), cfg_j)
     gj = jcd.lm_g_init(jax.random.PRNGKey(5), cfg_j, rank=8)
     gj = dict(gj, w_out=0.1 * jax.random.normal(jax.random.PRNGKey(6),
                                                 gj["w_out"].shape))
     toks = np.random.RandomState(0).randint(0, cfg_j.vocab, (2, 8)).astype(
         np.int32)
+    traj = jcd.discrete_depth_trajectory(pj, cfg_j, jnp.asarray(toks))
+    return cfg_j, pj, gj, toks, traj
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_cdepth_residual_loss_and_grad_match_reference(K, cdepth_reference):
+    """The LM form of residual fitting (``models/cdepth.py``) on reduced
+    qwen3_4b at 4 layers: the discrete trajectory, the loss and its
+    gradient in g's params against ``jax.grad``."""
+    from repro.models import cdepth as jcd
+    from repro_torch.configs import get as torch_cfg
+    from repro_torch.models import cdepth as tcd
+
+    cfg_j, pj, gj, toks, want_traj = cdepth_reference
+    toks = toks.copy()
+    cfg_t = dataclasses.replace(torch_cfg("qwen3_4b").reduced(), n_layers=4)
     pt, gt = _carry(pj), _carry(gj)
-    want_traj = jcd.discrete_depth_trajectory(pj, cfg_j, jnp.asarray(toks))
     np.testing.assert_allclose(
         tcd.discrete_depth_trajectory(pt, cfg_t, torch.from_numpy(toks))
         .numpy(), np.asarray(want_traj), rtol=1e-4, atol=1e-4)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import FixedGrid as JaxGrid
 from repro.core import NeuralODE as JaxNODE
 from repro.core import depth_like as jax_depth_like

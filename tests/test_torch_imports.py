@@ -9,6 +9,8 @@ import re
 import subprocess
 import sys
 
+from port_isolation import port_module_isolation  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 

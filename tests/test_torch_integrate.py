@@ -15,6 +15,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import tableaus as jax_tableaus
 from repro.core.controllers import EmbeddedErrorController as JaxEmbedded
 from repro.core.controllers import HypersolverResidualController as JaxResid

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from port_isolation import port_module_isolation  # noqa: F401
 from test_torch_moe import MARGIN, routing_margins
 
 from repro import configs as jax_configs

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from port_isolation import port_module_isolation  # noqa: F401
 from test_torch_faults import _injectors, _jsched, _sched
 from test_torch_faults import _trace as fault_trace
 from test_torch_flow import _JAX_TOY as FLOW_JAX_TOY

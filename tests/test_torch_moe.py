@@ -16,6 +16,7 @@ token to another expert (tests/test_nn_layers.py holds the reference's
 own dispatches to its loop oracle)."""
 import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro import configs as jax_configs
 from repro.models import cdepth as jcd
 from repro.models import lm as jlm
@@ -61,9 +63,16 @@ def routing_margins():
         tmoe._route = orig
 
 
+@functools.lru_cache(maxsize=None)
+def _layer_jax(E, gated, seed, dtype):
+    """The reference's layer params, drawn once per file for each key."""
+    return jmoe.moe_init(jax.random.PRNGKey(seed), D, D_FF, E, gated=gated,
+                         param_dtype=dtype)
+
+
 def _layer(E, gated=True, seed=0, dtype=jnp.float32):
-    pj = jmoe.moe_init(jax.random.PRNGKey(seed), D, D_FF, E, gated=gated,
-                       param_dtype=dtype)
+    """(JAX params, a fresh copy for the port)."""
+    pj = _layer_jax(E, gated, seed, dtype)
     return pj, params_from_jax(jax.tree_util.tree_map(np.asarray, pj))
 
 

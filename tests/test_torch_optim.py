@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core.residual import ledger_fitting_loss as jax_ledger_loss
 from repro.core.train import make_fit_step as jax_make_fit_step
 from repro.optim import adamw as jax_adamw

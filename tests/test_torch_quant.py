@@ -28,6 +28,7 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro import configs as jax_configs
 from repro.models import lm as jlm
 from repro.nn import attention as jatt

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.configs import get as jax_get
 from repro.launch import engine as jeng
 from repro.launch import refinery as jref

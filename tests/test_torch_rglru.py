@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.kernels.rglru_scan.ops import rglru_scan as jax_scan
 from repro.nn import rglru as jrg
 from repro_torch.convert import params_from_jax, tensor_from_numpy

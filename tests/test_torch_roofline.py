@@ -22,6 +22,7 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get as jax_get

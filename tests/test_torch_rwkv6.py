@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.kernels.rwkv6_scan.ops import wkv6 as jax_wkv6
 from repro.nn import ffn as jffn
 from repro.nn import rwkv6 as jrw

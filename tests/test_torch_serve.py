@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.launch import serve as jax_serve
 from repro_torch.launch import serve
 

@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import jax
 import pytest
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro import configs as jconfigs
 from repro.distributed import sharding as jshd
 from repro.launch import steps as jsteps

@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro.core import FixedGrid as JaxGrid
 from repro.core.train import HypersolverTrainConfig as JaxCfg
 from repro.core.train import make_integrator as jax_make_integrator

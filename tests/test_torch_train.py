@@ -36,6 +36,7 @@ import pytest
 import torch
 from torch.utils import _pytree as pytree
 
+from port_isolation import port_module_isolation  # noqa: F401
 from repro import configs as jax_configs
 from repro.data import ShardedLoader as JaxLoader
 from repro.distributed import fault as jfault
