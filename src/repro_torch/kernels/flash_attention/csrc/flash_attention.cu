@@ -34,7 +34,8 @@
 // against the bytes: Griffin (10 query heads over 1 kv head, hd 256, bf16)
 // moves 11.5 MB (q and o 5.24 MB each, k and v 0.52 MB each), ~3.4 us at
 // 3.35 TB/s, against ~0.67 GFLOP (~0.7 us at the bf16 tensor-core peak);
-// Qwen3 (32 over 8, hd 128) moves 21 MB, ~6.3 us. Whisper-base (8 heads
+// Qwen3 (32 over 8, hd 128) moves 21 MB, ~6.3 us; Nemotron-4-340B (96
+// over 8, hd 192) 81.8 MB, ~24.4 us, against 4.9 GFLOP. Whisper-base (8 heads
 // of 64): its encoder (B 8, 1,500 frames, non-causal) is ~37 GFLOP,
 // operations-bound (~37 us); cross-attention of 448 queries over 1,500
 // frames ~11 GFLOP (~11 us). A window of 2048 over
@@ -46,18 +47,22 @@
 //   * one block of 4 warps per (query tile of FA_MMA_BQ = 64 rows, query
 //     head, batch), each warp owning 16 query rows; the G heads of a kv
 //     group re-read the same K/V tiles from L2, not from device memory;
-//   * q and each K/V tile (BK = 32 rows at hd 64, 64 at hd 128, 16 at hd 256) are
+//   * q and each K/V tile (BK = 32 rows at hd 64 and 192, 64 at hd 128, 16 at
+//     hd 256) are
 //     copied to shared memory with 16-byte cp.async in the operand type
 //     (rows past S zero-filled through cp.async's source size), in rows
 //     whose 16-byte chunks are XOR-swizzled by the row's low 3 bits, so
 //     the 8 rows of every ldmatrix tile fall in 8 distinct bank groups;
 //   * K/V are double-buffered: tile j + 1 is in flight while tile j
 //     computes (commit_group / wait_group 1). Shared memory: 24 KB at hd
-//     64, 80 KB at hd 128, 64 KB at hd 256; registers allow 2 blocks an
-//     SM at hd 128 and 256, 4 at hd 64 (127 registers: the fp32 O
-//     accumulator is 32 a thread and 32-key score fragments 16; 64 keys
-//     took 148-156 registers and ran 10-23 % slower, 128 keys 241 and
-//     ran no faster);
+//     64, 80 KB at hd 128, 72 KB at hd 192, 64 KB at hd 256; registers
+//     allow 2 blocks an SM at hd 128 and 256, 3 at hd 192, 4 at hd 64
+//     (127 registers: the fp32 O accumulator is 32 a thread and 32-key
+//     score fragments 16; 64 keys took 148-156 registers and ran 10-23 %
+//     slower, 128 keys 241 and ran no faster). At hd 192 the accumulator
+//     is 96 registers a thread: 32 keys take 168 without a spill, 16 keys
+//     168 too and run 6-18 % slower, 64 keys spill 48-64 bytes at 255 and
+//     run 23-46 % slower on causal self-attention (tools/flash_ab.py);
 //   * S = Q K^T by mma.sync from ldmatrix fragments. Products of two
 //     16-bit values are exact in fp32, so only the summation order
 //     differs from the plain version. The scale is applied to the fp32
@@ -92,8 +97,8 @@
 //     P.V, which runs over the V tile with 16-byte reads;
 //   * it is instantiated at hd 16 (the reduced LMs whose continuous-depth
 //     hypersolver is fitted on the card), where each quad lane owns one
-//     4-column chunk, and at hd 64 (Whisper-base, 4 chunks a lane), 128
-//     and 256; the 16-bit path is not instantiated at hd 16 (its swizzle
+//     4-column chunk, and at hd 64 (Whisper-base, 4 chunks a lane), 128,
+//     192 (Nemotron-4-340B, 12 chunks a lane) and 256; the 16-bit path is not instantiated at hd 16 (its swizzle
 //     needs 8 chunks a row), so a 16-bit hd 16 call is refused.
 //
 // Both read q, k and v in place in the (B, S, heads, hd) layout through
@@ -157,8 +162,9 @@ __device__ __forceinline__ bool kv_visible(const FlashParams& p, int qpos, int k
 template <int HD>
 __host__ __device__ constexpr int fa_mma_bk() {
   // 32 at hd 256 spills (255 registers); at hd 64, 32 keys beat 64 and
-  // tie 128 (tools/flash_ab.py on the H100) at 127 registers
-  return HD >= 256 ? 16 : (HD <= 64 ? 32 : 64);
+  // tie 128 (tools/flash_ab.py on the H100) at 127 registers; at hd 192,
+  // 32 beat 16 and 64 (which spills): see the header
+  return HD >= 256 ? 16 : (HD == 128 ? 64 : 32);
 }
 
 template <int HD>
@@ -197,6 +203,10 @@ __global__ void __launch_bounds__(FA_MMA_THREADS) flash_attention_mma_kernel(con
   constexpr int NT = BK / 8;         // score n-tiles of 8 keys per warp
   constexpr int OT = HD / 8;         // output n-tiles of 8 columns per warp
   constexpr int CH = HD / 8;         // 16-byte chunks per row
+  static_assert(CH % 8 == 0, "swz permutes a row's 16-byte chunks within "
+                "groups of 8: HD must be a multiple of 64");
+  static_assert((HD / 16) % 4 == 0, "the ldmatrix offsets step over 64-column "
+                "groups of 4 k-steps: HD must be a multiple of 64");
   extern __shared__ uint4 fa_mma_smem[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(fa_mma_smem);
   const unsigned sQ = smem_addr(smem);
@@ -578,6 +588,7 @@ cudaError_t flash_attention_launch(const void* q, const void* k, const void* v, 
                            fa_smem_bytes<16>(), s);
     case 64: return launch_hd<64>(p, dtype, B, s);
     case 128: return launch_hd<128>(p, dtype, B, s);
+    case 192: return launch_hd<192>(p, dtype, B, s);
     case 256: return launch_hd<256>(p, dtype, B, s);
     default: return cudaErrorInvalidValue;
   }

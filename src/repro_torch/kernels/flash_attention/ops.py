@@ -34,9 +34,10 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (64, 128, 256)   # head widths the kernel is instantiated for
-                             # (whisper_base's; qwen3_4b's; paligemma_3b's
-                             # and recurrentgemma_2b's), and
+HEAD_DIMS = (64, 128, 192, 256)   # head widths the kernel is instantiated
+                                  # for (whisper_base's; qwen3_4b's;
+                                  # nemotron_4_340b's; paligemma_3b's and
+                                  # recurrentgemma_2b's), and
 FP32_HEAD_DIMS = (16,) + HEAD_DIMS   # the reduced LMs' in float32
 MAX_GRID = 65535             # grid.y (heads) and grid.z (batch) limit
 ALIGN_BYTES = 16             # one cp.async / vector load: 8 bf16 or fp16

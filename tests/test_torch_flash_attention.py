@@ -63,6 +63,7 @@ def _check(seed, B, S, H, KV, hd, dtype, causal=True, window=None):
     (2, 256, 8, 2, 64),      # GQA 4:1, two blocks
     (1, 384, 4, 1, 128),     # MQA, 3 blocks, wide head
     (1, 200, 4, 2, 64),      # ragged S (not a block multiple)
+    (1, 200, 6, 2, 192),     # Nemotron-4's width, GQA 3:1, ragged S
 ])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_attention_causal_sweep_matches_jax(B, S, H, KV, hd, dtype):
@@ -73,6 +74,37 @@ def test_flash_attention_causal_sweep_matches_jax(B, S, H, KV, hd, dtype):
                                            (True, 130), (False, 64)])
 def test_flash_attention_noncausal_and_window_matches_jax(causal, window):
     _check(2, 1, 256, 2, 2, 64, "float32", causal, window)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_width_192_window_matches_jax(dtype):
+    """Head width 192 under a binding window of 130 (MQA 4/1, ragged S
+    = 200): the window's lower loop bound at the kernels' tiles."""
+    _check(4, 1, 200, 4, 1, 192, dtype, True, 130)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cross_attention_at_width_192_matches_reference_mha(dtype):
+    """``Sq != Sk`` at head width 192: 20 queries over 45 frames (GQA
+    4/2), non-causal, through ``mha(kv_x=)`` and the flash wrapper against
+    the reference's cross-attention (plain ``jnp``: the Pallas kernel has
+    one S), at the float32 and 16-bit tolerances."""
+    d, H, KV, hd = 48, 4, 2, 192
+    p = jattn.attention_init(jax.random.PRNGKey(9), d, H, KV, hd)
+    rs = np.random.RandomState(10)
+    x, mem = (jnp.asarray(rs.randn(2, n, d).astype(np.float32))
+              .astype(DTYPES[dtype][0]) for n in (20, 45))
+    pt = params_from_jax(jax.tree_util.tree_map(np.asarray, p))
+    kw = dict(n_heads=H, n_kv=KV, d_head=hd)
+    ref = jattn.mha(p, x, kv_x=mem, **kw)
+    out = tattn.mha(pt, tensor_from_numpy(np.asarray(x)),
+                    kv_x=tensor_from_numpy(np.asarray(mem)), **kw)
+    assert out.dtype == DTYPES[dtype][1] and out.shape == (2, 20, d)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               **(TOL[dtype] if dtype == "bfloat16" else
+                                  dict(rtol=2e-4, atol=2e-5)))
+    assert LAUNCHES["flash_attention"] == 0
 
 
 def _first_visited_tile_fully_masked(S, window, block):
@@ -219,7 +251,7 @@ def test_kernel_alignment_is_counted_in_bytes(dtype):
     assert _aligned(odd_stride) is not odd_stride
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
 def test_mha_gives_the_kernel_operands_it_reads_in_place(monkeypatch, hd):
     """On the main path nothing is copied before the kernel: the q, k, v
     that ``mha`` hands the wrapper (projections, qk-norm, RoPE) are bf16
@@ -253,7 +285,7 @@ def _mma_emulation(q, k, v, *, causal=True, window=None, split=True):
     on the CPU, in float32, returned before the final rounding: q, k, v in
     their 16-bit type; scores from products exact in fp32, times
     float32(hd^-0.5) * float32(log2 e) after the product; per 64-row query
-    tile, kv tiles of 64 keys (32 at hd 64, 16 at hd 256) from the
+    tile, kv tiles of 64 keys (32 at hd 64 and 192, 16 at hd 256) from the
     window's lower tile to the causal diagonal (over every key of a
     longer or shorter k, non-causal), masked with the finite -1e30; an
     online softmax in base 2; each probability split into hi = T(p) and
@@ -261,7 +293,7 @@ def _mma_emulation(q, k, v, *, causal=True, window=None, split=True):
     o = acc / max(l, 1e-30)."""
     B, S, H, hd = q.shape
     Sk, G = k.shape[1], H // k.shape[2]
-    BQ, BK = 64, (16 if hd >= 256 else 32 if hd <= 64 else 64)
+    BQ, BK = 64, (16 if hd >= 256 else 32 if hd in (64, 192) else 64)
     T = q.dtype
     n = -(-max(S, Sk) // max(BQ, BK)) * max(BQ, BK)
 
@@ -313,6 +345,7 @@ def _mma_emulation(q, k, v, *, causal=True, window=None, split=True):
     (1, 200, 4, 2, 64, None),
     (2, 200, 4, 1, 128, 40),     # first visited tiles fully masked
     (1, 150, 2, 1, 256, 50),     # Griffin's width: 16-key tiles
+    (1, 200, 6, 2, 192, 70),     # Nemotron-4's width: 32-key tiles
 ])
 def test_mma_emulation_matches_pallas_kernel(B, S, H, KV, hd, window):
     """The tensor-core kernel's arithmetic, rounded to bf16, agrees with
@@ -331,6 +364,7 @@ def test_mma_emulation_matches_pallas_kernel(B, S, H, KV, hd, window):
     (2, 256, 8, 2, 128, None),
     (2, 200, 4, 1, 128, 40),
     (1, 150, 2, 1, 256, 50),
+    (1, 200, 6, 2, 192, 70),
 ])
 def test_mma_emulation_is_float32_before_rounding(B, S, H, KV, hd, window,
                                                   dtype):

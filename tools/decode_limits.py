@@ -6,13 +6,15 @@ readout over every position, on one GPU.
 
 from the repository root. For each model (full width in bf16, and
 float32 at ``chip_smoke.py``'s 4 layers, Griffin 6; ``--archs`` keeps
-the named ones; OLMoE runs in bf16 only), seeded random
+the named ones; OLMoE runs in bf16 only; Nemotron-4-340B and Llama-4
+Maverick in bf16 at ``chip_smoke.CUT_LAYERS``' depth), seeded random
 weights, 8 prompts of 128 tokens per prompt seed, 32 greedy tokens
 (``chip_smoke.generate_logits``): the teacher-forced error of the sound
 generate and of the same generate under the planted fault
 ``chip_smoke.lost_cache_writes`` (``chip_smoke.teacher_forced_err``, a
-share of the largest |logit|; for OLMoE against a chain of decode
-steps), against the limit ``chip_smoke.py``
+share of the largest |logit| at the worst generated position, or the
+median one for a model in ``chip_smoke.DECODE_STAT``, both printed; for
+a MoE model against a chain of decode steps), against the limit ``chip_smoke.py``
 holds that model to; for ``whisper_base`` also the encoder-decoder's 32
 teacher-forced cached decode steps against ``decode_train``, sound and
 under ``chip_smoke.foreign_cross_kv`` (the LM readings are of the
@@ -25,6 +27,7 @@ line; exits non-zero without a CUDA device or when a reading falls on
 the wrong side of its limit.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -71,22 +74,28 @@ def prefill_times(params, cfg, prompt, w):
 def readings(cfg, seeds, weight_seed, tol, dev):
     params = lm.init_lm(torch.Generator(device=dev).manual_seed(weight_seed),
                         cfg, device=dev)
+    stat = cs.DECODE_STAT.get(cfg.name, "max")
     row = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
-               limit=tol, sound=[], fault=[])
+               limit=tol, position=stat, sound=[], fault=[],
+               by_position={k: {"max": [], "median": []}
+                            for k in ("sound", "fault")})
     with torch.no_grad():
         w = lm.readout_weight(params, cfg, lm.dtype_of(cfg.dtype))
         for seed in seeds:
             prompt = torch.as_tensor(np.random.RandomState(seed).randint(
                 0, cfg.vocab, (cs.B, cs.S)), device=dev)
-            logits, toks, _, _ = cs.generate_logits(params, cfg, prompt,
-                                                    cs.GEN, w)
-            row["sound"].append(cs.teacher_forced_err(params, cfg, prompt,
-                                                      logits, toks, w))
-            with cs.lost_cache_writes():
-                logits, toks, _, _ = cs.generate_logits(params, cfg, prompt,
-                                                        cs.GEN, w)
-            row["fault"].append(cs.teacher_forced_err(params, cfg, prompt,
-                                                      logits, toks, w))
+            for key, fault in (("sound", contextlib.nullcontext()),
+                               ("fault", cs.lost_cache_writes())):
+                with fault:
+                    logits, toks, _, _ = cs.generate_logits(
+                        params, cfg, prompt, cs.GEN, w)
+                per = cs.teacher_forced_per_position(params, cfg, prompt,
+                                                     logits, toks, w)
+                reads = {"max": float(per.max()),
+                         "median": float(per.median())}
+                row[key].append(reads[stat])
+                for k, v in reads.items():
+                    row["by_position"][key][k].append(v)
         if cfg.dtype == "bfloat16":
             row["prefill_ms"] = prefill_times(params, cfg, prompt, w)
     del params, w
@@ -135,8 +144,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0], flush=True)
     ok = True
     for arch in args.archs:
-        ok &= readings(get(arch), args.seeds, 0, cs.BF16_DECODE_TOL[arch],
-                       dev)
+        cfg = cs.cut_config(arch) if arch in cs.CUT_LAYERS else get(arch)
+        ok &= readings(cfg, args.seeds, 0, cs.BF16_DECODE_TOL[arch], dev)
     if "whisper_base" in args.archs:
         ok &= whisper_readings(args.seeds, dev)
     for arch, n_layers in cs.FP32_DECODE_LAYERS.items():

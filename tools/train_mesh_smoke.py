@@ -31,7 +31,18 @@ the one-card computation:
     ulp for almost every weight, so rounding absorbs it and most params
     come out unchanged on both sides: this check sees little, the
     gradients' does the work.
-The shares and the worst gaps are printed. Then
+The shares and the worst gaps are printed. With ``--fp32-ref-layers N``
+the model is cut to N layers at full width (the 36 layers' float32
+gradient does not fit one card) and rank 0 also takes step 0's gradient
+of a float32 copy of the same weights on one card; both bf16 gradients,
+one card's and the (2, 2) mesh's, are held to it leaf by leaf by relative
+L2, and their worst and median leaves printed, with the verdict: a mesh
+gap within FP32_REF_RATIO times the one-card gap on both is bf16
+reordering, a larger one a fault of the sharded step:
+
+    python3 tools/train_mesh_smoke.py --fp32-ref-layers 8
+
+Then
 ``compressed_allreduce_mean`` over 'data', and a checkpoint of the params
 saved on (2, 2) and restored onto (4, 1), equal.
 Each card prints its synced ms a step, its peak memory and its flash,
@@ -40,6 +51,7 @@ non-zero without four CUDA devices (the CPU rehearsal aside) or on a
 failed check.
 """
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -59,10 +71,28 @@ WORLD, STEPS, B, S = 4, 3, 8, 128
 LR = 3e-4
 LOSS_RTOL = 1e-3
 GRAD_RTOL = 5e-2
+# the four-card bf16 gradient's gap to float32 over the one-card gap, on
+# the worst and the median leaf, within which the two differ only by the
+# order of their bf16 sums
+FP32_REF_RATIO = 2.0
 OUT = os.path.join(ROOT, "build", "train_mesh_smoke")
 
 
-def rank_main(rank: int, port: int, device: str, reduced: bool) -> None:
+def rel_l2_by_leaf(got, want):
+    """Each leaf's relative L2 gap of ``got`` to ``want`` (float32)."""
+    return [float(torch.linalg.vector_norm(a.float() - b.float())
+                  / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def gap_summary(errs, names):
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return dict(max_rel_l2=errs[worst], worst_leaf=names[worst],
+                median_rel_l2=sorted(errs)[len(errs) // 2])
+
+
+def rank_main(rank: int, port: int, device: str, reduced: bool,
+              fp32_ref_layers: int) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import empty as dempty
@@ -93,6 +123,8 @@ def rank_main(rank: int, port: int, device: str, reduced: bool) -> None:
         cfg = get("qwen3_8b")
         if reduced:
             cfg = cfg.reduced()
+        if fp32_ref_layers:
+            cfg = dataclasses.replace(cfg, n_layers=fp32_ref_layers)
         settings = steps.StepSettings(remat="none", zero_opt=True, lr=LR)
         it = token_batches(cfg.vocab, B, S, seed=0, device=dev)
         batches = [dict(zip(("tokens", "targets"), next(it)))
@@ -120,6 +152,20 @@ def rank_main(rank: int, port: int, device: str, reduced: bool) -> None:
                 p_ref.append(p.cpu())
             g_ref = [g.cpu() for g in grads]
             del grads, p
+            names = [shd.path_str(path) for path, _ in
+                     pytree.tree_leaves_with_path(params0)]
+            if fp32_ref_layers:
+                cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                            param_dtype="float32")
+                _, _, g32 = steps._value_and_grad(
+                    lambda p, b: lm_loss(p, cfg32, b["tokens"],
+                                         b["targets"]),
+                    pytree.tree_map(lambda l: l.float(), params0),
+                    batches[0])
+                g32 = [g.cpu() for g in g32]
+                out["fp32_ref"] = dict(
+                    layers=fp32_ref_layers,
+                    one_card=gap_summary(rel_l2_by_leaf(g_ref, g32), names))
             ref = {"loss": float(loss), "grad_norm": float(gnorm)}
             sync()
             out["one_card_s"] = time.perf_counter() - t0
@@ -141,24 +187,31 @@ def rank_main(rank: int, port: int, device: str, reduced: bool) -> None:
         # the sharded gradients of batch 0, leaf by leaf (untimed)
         loss, _, grads = steps.make_value_and_grad(cfg, settings, mesh=mesh)(
             params, batches[0])
-        grad_err = []
+        grad_err, fp32_err = [], []
         for j, g in enumerate(grads):
             full = g.full_tensor()
             if rank == 0:
-                want = g_ref[j].to(dev).float()
-                grad_err.append(float(torch.linalg.vector_norm(
-                    full.float() - want) / torch.linalg.vector_norm(want)
-                    .clamp_min(1e-30)))
+                grad_err += rel_l2_by_leaf([full], [g_ref[j].to(dev)])
+                if fp32_ref_layers:
+                    fp32_err += rel_l2_by_leaf([full], [g32[j].to(dev)])
             del full
         del grads
         if rank == 0:
             del g_ref
-            worst = max(range(len(grad_err)), key=grad_err.__getitem__)
-            out["grads"] = dict(
-                loss=float(loss), max_rel_l2=grad_err[worst],
-                worst_leaf=shd.path_str(pytree.tree_leaves_with_path(
-                    params)[worst][0]),
-                median_rel_l2=sorted(grad_err)[len(grad_err) // 2])
+            out["grads"] = dict(loss=float(loss),
+                                **gap_summary(grad_err, names))
+            if fp32_ref_layers:
+                del g32
+                ref32 = out["fp32_ref"]
+                ref32["four_card"] = gap_summary(fp32_err, names)
+                keys = ("max_rel_l2", "median_rel_l2")
+                one, four = ref32["one_card"], ref32["four_card"]
+                ref32["ratio"] = {k: four[k] / one[k] if one[k] else None
+                                  for k in keys}
+                ref32["verdict"] = (
+                    "bf16 reordering" if all(
+                        four[k] <= FP32_REF_RATIO * one[k] for k in keys)
+                    else "fault of the sharded step")
         dist.barrier()
         # the bound of a first update: two learning rates of step 0
         lr0 = float(linear_warmup_cosine(LR, LR * 0.1, 200, 10_000)(
@@ -284,6 +337,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--fp32-ref-layers", type=int, default=0,
+                    help="cut the model to this many layers and hold both "
+                    "bf16 gradients of step 0 to a float32 one-card "
+                    "gradient (0: off)")
     args = ap.parse_args()
     if args.device == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() < WORLD:
@@ -297,8 +354,8 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
-    mp.spawn(rank_main, args=(free_port(), args.device, args.reduced),
-             nprocs=WORLD)
+    mp.spawn(rank_main, args=(free_port(), args.device, args.reduced,
+                              args.fp32_ref_layers), nprocs=WORLD)
     results = []
     for r in range(WORLD):
         with open(os.path.join(OUT, f"rank{r}.json")) as f:
@@ -306,8 +363,12 @@ def main() -> int:
     for r in results:
         print(json.dumps({"phase": "train_mesh_card", **r}), flush=True)
     check(results)
+    if args.fp32_ref_layers:
+        print(json.dumps({"phase": "grad_gap_fp32",
+                          **results[0]["fp32_ref"]}), flush=True)
     print(json.dumps({"phase": "train_mesh", "arch": "qwen3_8b",
-                      "reduced": args.reduced, "mesh": [2, 2],
+                      "reduced": args.reduced,
+                      "layers": args.fp32_ref_layers or None, "mesh": [2, 2],
                       "batch": [B, S], "steps": STEPS,
                       "seconds": time.perf_counter() - t0}), flush=True)
     if args.device == "cuda":
