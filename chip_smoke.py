@@ -249,12 +249,18 @@ GEN = 32                        # tokens each decode phase generates
 # LM over five seeds); at CUT_LAYERS' depth over seven seeds, Nemotron-4
 # sound 7.4e-3-8.6e-3, fault 7.4e-2-8.1e-2, and Llama-4 at the median
 # position (DECODE_STAT) against a chain of decode steps sound
-# 3.6e-3-3.9e-3, fault 4.0e-2-4.3e-2.
+# 3.6e-3-3.9e-3, fault 4.0e-2-4.3e-2; at full depth over seven seeds,
+# Mistral-NeMo-12B (40 layers) sound 1.70e-2-1.94e-2, fault 0.223-0.404,
+# and Qwen3-8B (36 layers) sound 1.63e-2-1.84e-2, fault 0.191-0.403: 5e-2
+# leaves both sides a factor of ~2.6 and more (the in-flight check of
+# Mistral-NeMo's logits against the drain's, another row count's GEMMs,
+# read 2.4e-2).
 BF16_DECODE_TOL = {"qwen3_4b": 3e-2, "recurrentgemma_2b": 2e-3,
                    "rwkv6_1p6b": 0.2, "olmoe_1b_7b": 0.15,
                    "paligemma_3b": 1e-3, "whisper_base": 3e-2,
                    "nemotron_4_340b": 3e-2,
-                   "llama4_maverick_400b_a17b": 1.2e-2}
+                   "llama4_maverick_400b_a17b": 1.2e-2,
+                   "mistral_nemo_12b": 5e-2, "qwen3_8b": 5e-2}
 # Models whose decode is held at the median generated position, not the
 # worst: Llama-4 Maverick cut to one (dense, moe) group routes each token to
 # 1 of 128 experts, and bf16 rounding between the prefill's attention and
@@ -432,6 +438,10 @@ def hs_cases():
         # its timed batch of 65,536 base draws
         HsCase("cnf-heun+g", (65536, 2), (f32, f32, f32), f32, (0.5, 0.5), 2,
                eps=1.0, active=None),
+        # the drains' hyper_euler step at Mistral-NeMo-12B's and Qwen3-8B's
+        # widths (phase_mistral_nemo, phase_qwen3_8b)
+        HsCase("euler+g-5120", (B, S, 5120), (bf, bf), bf, (1.0,), 1),
+        HsCase("euler+g-4096", (B, S, 4096), (bf, bf), bf, (1.0,), 1),
     ]
 
 
@@ -468,15 +478,15 @@ def hs_check(case, out, ref, z, act) -> float:
     return err
 
 
-def phase_kernels(dev, bandwidth):
-    """hyper_step at every case of ``hs_cases``: kernel against plain
-    version, both timed cold-L2, and the bound of this run's data (an
-    active row reads every operand and writes z, a frozen row reads and
-    writes z only)."""
+def phase_kernels(dev, bandwidth, cases=None):
+    """hyper_step at every case of ``hs_cases`` (or ``cases``): kernel
+    against plain version, both timed cold-L2, and the bound of this
+    run's data (an active row reads every operand and writes z, a frozen
+    row reads and writes z only)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    for case in hs_cases():
+    for case in hs_cases() if cases is None else cases:
         z, stages, g, eps, act = hs_inputs(case, gen, dev)
         b, order = case.b, case.order
         out = hs_ops.fused_rk_update(z, stages, g, eps, b, order, active=act)
@@ -2958,12 +2968,24 @@ def phase_serve_olmoe(dev):
 # parameters, 37.1 GB. Each is drawn, served and decoded alone, the card
 # released between them (the two do not fit together).
 CUT_LAYERS = {"nemotron_4_340b": 4, "llama4_maverick_400b_a17b": 2}
+# The largest dense models one H100 holds whole, served at full width and
+# full depth by the same phase, and also in flight (the value: whether the
+# overlap loop runs through the serving CLI): mistral_nemo_12b
+# (hf:mistralai/Mistral-Nemo-Base-2407: 40 layers, d 5,120 over attention
+# 4,096 wide, 32 heads of 128 over 8, d_ff 14,336, vocab 131,072; 12.25 B
+# parameters, 24.5 GB in bf16) and qwen3_8b (hf:Qwen/Qwen3-8B: 36 layers,
+# d 4,096, 32 heads of 128 over 8 with qk-norm, an untied head, vocab
+# 151,936; 8.19 B parameters, 16.4 GB).
+INFLIGHT_VIA_CLI = {"mistral_nemo_12b": True, "qwen3_8b": False}
 
 
 def cut_config(arch):
-    """Full-width ``arch`` at ``CUT_LAYERS[arch]`` layers (the serving CLI
-    builds only full depth, so these run through the engine)."""
-    return dataclasses.replace(get(arch), n_layers=CUT_LAYERS[arch])
+    """Full-width ``arch`` at ``CUT_LAYERS[arch]`` layers, or at its own
+    depth where it has no entry there (the serving CLI builds only full
+    depth, so a cut model runs through the engine)."""
+    cfg = get(arch)
+    return dataclasses.replace(cfg, n_layers=CUT_LAYERS.get(arch,
+                                                            cfg.n_layers))
 
 
 def euler_engine(params, cfg, tol):
@@ -2981,12 +3003,13 @@ def phase_cut_model(dev, bandwidth, arch):
     (euler, multi-rate over buckets 2, 4, 8, fused, its tolerance from a
     calibration drain's probe errors) and with hyper_euler and a seeded g
     (its tolerance from this run's probe), each drain counted
-    (``counted_drain``); then the cached greedy decode of 32 tokens
-    (``phase_decode``: launches exact, the decode held to its
+    (``counted_drain``); for a model in ``INFLIGHT_VIA_CLI``, then
+    ``phase_inflight`` on the same params; then the cached greedy decode
+    of 32 tokens (``phase_decode``: launches exact, the decode held to its
     teacher-forced limit). Prints each drain's wall, breakdown, mean NFE
     and agreement with the full forward, a MoE model's dropped fractions,
-    the decode's ms a token beside the weight-bytes bound and, for a MoE
-    model, the cost model's bound of the active parameters, and peak
+    the decode's ms a token beside the weight-bytes bound and the cost
+    model's bound (for a MoE model, of the active parameters), and peak
     memory."""
     cfg = cut_config(arch)
     kinds = set(lm.block_pattern(cfg))
@@ -3027,6 +3050,12 @@ def phase_cut_model(dev, bandwidth, arch):
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     del engine, gp
     release_card()
+    inflight_launches = {}
+    if arch in INFLIGHT_VIA_CLI:
+        inflight_launches = phase_inflight(
+            dev, cfg, params, prompt, tol_euler,
+            via_cli=INFLIGHT_VIA_CLI[arch])
+        release_card()
 
     def run():
         with torch.no_grad():
@@ -3045,8 +3074,9 @@ def phase_cut_model(dev, bandwidth, arch):
          else "every parameter")
     del params
     release_card()
-    return collections.Counter(launches) + collections.Counter(
-        hyper_launches) + collections.Counter(decode_launches)
+    return sum((collections.Counter(c) for c in (
+        launches, hyper_launches, inflight_launches, decode_launches)),
+        collections.Counter())
 
 
 def phase_nemotron(dev, bandwidth):
@@ -3060,6 +3090,19 @@ def phase_llama4(dev, bandwidth):
     group (``phase_cut_model``): 128 experts at top-1 beside a shared
     expert, the dispatch's dropped fractions printed."""
     return phase_cut_model(dev, bandwidth, "llama4_maverick_400b_a17b")
+
+
+def phase_mistral_nemo(dev, bandwidth):
+    """Full-width mistral_nemo_12b at its 40 layers (``phase_cut_model``):
+    attention 4,096 wide under a stream of 5,120, through the flash
+    kernel; in flight with the overlap loop through the serving CLI."""
+    return phase_cut_model(dev, bandwidth, "mistral_nemo_12b")
+
+
+def phase_qwen3_8b(dev, bandwidth):
+    """Full-width qwen3_8b at its 36 layers (``phase_cut_model``): qk-norm
+    and an untied head; in flight through the scheduler."""
+    return phase_cut_model(dev, bandwidth, "qwen3_8b")
 
 
 # ------------------------------------------------------ quantized paths ----
@@ -5956,6 +5999,10 @@ def main() -> int:
     launches.update(phase_nemotron(dev, bandwidth))
     launches.update(phase_llama4(dev, bandwidth))
     emit(phase="nemotron_llama4_total", seconds=time.perf_counter() - t_cut)
+    t_dense = time.perf_counter()
+    launches.update(phase_mistral_nemo(dev, bandwidth))
+    launches.update(phase_qwen3_8b(dev, bandwidth))
+    emit(phase="dense_whole_total", seconds=time.perf_counter() - t_dense)
     launches.update(phase_cdepth_lm(dev))
     phase_fused_vs_unfused(dev)
     phase_decode_fp32(dev)

@@ -7,7 +7,8 @@ readout over every position, on one GPU.
 from the repository root. For each model (full width in bf16, and
 float32 at ``chip_smoke.py``'s 4 layers, Griffin 6; ``--archs`` keeps
 the named ones; OLMoE runs in bf16 only; Nemotron-4-340B and Llama-4
-Maverick in bf16 at ``chip_smoke.CUT_LAYERS``' depth), seeded random
+Maverick in bf16 at ``chip_smoke.CUT_LAYERS``' depth, Mistral-NeMo-12B
+and Qwen3-8B in bf16 at their full depth), seeded random
 weights, 8 prompts of 128 tokens per prompt seed, 32 greedy tokens
 (``chip_smoke.generate_logits``): the teacher-forced error of the sound
 generate and of the same generate under the planted fault
@@ -144,7 +145,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0], flush=True)
     ok = True
     for arch in args.archs:
-        cfg = cs.cut_config(arch) if arch in cs.CUT_LAYERS else get(arch)
+        cfg = cs.cut_config(arch)
         ok &= readings(cfg, args.seeds, 0, cs.BF16_DECODE_TOL[arch], dev)
     if "whisper_base" in args.archs:
         ok &= whisper_readings(args.seeds, dev)
