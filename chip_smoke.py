@@ -151,7 +151,11 @@ dispatch time), tokens/s, peak memory against the 12 bytes a parameter
 at rest, the model-FLOP share and each timed backward's share;
 then one float32 step at reduced depth held against the same step with
 every kernel swapped for its plain version; ``phase_train_faults`` runs
-the reference's three fault-tolerance scenarios on reduced qwen3_4b.
+the reference's three fault-tolerance scenarios on reduced qwen3_4b;
+``phase_train_mesh`` the sharded train step and ``phase_serve_tp`` the
+tensor-parallel prefill and decode steps (full-width nemotron_4_340b at
+2 layers from the sharded weight draw), each over a (1, 1) mesh of a
+world-1 nccl group and held to its unsharded counterpart.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -5767,6 +5771,24 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(b).clamp_min(1e-30))
 
 
+@contextlib.contextmanager
+def one_card_mesh():
+    """A (data 1, model 1) ``DeviceMesh`` over a world-1 nccl group
+    (``tcp://127.0.0.1`` and a free port) on the current card; the group
+    is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_train_mesh(dev):
     """``make_train_step(mesh=)`` on the card, over a (data 1, model 1)
     ``DeviceMesh`` of a world-1 nccl group (``tcp://127.0.0.1`` and a free
@@ -5790,8 +5812,6 @@ def phase_train_mesh(dev):
     ``compressed_allreduce_mean`` over the one-rank 'data' group equals
     dequantize(quantize(x)). The group is destroyed at the end. Returns
     the sharded step's launches."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.launch.steps import make_value_and_grad
     from repro_torch.optim import linear_warmup_cosine
     t0 = time.perf_counter()
@@ -5811,13 +5831,7 @@ def phase_train_mesh(dev):
         p1, s1, m = step1(p1, s1, i, b)
         want.append({k: m[k].clone() for k in ("loss", "grad_norm")})
     del s1
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
-                            f"{free_port()}", rank=0, world_size=1,
-                            device_id=torch.device(
-                                "cuda", torch.cuda.current_device()))
-    try:
-        mesh = init_device_mesh("cuda", (1, 1),
-                                mesh_dim_names=("data", "model"))
+    with one_card_mesh() as mesh:
         stepn, _ = make_train_step(cfg, settings, mesh=mesh)
         pn, sn = shard_state(mesh, settings, params0, opt)
         del params0
@@ -5879,8 +5893,6 @@ def phase_train_mesh(dev):
                                                      x.shape)):
             raise AssertionError("train_mesh: compressed_allreduce_mean over "
                                  "one rank is not x's own int8 round trip")
-    finally:
-        dist.destroy_process_group()
     emit(phase="train_mesh", layers=TRAIN_MESH_LAYERS,
          steps=TRAIN_MESH_STEPS, batch=[B, S], mesh=[1, 1],
          loss=[float(g["loss"]) for g in got],
@@ -5901,6 +5913,106 @@ def phase_train_mesh(dev):
     release_card()
     return counted
 
+
+
+# The tensor-parallel serve steps on one card: full-width Nemotron-4-340B
+# cut to SERVE_TP_LAYERS layers (32.7 GB of bf16 weights), drawn by the
+# sharded draw on a (1, 1) mesh of a world-1 nccl group, the sharded
+# prefill step and SERVE_TP_STEPS sharded decode steps held to the
+# unsharded steps on the same tensors. Where they are not bit for bit
+# equal, the worst relative L2 error of their logits is held to
+# SERVE_TP_TOL, tools/serve_tp_smoke.py's PARITY_TOL["nemotron_4_340b"]
+# (four cards against one: sound 8.1e-3, planted fault 0.126; PERF.md
+# section 6).
+SERVE_TP_LAYERS, SERVE_TP_STEPS, SERVE_TP_TOL = 2, 8, 5e-2
+
+
+def phase_serve_tp(dev):
+    """A main path: ``make_prefill_step(mesh=)``, ``lm_prefill`` into
+    DTensor caches (``place_caches``) under ``sharded_context``, and
+    ``make_serve_step(mesh=)`` over ``one_card_mesh()``, on weights from
+    ``init_params_sharded`` (seed 0), the serve phases' 8 x 128 prompt
+    (``RandomState(1)``), the decode fed the unsharded run's greedy
+    tokens. The unsharded steps (``make_prefill_step(cfg, settings)``,
+    ``lm_prefill``, ``make_serve_step(cfg)``) run first on the same
+    tensors (``to_local()``: on one device a block is the whole leaf).
+    Raises unless the flash launches of the sharded run are one per
+    layer in each of its two prefills, the logits are finite, and each
+    logits pair is equal or within SERVE_TP_TOL by relative L2. Prints
+    the draw's ms, both decode loops' ms a step and whether the two runs
+    are equal bit for bit. Returns the sharded run's launches."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get("nemotron_4_340b"),
+                              n_layers=SERVE_TP_LAYERS)
+    settings = StepSettings()
+    n = SERVE_TP_STEPS
+    prompt = torch.as_tensor(np.random.RandomState(1).randint(
+        0, cfg.vocab, size=(B, S)).astype(np.int32), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with one_card_mesh() as mesh, torch.no_grad():
+        params, draw_ms = synced_ms(lambda: steps.init_params_sharded(
+            0, cfg, mesh, settings))
+        plain = pytree.tree_map(lambda t: t.to_local(), params)
+        want = [steps.make_prefill_step(cfg, settings)(
+            plain, {"tokens": prompt})]
+        caches = lm.init_lm_cache(cfg, B, S + n + 1, device=dev)
+        last, caches = lm.lm_prefill(plain, cfg, prompt, caches)
+        want.append(last)
+        toks = [last.argmax(-1)]
+        serve1 = steps.make_serve_step(cfg)
+
+        def plain_decode():
+            for i in range(n):
+                logits, _ = serve1(plain, toks[i], caches, S + i)
+                want.append(logits)
+                toks.append(logits.argmax(-1))
+        _, plain_ms = synced_ms(plain_decode)
+        del caches, plain
+        release_card()
+        LAUNCHES.clear()
+        got = [steps.make_prefill_step(cfg, settings, mesh=mesh)(
+            params, {"tokens": prompt})]
+        caches = steps.place_caches(mesh, cfg, lm.init_lm_cache(
+            cfg, B, S + n + 1, device=dev))
+        with steps.sharded_context(mesh, settings, "prefill"):
+            last, caches = lm.lm_prefill(
+                params, cfg, steps.place_batch(mesh, prompt), caches)
+        got.append(last)
+        serve = steps.make_serve_step(cfg, mesh=mesh)
+
+        def sharded_decode():
+            for i in range(n):
+                logits, _ = serve(params, toks[i], caches, S + i)
+                got.append(logits)
+        _, sharded_ms = synced_ms(sharded_decode)
+        counted = dict(LAUNCHES)
+        got = [g.to_local() for g in got]
+        del caches, params
+    names = ["prefill_step", "prefill_last"] + [f"decode{i}"
+                                                for i in range(n)]
+    equal = {k: torch.equal(a, b) for k, a, b in zip(names, got, want)}
+    errs = {k: rel_l2(a, b) for k, a, b in zip(names, got, want)
+            if not equal[k]}
+    agree = min(float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del got, want
+    release_card()
+    expected = 2 * lm.group_layout(cfg)[1]
+    if counted.get("flash_attention", 0) != expected or not finite or \
+            any(e > SERVE_TP_TOL for e in errs.values()):
+        raise AssertionError(f"serve_tp: launches {counted} (flash "
+                             f"{expected} expected), finite {finite}, "
+                             f"gaps {errs} against {SERVE_TP_TOL}")
+    emit(phase="serve_tp", arch=cfg.name, layers=cfg.n_layers, mesh=[1, 1],
+         batch=[B, S], decode_steps=n, draw_ms=draw_ms,
+         plain_decode_ms_per_step=plain_ms / n,
+         sharded_decode_ms_per_step=sharded_ms / n,
+         bit_equal=not errs, unequal_rel_l2=errs or None,
+         limit=SERVE_TP_TOL, min_argmax_agree=agree, launches=counted,
+         peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         seconds=time.perf_counter() - t0)
+    return counted
 
 
 def release_card():
@@ -6019,6 +6131,7 @@ def main() -> int:
     launches.update(phase_train_faults(dev))
     launches.update(phase_train_mesh(dev))
     emit(phase="train_total", seconds=time.perf_counter() - t_train)
+    launches.update(phase_serve_tp(dev))
     report_roofline(roof_segment)
 
     head = next(r for r in rows if r["case"] == "euler+g"

@@ -297,13 +297,16 @@ def _fake_batch(meter, mesh, tree):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              settings: Optional[StepSettings] = None, verbose: bool = True,
-             mesh=None, cfg=None) -> Dict[str, Any]:
+             mesh=None, cfg=None, shape=None) -> Dict[str, Any]:
     """One cell on the production mesh (or ``mesh``) of the live fake
     process group (``fake_world``); ``cfg`` overrides ``get(arch)`` (the
-    tests pass a reduced config). Returns the artifact's dict."""
+    tests pass a reduced config) and ``shape`` (a ``ShapeSpec``)
+    ``SHAPES[shape_name]`` (a cell of a run's own size). Returns the
+    artifact's dict."""
     from torch.distributed.tensor.debug import CommDebugMode
     cfg = cfg or get(arch)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
+    shape_name = shape.name
     ok, reason = cell_is_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,

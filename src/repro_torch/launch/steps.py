@@ -38,7 +38,10 @@ Gradients leave the backward in their ZeRO placements (a DTensor
 gradient otherwise comes out as a full-size partial sum on every
 device), and the microbatch accumulator in ``acc_dtype`` lives there too.
 ``shard_state`` places a param tree and a fresh optimizer state for a
-step. Every device takes the same global batch (``token_batches`` with
+step; ``init_params_sharded`` draws a dense LM's weights already in
+their placements, each device only its own blocks (a model no card
+holds), and ``place_caches`` places ``init_lm_cache``'s caches for the
+sharded serve step. Every device takes the same global batch (``token_batches`` with
 one seed), each microbatch is split from it exactly as on one device
 (rows ``[i·B/m, (i+1)·B/m)``) and placed over the batch axes, so the
 sharded step computes the unsharded step's values up to the order of
@@ -64,8 +67,10 @@ from repro_torch.configs import ArchConfig, ShapeSpec
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.models import encdec
-from repro_torch.models.lm import (dtype_of, init_lm, init_lm_cache,
-                                   lm_decode_step, lm_forward, lm_loss)
+from repro_torch.models.lm import (block_pattern, dtype_of, init_lm,
+                                   init_lm_cache, lm_decode_step, lm_forward,
+                                   lm_loss)
+from repro_torch.nn.module import truncated_normal_init
 from repro_torch.optim import (Optimizer, adamw, clip_scale, global_norm,
                                linear_warmup_cosine)
 
@@ -265,6 +270,138 @@ def shard_state(mesh, settings: StepSettings, params, opt: Optimizer,
                             placements=p),
         state, o_pl, is_leaf=lambda x: isinstance(x, torch.Tensor))
     return dparams, dstate
+
+
+# The sharded draw's tiling: each group slice of a leaf is cut into
+# DRAW_TILES equal blocks along the dim its rule puts over "model", and
+# each block drawn from a generator of its own, so that a device's block
+# on a model axis of 1, 2 or 4 is a union of whole tiles.
+DRAW_TILES = 4
+
+
+def _leaf_init(path: str, shape) -> Tuple[str, float]:
+    """``init_lm``'s distribution of one leaf of a dense-block LM:
+    ``("normal", scale)`` for ``truncated_normal_init`` at that scale
+    (``dense_init``'s fan-in rule, ``attention_init``'s ``wo`` included:
+    its fan-in is ``n_heads * d_head``; 1 for the embedding, 0.02 for
+    learned positions), ``("ones", 1.0)`` for a norm's scale."""
+    if path.endswith("/kernel"):
+        return "normal", shape[-2] ** -0.5
+    if path == "embed/table":
+        return "normal", 1.0
+    if path == "pos_embed":
+        return "normal", 0.02
+    if path.endswith("/scale"):
+        return "ones", 1.0
+    raise ValueError(f"init_params_sharded: no rule for leaf {path!r}")
+
+
+def _tile_seed(seed: int, leaf: int, g: int, tile: int) -> int:
+    """The generator seed of tile ``tile`` of group slice ``g`` of leaf
+    number ``leaf`` (in ``tree_leaves`` order)."""
+    import numpy as np
+    return int(np.random.SeedSequence((seed, leaf, g, tile))
+               .generate_state(1, np.uint64)[0])
+
+
+def _drawn_block(seed: int, idx: int, path: str, leaf, placements, mesh,
+                 device) -> torch.Tensor:
+    """This device's block of leaf ``idx`` under ``placements``, drawn
+    tile by tile: the union of the tiles its block covers, each drawn
+    alone (float32, then cast) and copied into place."""
+    from torch.distributed.tensor import Shard
+    kind, scale = _leaf_init(path, leaf.shape)
+    spec = shd.param_pspec(path, leaf.ndim)
+    model = [i for i, ax in enumerate(spec) if "model" in shd._axes(ax)]
+    dim = model[0] if model else None
+    n_tiles = DRAW_TILES if dim is not None \
+        and leaf.shape[dim] % DRAW_TILES == 0 else 1
+    sharded = {p.dim for p in placements if isinstance(p, Shard)}
+    if sharded - {dim}:
+        raise ValueError(f"init_params_sharded: {path} sharded on dims "
+                         f"{sorted(sharded)}, its tiles on {dim}")
+    i, n = shd.shard_index(mesh, placements, dim) if sharded else (0, 1)
+    if n_tiles % n:
+        raise ValueError(f"init_params_sharded: {path} {tuple(leaf.shape)} "
+                         f"cut {n} ways is not a union of {n_tiles} tiles")
+    shape = list(leaf.shape)
+    if dim is not None:
+        shape[dim] //= n
+    if kind == "ones":
+        return torch.ones(shape, dtype=leaf.dtype, device=device)
+    block = torch.empty(shape, dtype=leaf.dtype, device=device)
+    skip = shd._stack_skip(path)
+    per = n_tiles // n
+    for g in range(leaf.shape[0] if skip else 1):
+        view = block[g] if skip else block
+        for t in range(per):
+            part = view if n_tiles == 1 else view.narrow(
+                dim - skip, t * view.shape[dim - skip] // per,
+                view.shape[dim - skip] // per)
+            gen = torch.Generator(device=device).manual_seed(
+                _tile_seed(seed, idx, g, i * per + t))
+            part.copy_(truncated_normal_init(gen, part.shape, scale,
+                                             leaf.dtype, device))
+    return block
+
+
+def init_params_sharded(seed: int, cfg: ArchConfig, mesh,
+                        settings: Optional[StepSettings] = None):
+    """Random weights of ``cfg`` drawn already sharded: ``init_lm``'s tree
+    as DTensors in ``param_placements``, the counterpart of the
+    reference's ``jax.jit(init, out_shardings=p_sh)``. Each device draws
+    only its own blocks, on its own device, tile by tile (``DRAW_TILES``
+    tiles a group slice along the dim its rule shards over ``"model"``,
+    each from a generator seeded by (``seed``, leaf, slice, tile)), in
+    ``init_lm``'s distributions (``_leaf_init``); no device and no host
+    holds a whole leaf, and no tensor larger than one tile is made beside
+    the blocks. The values depend on ``seed`` and on the device type, not
+    on the mesh: the same global weights on a (1, 1), (1, 2), (2, 2) or
+    (1, 4) mesh. They are not ``init_lm``'s values (one generator there
+    draws each leaf whole).
+
+    Supports a ``make_debug_mesh`` mesh (axes ``("data", "model")``)
+    whose model axis divides ``DRAW_TILES`` (1, 2 or 4 over any data
+    size: the params replicate over "data"), without ``fsdp``, for a
+    decoder-only config of ``dense`` blocks (attention and FFN: Nemotron,
+    Mistral-NeMo, Qwen3); raises on any other."""
+    from torch.distributed.tensor import DTensor
+    settings = settings or StepSettings()
+    sizes = shd.axis_sizes(mesh)
+    if cfg.is_encdec or set(block_pattern(cfg)) != {"dense"}:
+        raise ValueError(f"init_params_sharded: {cfg.name} is not a "
+                         "decoder-only LM of dense blocks")
+    if settings.fsdp:
+        raise ValueError("init_params_sharded: no draw for fsdp placements")
+    if set(sizes) != {"data", "model"} or DRAW_TILES % sizes["model"]:
+        raise ValueError(f"init_params_sharded: mesh {sizes}: a (data, "
+                         f"model) mesh with model dividing {DRAW_TILES}")
+    device = torch.device(mesh.device_type,
+                          torch.cuda.current_device()
+                          if mesh.device_type == "cuda" else None)
+    abstract = abstract_params(cfg)
+    flat, spec = pytree.tree_flatten_with_path(abstract)
+    placements = pytree.tree_leaves(
+        param_placements(mesh, settings, abstract), is_leaf=shd.is_layout)
+    out = []
+    for idx, ((path, leaf), pl) in enumerate(zip(flat, placements)):
+        block = _drawn_block(seed, idx, shd.path_str(path), leaf, pl, mesh,
+                             device)
+        out.append(DTensor.from_local(block, mesh, pl, run_check=False,
+                                      shape=leaf.shape,
+                                      stride=leaf.stride()))
+    return pytree.tree_unflatten(out, spec)
+
+
+def place_caches(mesh, cfg: ArchConfig, caches):
+    """``init_lm_cache``'s tree (the same on every rank) as DTensors in
+    ``data_shardings``' placements (``cache_pspec``), each rank cutting
+    its blocks from its own copy."""
+    from torch.distributed.tensor import distribute_tensor
+    pl = data_shardings(mesh, cfg, {"caches": caches})["caches"]
+    return pytree.tree_map(
+        lambda t, p: distribute_tensor(t, mesh, p, src_data_rank=None),
+        caches, pl, is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
 def place_batch(mesh, batch):

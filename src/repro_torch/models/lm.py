@@ -286,8 +286,15 @@ def _prefill_kv(cache, k: torch.Tensor, v: torch.Tensor, window) -> None:
     if window is None and S > buf:
         raise ValueError(f"prefill of {S} positions into a KV cache of "
                          f"{buf}")
-    pos = torch.arange(max(S - buf, 0), S, device=k.device)
-    write_kv(cache, pos % buf, k[:, pos], v[:, pos])
+    # positions lo..S-1 fill at most two runs of slots, each written
+    # through a slice (DTensor caches take no index_put_)
+    lo = max(S - buf, 0)
+    first = min(S - lo, buf - lo % buf)
+    write_kv(cache, slice(lo % buf, lo % buf + first), k[:, lo:lo + first],
+             v[:, lo:lo + first])
+    if lo + first < S:
+        write_kv(cache, slice(0, S - lo - first), k[:, lo + first:],
+                 v[:, lo + first:])
 
 
 # ------------------------------------------------------------- caches ----
