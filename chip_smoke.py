@@ -153,9 +153,10 @@ then one float32 step at reduced depth held against the same step with
 every kernel swapped for its plain version; ``phase_train_faults`` runs
 the reference's three fault-tolerance scenarios on reduced qwen3_4b;
 ``phase_train_mesh`` the sharded train step and ``phase_serve_tp`` the
-tensor-parallel prefill and decode steps (full-width nemotron_4_340b at
-2 layers from the sharded weight draw), each over a (1, 1) mesh of a
-world-1 nccl group and held to its unsharded counterpart.
+tensor-parallel prefill and decode steps (full-width nemotron_4_340b and
+llama4_maverick_400b_a17b at 2 layers from the sharded weight draw, the
+latter's experts through the expert-parallel dispatch), each over a (1,
+1) mesh of a world-1 nccl group and held to its unsharded counterpart.
 Every phase prints one JSON line and raises on failure. The line before
 the last is the kernels' record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -228,6 +229,7 @@ from repro_torch.models.cdepth import (  # noqa: E402
     lm_flow_apply, lm_flow_init, lm_g_init)
 from repro_torch.models import conv_node  # noqa: E402
 from repro_torch.models.lm import init_lm  # noqa: E402
+from repro_torch.nn import moe as nn_moe  # noqa: E402
 from repro_torch.nn.cnf import (  # noqa: E402
     cnf_log_prob, cnf_mlp_init, cnf_sample, depth_column,
     exact_trace_dynamics)
@@ -2625,6 +2627,79 @@ def lost_cache_writes():
         yield
     finally:
         lm.block_decode = orig
+
+
+@contextlib.contextmanager
+def routed_experts():
+    """Records, while open, the routing of every MoE dispatch
+    (``nn/moe.py::_dispatch``: on one device, or each device's local
+    dispatch under expert parallelism) of a top-1 model: a list with one
+    dict a dispatch, in call order: ``expert``, the (B, S) long tensor of
+    each token's top-1 expert laid out as the dispatch's input x (B, S,
+    d); ``routed``, the same with -1 where the token's slot was dropped
+    (past the expert's capacity); and ``margin``, the least gap between a
+    token's first and second router probability (a 0-d tensor). The
+    router runs again on the same inputs to read it; the package keeps no
+    such record."""
+    records = []
+    orig = nn_moe._dispatch
+
+    def recorded(params, x, **kw):
+        out = orig(params, x, **kw)
+        if kw["top_k"] != 1:
+            raise ValueError("routed_experts: a top-1 model only")
+        with torch.no_grad():
+            xg = nn_moe._grouped(x, kw["groups"])
+            G, T, d = xg.shape
+            E = kw["n_experts"]
+            _, probs, _, expert = nn_moe._route(
+                params, xg.reshape(G * T, d), 1, kw["renorm_gates"])
+            e = expert.reshape(G, T)
+            # each token's place in its expert's queue (token order within
+            # the group: both dispatch orders at top-1)
+            pos = torch.nn.functional.one_hot(e, E).cumsum(1).gather(
+                2, e[..., None])[..., 0] - 1
+            routed = torch.where(
+                pos < nn_moe.capacity(1, T, kw["capacity_factor"], E), e, -1)
+            if kw["groups"] == "position":
+                e, routed = e.t(), routed.t()
+            top = torch.topk(probs, 2, dim=-1).values
+            records.append(dict(expert=e.reshape(x.shape[:2]),
+                                routed=routed.reshape(x.shape[:2]),
+                                margin=(top[:, 0] - top[:, 1]).min()))
+        return out
+
+    nn_moe._dispatch = recorded
+    try:
+        yield records
+    finally:
+        nn_moe._dispatch = orig
+
+
+@contextlib.contextmanager
+def dropped_combine():
+    """A planted expert-parallel fault: the combine of
+    ``nn/moe.py::_dispatch_sharded`` skips its all-reduce, so each device
+    keeps its own experts' share of every token's expert output as if it
+    were the whole (a token routed to another device's expert loses that
+    expert's output there, and the devices' residual streams part). A
+    check of the expert-parallel path must read this fault above its
+    limit. On a one-device mesh it changes nothing."""
+    from torch.distributed.tensor import DTensor, Replicate
+    orig = nn_moe._combine
+
+    def faulty(y, placements):
+        mine = DTensor.from_local(
+            y.to_local(), y.device_mesh,
+            [Replicate() if p.is_partial() else p for p in y.placements],
+            run_check=False)
+        return orig(mine, placements)
+
+    nn_moe._combine = faulty
+    try:
+        yield
+    finally:
+        nn_moe._combine = orig
 
 
 def generate_logits(params, cfg, prompt, gen, w):
@@ -5915,76 +5990,79 @@ def phase_train_mesh(dev):
 
 
 
-# The tensor-parallel serve steps on one card: full-width Nemotron-4-340B
-# cut to SERVE_TP_LAYERS layers (32.7 GB of bf16 weights), drawn by the
-# sharded draw on a (1, 1) mesh of a world-1 nccl group, the sharded
-# prefill step and SERVE_TP_STEPS sharded decode steps held to the
-# unsharded steps on the same tensors. Where they are not bit for bit
-# equal, the worst relative L2 error of their logits is held to
-# SERVE_TP_TOL, tools/serve_tp_smoke.py's PARITY_TOL["nemotron_4_340b"]
-# (four cards against one: sound 8.1e-3, planted fault 0.126; PERF.md
-# section 6).
+# The tensor-parallel serve steps on one card, each model at full width
+# cut to SERVE_TP_LAYERS layers, drawn by the sharded draw on a (1, 1)
+# mesh of a world-1 nccl group, the sharded prefill step and
+# SERVE_TP_STEPS sharded decode steps held to the unsharded steps on the
+# same tensors: Nemotron-4-340B (32.7 GB of bf16 weights), then Llama-4
+# Maverick (37.1 GB: one (dense, moe) group, its 128 experts through the
+# expert-parallel dispatch, here all on the one device). Where Nemotron's
+# are not bit for bit equal, the worst relative L2 error of their logits
+# is held to SERVE_TP_TOL, tools/serve_tp_smoke.py's
+# PARITY_TOL["nemotron_4_340b"] (four cards against one: sound 8.1e-3,
+# planted fault 0.126; PERF.md section 6); Maverick's must be equal, and
+# its routing too (a flipped expert moves a token's whole output, so no
+# relative error between the two says much).
 SERVE_TP_LAYERS, SERVE_TP_STEPS, SERVE_TP_TOL = 2, 8, 5e-2
+SERVE_TP_ARCHS = ("nemotron_4_340b", "llama4_maverick_400b_a17b")
 
 
-def phase_serve_tp(dev):
-    """A main path: ``make_prefill_step(mesh=)``, ``lm_prefill`` into
-    DTensor caches (``place_caches``) under ``sharded_context``, and
-    ``make_serve_step(mesh=)`` over ``one_card_mesh()``, on weights from
-    ``init_params_sharded`` (seed 0), the serve phases' 8 x 128 prompt
-    (``RandomState(1)``), the decode fed the unsharded run's greedy
-    tokens. The unsharded steps (``make_prefill_step(cfg, settings)``,
-    ``lm_prefill``, ``make_serve_step(cfg)``) run first on the same
-    tensors (``to_local()``: on one device a block is the whole leaf).
-    Raises unless the flash launches of the sharded run are one per
-    layer in each of its two prefills, the logits are finite, and each
-    logits pair is equal or within SERVE_TP_TOL by relative L2. Prints
-    the draw's ms, both decode loops' ms a step and whether the two runs
-    are equal bit for bit. Returns the sharded run's launches."""
+def serve_tp_case(dev, mesh, arch):
+    """One model of ``phase_serve_tp``: the unsharded steps, then the
+    sharded ones on the same weights; raises on a failed check and
+    returns the sharded run's launches."""
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get("nemotron_4_340b"),
-                              n_layers=SERVE_TP_LAYERS)
+    cfg = dataclasses.replace(get(arch), n_layers=SERVE_TP_LAYERS)
     settings = StepSettings()
     n = SERVE_TP_STEPS
     prompt = torch.as_tensor(np.random.RandomState(1).randint(
         0, cfg.vocab, size=(B, S)).astype(np.int32), device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    with one_card_mesh() as mesh, torch.no_grad():
+    record = routed_experts if cfg.n_experts else contextlib.nullcontext
+    with torch.no_grad():
         params, draw_ms = synced_ms(lambda: steps.init_params_sharded(
             0, cfg, mesh, settings))
         plain = pytree.tree_map(lambda t: t.to_local(), params)
-        want = [steps.make_prefill_step(cfg, settings)(
-            plain, {"tokens": prompt})]
-        caches = lm.init_lm_cache(cfg, B, S + n + 1, device=dev)
-        last, caches = lm.lm_prefill(plain, cfg, prompt, caches)
-        want.append(last)
-        toks = [last.argmax(-1)]
-        serve1 = steps.make_serve_step(cfg)
+        with record() as want_routes:
+            want = [steps.make_prefill_step(cfg, settings)(
+                plain, {"tokens": prompt})]
+            caches = lm.init_lm_cache(cfg, B, S + n + 1, device=dev)
+            last, caches = lm.lm_prefill(plain, cfg, prompt, caches)
+            want.append(last)
+            toks = [last.argmax(-1)]
+            serve1 = steps.make_serve_step(cfg)
 
-        def plain_decode():
-            for i in range(n):
-                logits, _ = serve1(plain, toks[i], caches, S + i)
-                want.append(logits)
-                toks.append(logits.argmax(-1))
-        _, plain_ms = synced_ms(plain_decode)
+            def plain_decode(keep):
+                for i in range(n):
+                    logits, _ = serve1(plain, toks[i], caches, S + i)
+                    if keep:
+                        want.append(logits)
+                        toks.append(logits.argmax(-1))
+            plain_decode(keep=True)
+        # timed again with the recorder off (it runs each router twice);
+        # each step writes the cache slot it wrote before
+        _, plain_ms = synced_ms(lambda: plain_decode(keep=False))
         del caches, plain
         release_card()
         LAUNCHES.clear()
-        got = [steps.make_prefill_step(cfg, settings, mesh=mesh)(
-            params, {"tokens": prompt})]
-        caches = steps.place_caches(mesh, cfg, lm.init_lm_cache(
-            cfg, B, S + n + 1, device=dev))
-        with steps.sharded_context(mesh, settings, "prefill"):
-            last, caches = lm.lm_prefill(
-                params, cfg, steps.place_batch(mesh, prompt), caches)
-        got.append(last)
-        serve = steps.make_serve_step(cfg, mesh=mesh)
+        with record() as got_routes:
+            got = [steps.make_prefill_step(cfg, settings, mesh=mesh)(
+                params, {"tokens": prompt})]
+            caches = steps.place_caches(mesh, cfg, lm.init_lm_cache(
+                cfg, B, S + n + 1, device=dev))
+            with steps.sharded_context(mesh, settings, "prefill"):
+                last, caches = lm.lm_prefill(
+                    params, cfg, steps.place_batch(mesh, prompt), caches)
+            got.append(last)
+            serve = steps.make_serve_step(cfg, mesh=mesh)
 
-        def sharded_decode():
-            for i in range(n):
-                logits, _ = serve(params, toks[i], caches, S + i)
-                got.append(logits)
-        _, sharded_ms = synced_ms(sharded_decode)
+            def sharded_decode(keep):
+                for i in range(n):
+                    logits, _ = serve(params, toks[i], caches, S + i)
+                    if keep:
+                        got.append(logits)
+            sharded_decode(keep=True)
+        _, sharded_ms = synced_ms(lambda: sharded_decode(keep=False))
         counted = dict(LAUNCHES)
         got = [g.to_local() for g in got]
         del caches, params
@@ -5996,23 +6074,63 @@ def phase_serve_tp(dev):
     agree = min(float((a.argmax(-1) == b.argmax(-1)).float().mean())
                 for a, b in zip(got, want))
     finite = all(bool(torch.isfinite(g).all()) for g in got)
-    del got, want
+    routing = None
+    if cfg.n_experts:
+        routing = dict(
+            dispatches=len(got_routes),
+            equal=len(got_routes) == len(want_routes) and all(
+                torch.equal(a["routed"], b["routed"])
+                for a, b in zip(got_routes, want_routes)),
+            dropped_share=float(torch.cat([
+                (r["routed"] < 0).flatten() for r in got_routes]).float()
+                .mean()),
+            min_margin=min(float(r["margin"]) for r in got_routes))
+    del got, want, got_routes, want_routes
     release_card()
-    expected = 2 * lm.group_layout(cfg)[1]
-    if counted.get("flash_attention", 0) != expected or not finite or \
-            any(e > SERVE_TP_TOL for e in errs.values()):
-        raise AssertionError(f"serve_tp: launches {counted} (flash "
+    expected = 2 * cfg.n_layers     # every block attends: one a prefill
+    off = counted.get("flash_attention", 0) != expected or not finite or (
+        any(e > SERVE_TP_TOL for e in errs.values()) if not cfg.n_experts
+        else bool(errs) or not routing["equal"])
+    if off:
+        raise AssertionError(f"serve_tp {arch}: launches {counted} (flash "
                              f"{expected} expected), finite {finite}, "
-                             f"gaps {errs} against {SERVE_TP_TOL}")
+                             f"gaps {errs} against "
+                             f"{0 if cfg.n_experts else SERVE_TP_TOL}, "
+                             f"routing {routing}")
     emit(phase="serve_tp", arch=cfg.name, layers=cfg.n_layers, mesh=[1, 1],
          batch=[B, S], decode_steps=n, draw_ms=draw_ms,
          plain_decode_ms_per_step=plain_ms / n,
          sharded_decode_ms_per_step=sharded_ms / n,
          bit_equal=not errs, unequal_rel_l2=errs or None,
-         limit=SERVE_TP_TOL, min_argmax_agree=agree, launches=counted,
+         limit=0.0 if cfg.n_experts else SERVE_TP_TOL,
+         min_argmax_agree=agree, routing=routing, launches=counted,
          peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          seconds=time.perf_counter() - t0)
     return counted
+
+
+def phase_serve_tp(dev):
+    """A main path: ``make_prefill_step(mesh=)``, ``lm_prefill`` into
+    DTensor caches (``place_caches``) under ``sharded_context``, and
+    ``make_serve_step(mesh=)`` over ``one_card_mesh()``, for each model of
+    SERVE_TP_ARCHS (``serve_tp_case``), on weights from
+    ``init_params_sharded`` (seed 0), the serve phases' 8 x 128 prompt
+    (``RandomState(1)``), the decode fed the unsharded run's greedy
+    tokens. The unsharded steps (``make_prefill_step(cfg, settings)``,
+    ``lm_prefill``, ``make_serve_step(cfg)``) run first on the same
+    tensors (``to_local()``: on one device a block is the whole leaf).
+    Raises unless the flash launches of each sharded run are one per
+    layer in each of its two prefills, the logits are finite, and each
+    logits pair is equal or (Nemotron's) within SERVE_TP_TOL by relative
+    L2; Maverick's routing (``routed_experts``: each token's expert, or a
+    drop) must be equal too. Prints each model's draw ms, both decode
+    loops' ms a step and whether the two runs are equal bit for bit.
+    Returns the sharded runs' launches, summed."""
+    counted = collections.Counter()
+    with one_card_mesh() as mesh:
+        for arch in SERVE_TP_ARCHS:
+            counted.update(serve_tp_case(dev, mesh, arch))
+    return dict(counted)
 
 
 def release_card():

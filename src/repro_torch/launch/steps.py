@@ -38,10 +38,11 @@ Gradients leave the backward in their ZeRO placements (a DTensor
 gradient otherwise comes out as a full-size partial sum on every
 device), and the microbatch accumulator in ``acc_dtype`` lives there too.
 ``shard_state`` places a param tree and a fresh optimizer state for a
-step; ``init_params_sharded`` draws a dense LM's weights already in
-their placements, each device only its own blocks (a model no card
-holds), and ``place_caches`` places ``init_lm_cache``'s caches for the
-sharded serve step. Every device takes the same global batch (``token_batches`` with
+step; ``init_params_sharded`` draws a dense or MoE LM's weights already
+in their placements, each device only its own blocks (a model no card
+holds; under expert parallelism a device draws its own experts), and
+``place_caches`` places ``init_lm_cache``'s caches for the sharded serve
+step. Every device takes the same global batch (``token_batches`` with
 one seed), each microbatch is split from it exactly as on one device
 (rows ``[i·B/m, (i+1)·B/m)``) and placed over the batch axes, so the
 sharded step computes the unsharded step's values up to the order of
@@ -58,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -275,17 +277,23 @@ def shard_state(mesh, settings: StepSettings, params, opt: Optimizer,
 # The sharded draw's tiling: each group slice of a leaf is cut into
 # DRAW_TILES equal blocks along the dim its rule puts over "model", and
 # each block drawn from a generator of its own, so that a device's block
-# on a model axis of 1, 2 or 4 is a union of whole tiles.
+# on a model axis of 1, 2 or 4 is a union of whole tiles. An expert stack
+# (``moe/w[igd]``, experts over "model") is cut into its experts instead:
+# one tile, and one generator, an expert.
 DRAW_TILES = 4
+_EXPERT_STACK = re.compile(r"moe/w[igd]$")
 
 
 def _leaf_init(path: str, shape) -> Tuple[str, float]:
-    """``init_lm``'s distribution of one leaf of a dense-block LM:
-    ``("normal", scale)`` for ``truncated_normal_init`` at that scale
-    (``dense_init``'s fan-in rule, ``attention_init``'s ``wo`` included:
-    its fan-in is ``n_heads * d_head``; 1 for the embedding, 0.02 for
-    learned positions), ``("ones", 1.0)`` for a norm's scale."""
-    if path.endswith("/kernel"):
+    """``init_lm``'s distribution of one leaf of a decoder-only LM of
+    dense and MoE blocks: ``("normal", scale)`` for
+    ``truncated_normal_init`` at that scale (``dense_init``'s fan-in rule,
+    ``attention_init``'s ``wo``, the router and the shared expert
+    included: ``wo``'s fan-in is ``n_heads * d_head``; ``moe_init``'s
+    expert stacks ``(E, d, f)`` and ``(E, f, d)`` at ``d ** -0.5`` and
+    ``f ** -0.5``, their fan-in too; 1 for the embedding, 0.02 for learned
+    positions), ``("ones", 1.0)`` for a norm's scale."""
+    if path.endswith("/kernel") or _EXPERT_STACK.search(path):
         return "normal", shape[-2] ** -0.5
     if path == "embed/table":
         return "normal", 1.0
@@ -308,14 +316,23 @@ def _drawn_block(seed: int, idx: int, path: str, leaf, placements, mesh,
                  device) -> torch.Tensor:
     """This device's block of leaf ``idx`` under ``placements``, drawn
     tile by tile: the union of the tiles its block covers, each drawn
-    alone (float32, then cast) and copied into place."""
+    alone (float32, then cast) and copied into place. A group slice has
+    DRAW_TILES tiles along its "model" dim, or, for an expert stack
+    ``moe/w[igd]`` (``(G, E, d, f)``, E over "model"), E tiles: one
+    expert each, so its float32 transient is one expert's matrix and a
+    device's experts on a model axis dividing E are whole tiles. Dense
+    leaves keep DRAW_TILES tiles (their values do not change with the
+    expert rule)."""
     from torch.distributed.tensor import Shard
     kind, scale = _leaf_init(path, leaf.shape)
     spec = shd.param_pspec(path, leaf.ndim)
     model = [i for i, ax in enumerate(spec) if "model" in shd._axes(ax)]
     dim = model[0] if model else None
-    n_tiles = DRAW_TILES if dim is not None \
-        and leaf.shape[dim] % DRAW_TILES == 0 else 1
+    if dim is not None and _EXPERT_STACK.search(path):
+        n_tiles = leaf.shape[dim]
+    else:
+        n_tiles = DRAW_TILES if dim is not None \
+            and leaf.shape[dim] % DRAW_TILES == 0 else 1
     sharded = {p.dim for p in placements if isinstance(p, Shard)}
     if sharded - {dim}:
         raise ValueError(f"init_params_sharded: {path} sharded on dims "
@@ -351,31 +368,48 @@ def init_params_sharded(seed: int, cfg: ArchConfig, mesh,
     as DTensors in ``param_placements``, the counterpart of the
     reference's ``jax.jit(init, out_shardings=p_sh)``. Each device draws
     only its own blocks, on its own device, tile by tile (``DRAW_TILES``
-    tiles a group slice along the dim its rule shards over ``"model"``,
-    each from a generator seeded by (``seed``, leaf, slice, tile)), in
-    ``init_lm``'s distributions (``_leaf_init``); no device and no host
-    holds a whole leaf, and no tensor larger than one tile is made beside
-    the blocks. The values depend on ``seed`` and on the device type, not
-    on the mesh: the same global weights on a (1, 1), (1, 2), (2, 2) or
-    (1, 4) mesh. They are not ``init_lm``'s values (one generator there
-    draws each leaf whole).
+    tiles a group slice along the dim its rule shards over ``"model"``;
+    the MoE expert stacks ``moe/wi``, ``moe/wg`` and ``moe/wd``, whose
+    experts lie over ``"model"``, one tile an expert; each tile from a
+    generator seeded by (``seed``, leaf, slice, tile)), in ``init_lm``'s
+    distributions (``_leaf_init``); no device and no host holds a whole
+    leaf, and no tensor larger than one tile is made beside the blocks.
+    The values depend on ``seed`` and on the device type, not on the
+    mesh: the same global weights on a (1, 1), (1, 2), (2, 2) or (1, 4)
+    mesh. They are not ``init_lm``'s values (one generator there draws
+    each leaf whole). A dense leaf's values are those of the draw before
+    the expert rule existed.
 
     Supports a ``make_debug_mesh`` mesh (axes ``("data", "model")``)
-    whose model axis divides ``DRAW_TILES`` (1, 2 or 4 over any data
-    size: the params replicate over "data"), without ``fsdp``, for a
-    decoder-only config of ``dense`` blocks (attention and FFN: Nemotron,
-    Mistral-NeMo, Qwen3); raises on any other."""
+    whose model axis divides ``DRAW_TILES`` and the expert count (1, 2 or
+    4 over any data size: the params replicate over "data"), without
+    ``fsdp``, with the experts over ``"model"`` (``set_ep_axis``'s
+    default), for a decoder-only config of ``dense`` and ``moe`` blocks
+    (attention and FFN, attention and experts with the router and the
+    shared expert: Nemotron, Mistral-NeMo, Qwen3, Llama-4 Maverick,
+    OLMoE); raises on any other: ``rec`` and ``rwkv`` blocks and
+    encoder-decoder configs have no draw rules yet (ROADMAP.md item
+    32)."""
     from torch.distributed.tensor import DTensor
     settings = settings or StepSettings()
     sizes = shd.axis_sizes(mesh)
-    if cfg.is_encdec or set(block_pattern(cfg)) != {"dense"}:
-        raise ValueError(f"init_params_sharded: {cfg.name} is not a "
-                         "decoder-only LM of dense blocks")
+    kinds = {"encoder-decoder"} if cfg.is_encdec else set(block_pattern(cfg))
+    if not kinds <= {"dense", "moe"}:
+        raise ValueError(
+            f"init_params_sharded: {cfg.name} is not a decoder-only LM of "
+            f"dense and moe blocks ({', '.join(sorted(kinds))}): the other "
+            "families' draw rules are ROADMAP.md item 32")
     if settings.fsdp:
         raise ValueError("init_params_sharded: no draw for fsdp placements")
-    if set(sizes) != {"data", "model"} or DRAW_TILES % sizes["model"]:
+    if "moe" in kinds and shd._EP["axis"] != "model":
+        raise ValueError("init_params_sharded: experts over "
+                         f"{shd._EP['axis']!r}: the draw tiles expert "
+                         "stacks over 'model' only")
+    if set(sizes) != {"data", "model"} or DRAW_TILES % sizes["model"] or (
+            "moe" in kinds and cfg.n_experts % sizes["model"]):
         raise ValueError(f"init_params_sharded: mesh {sizes}: a (data, "
-                         f"model) mesh with model dividing {DRAW_TILES}")
+                         f"model) mesh with model dividing {DRAW_TILES} "
+                         "and the expert count")
     device = torch.device(mesh.device_type,
                           torch.cuda.current_device()
                           if mesh.device_type == "cuda" else None)

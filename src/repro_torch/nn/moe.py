@@ -231,11 +231,20 @@ def _dispatch_sharded(params, x: torch.Tensor, **kw) -> MoEOutput:
     queues and capacities are the global batch's, as the reference's),
     and runs its own experts' GEMMs on its own f block; the combine is a
     partial sum over the axes that shard the stacks, reduced back into
-    x's placements. The aux terms come out of every device as a 1/n
-    share of that sum, so their gradients are not counted n times. The
-    router's sort and the queues' scatters run on local tensors, as no
-    DTensor rule covers them. Correct before fast: an all-to-all dispatch
-    of each device's own tokens is later work (ROADMAP.md)."""
+    x's placements (``_combine``). The aux terms come out of every device
+    as a 1/n share of that sum, so their gradients are not counted n
+    times. The router's sort and the queues' scatters run on local
+    tensors, as no DTensor rule covers them.
+
+    The gather costs something only where x is sharded over a batch axis
+    larger than 1 (training, data-parallel serving): there every device
+    computes its experts' share of every device's tokens, and an
+    all-to-all dispatch of each device's own tokens is later work
+    (ROADMAP.md item 22). On a (data 1, model n) mesh x is already whole
+    on every device (tensor parallelism all-reduces the residual), the
+    gather moves nothing, and this is expert parallelism with replicated
+    activations: each device its E/n experts on the tokens routed to
+    them, one all-reduce of the partial sum."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     wi = params["wi"]
     mesh = wi.device_mesh
@@ -268,9 +277,16 @@ def _dispatch_sharded(params, x: torch.Tensor, **kw) -> MoEOutput:
                                                 for l in leaves),
     )(x, params["router"]["kernel"], *leaves)
     back = tuple(Replicate() if p.is_partial() else p for p in x.placements)
-    return MoEOutput(y=y.redistribute(placements=back).to(x.dtype),
+    return MoEOutput(y=_combine(y, back).to(x.dtype),
                      aux_loss=aux, router_z_loss=z,
                      fraction_dropped=dropped)
+
+
+def _combine(y, placements):
+    """The expert-parallel combine: ``y``, every device's share of each
+    token's expert output (a ``Partial`` sum over the mesh dims that
+    shard the expert stacks), all-reduced into ``placements``."""
+    return y.redistribute(placements=placements)
 
 
 def _z_loss(logits: torch.Tensor) -> torch.Tensor:
